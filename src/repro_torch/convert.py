@@ -1,0 +1,126 @@
+"""Weights bridge between the reference's parameter tree and the port's.
+
+The reference stacks the layers of each homogeneous group on a leading
+axis (``params["blocks"]`` is a list of groups, every leaf ``(len(group),
+...)``); the port holds one dict per layer.  For the dense stack every
+layer is one group.
+
+* ``from_jax_params(tree)`` — a reference tree whose leaves are numpy
+  arrays (``jax.device_get(params)``) -> the port's params.
+* ``from_npz(path)`` — the same from a reference checkpoint
+  (``training/checkpoint.py``: keys are ``"params/"`` + "/"-joined tree
+  paths, list indices as numbers).
+* ``to_flat(params)`` — the port's params -> that flat ``{path: array}``
+  form with the layer axis restacked, so a round trip can be checked leaf
+  by leaf.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+_KEEP_F32 = ("scale",)     # norm scales stay float32
+
+
+def _tensor(a, device, dtype, key: str) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a, dtype=np.float32))
+    if dtype is not None and key not in _KEEP_F32:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def _convert(tree, device, dtype, key=""):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device, dtype, k) for k, v in tree.items()}
+    return _tensor(tree, device, dtype, key)
+
+
+def _unstack(group: dict, n: int, device, dtype):
+    def pick(tree, i, key=""):
+        if isinstance(tree, dict):
+            return {k: pick(v, i, k) for k, v in tree.items()}
+        return _tensor(np.asarray(tree)[i], device, dtype, key)
+    return [pick(group, i) for i in range(n)]
+
+
+def _group_len(group: dict) -> int:
+    leaf = group
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return int(np.asarray(leaf).shape[0])
+
+
+def from_jax_params(tree: dict, device="cuda",
+                    dtype: Optional[torch.dtype] = None) -> dict:
+    """Reference params (numpy leaves) -> port params on ``device``.
+    ``dtype`` casts the matrices (norm scales stay f32); ``None`` keeps
+    f32."""
+    dev = resolve_device(device)
+    unknown = set(tree) - {"embed", "norm_f", "blocks"}
+    if unknown:
+        raise NotImplementedError(
+            f"parameter groups {sorted(unknown)} belong to architectures "
+            f"the port does not run yet")
+    out = {"embed": _convert(tree["embed"], dev, dtype),
+           "norm_f": _convert(tree["norm_f"], dev, dtype)}
+    out["blocks"] = [layer for group in tree["blocks"]
+                     for layer in _unstack(group, _group_len(group), dev,
+                                           dtype)]
+    return out
+
+
+def _nest(flat: Dict[str, np.ndarray]) -> dict:
+    """"/"-joined paths -> nested dicts; numeric keys become list slots."""
+    root: dict = {}
+    for path, arr in flat.items():
+        node = root
+        parts = path.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(root)
+
+
+def from_npz(path: str, device="cuda",
+             dtype: Optional[torch.dtype] = None) -> dict:
+    """Reference ``.npz`` checkpoint -> port params on ``device``."""
+    with np.load(path) as z:
+        flat = {k[len("params/"):]: z[k] for k in z.files
+                if k.startswith("params/")}
+    if not flat:
+        raise ValueError(f"{path}: no 'params/' entries")
+    return from_jax_params(_nest(flat), device=device, dtype=dtype)
+
+
+def to_flat(params: dict) -> Dict[str, np.ndarray]:
+    """Port params -> ``{reference path: f32 array}``, layers restacked as
+    one group (the dense stack's layout)."""
+    flat: Dict[str, np.ndarray] = {}
+    _walk(params["embed"], "embed/", flat)
+    _walk(params["norm_f"], "norm_f/", flat)
+    layers = []
+    for layer in params["blocks"]:
+        layers.append({})
+        _walk(layer, "", layers[-1])
+    for key in layers[0]:
+        flat[f"blocks/0/{key}"] = np.stack([d[key] for d in layers])
+    return flat
+
+
+def _walk(node: dict, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    for k, v in node.items():
+        if isinstance(v, dict):
+            _walk(v, f"{prefix}{k}/", out)
+        else:
+            out[f"{prefix}{k}"] = v.detach().float().cpu().numpy()

@@ -1,0 +1,26 @@
+"""Foreseeing decoding for masked-diffusion LMs, in PyTorch.
+
+  masking     — inference start states
+  confidence  — C_local metrics + the C_global (foreseeing) estimator
+  strategies  — the Strategy protocol + registry; Random/Probability/
+                Margin/Entropy + EB + WINO baselines
+  fdm         — Algorithm 1 (FDM)
+  fdm_a       — Algorithm 2 (FDM-A)
+  loop        — the eager block driver
+  decoder     — ``Decoder`` and ``SampleStats``
+"""
+from repro_torch.core.confidence import (Scores, global_confidence,
+                                         local_confidence, score_logits)
+from repro_torch.core.decoder import BlockEvent, Decoder, SampleStats
+from repro_torch.core.fdm import fdm_select, fdm_step
+from repro_torch.core.fdm_a import FDMAStrategy, fdm_a_plan
+from repro_torch.core.strategies import (Strategy, commit_topn, rank_desc,
+                                         register_strategy, resolve_strategy)
+
+__all__ = [
+    "Scores", "score_logits", "local_confidence", "global_confidence",
+    "Decoder", "SampleStats", "BlockEvent",
+    "fdm_select", "fdm_step", "FDMAStrategy", "fdm_a_plan",
+    "Strategy", "commit_topn", "rank_desc", "register_strategy",
+    "resolve_strategy",
+]

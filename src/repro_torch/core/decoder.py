@@ -1,0 +1,203 @@
+"""The decoding API of the port: ``Decoder`` and ``SampleStats``
+(reference: ``src/repro/core/decoder.py``).
+
+``Decoder(params_or_model_fn, cfg, dcfg, device="cuda")`` owns the
+semi-AR block loop: ``generate`` decodes ``gen_length`` tokens after a
+prompt, ``generate_blocks`` yields after every committed block.  Blocks,
+per-block step budgets and commit widths follow the reference's
+``_geometry`` exactly, so tokens, ``steps`` and ``forward_equivalents``
+match the reference decode for every strategy that draws no randomness.
+
+Not ported yet (each raises ``NotImplementedError``): ``cache_policy``
+other than ``none`` (ROADMAP.md queue 1 item 6), ``trace=True`` and the
+strategies ``wino_r``/``extrapolate`` (item 7).  ``fused_loop`` and
+``fused_blocks`` select among the reference's three drivers, which decode
+identically; the port has one eager driver and ignores them.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import DecodeConfig, ModelConfig
+from repro_torch.core.loop import run_block
+from repro_torch.core.masking import fully_masked
+from repro_torch.core.strategies import Strategy, resolve_strategy
+from repro_torch.device import resolve_device
+
+
+@dataclass
+class SampleStats:
+    steps: int = 0
+    forward_equivalents: float = 0.0  # batched-forward count (K-search = K)
+    wall_time: float = 0.0
+    tokens_generated: int = 0
+    phase_counts: Dict[str, float] = field(default_factory=dict)
+    revocations: float = 0.0
+    skipped_forwards: float = 0.0
+
+    @property
+    def tps(self) -> float:
+        return self.tokens_generated / max(self.wall_time, 1e-9)
+
+    @property
+    def tokens_per_forward(self) -> float:
+        return self.tokens_generated / max(self.forward_equivalents, 1)
+
+    def as_dict(self) -> Dict[str, Any]:
+        """The stable summary form (same keys as the reference's)."""
+        return {
+            "steps": int(self.steps),
+            "forward_equivalents": float(self.forward_equivalents),
+            "wall_time_s": float(self.wall_time),
+            "tokens_generated": int(self.tokens_generated),
+            "tps": float(self.tps),
+            "tokens_per_forward": float(self.tokens_per_forward),
+            "revocations": float(self.revocations),
+            "skipped_forwards": float(self.skipped_forwards),
+            "phase_counts": dict(self.phase_counts),
+        }
+
+
+class BlockEvent(NamedTuple):
+    """One committed semi-AR block; ``x`` is the live (B, L) canvas."""
+    block: int
+    lo: int
+    hi: int
+    x: Any
+
+
+def check_supported(dcfg: DecodeConfig) -> None:
+    """Raise ``NotImplementedError`` for decode options not ported yet."""
+    if dcfg.cache_policy != "none":
+        raise NotImplementedError(
+            f"cache_policy={dcfg.cache_policy!r} is not ported yet: "
+            f"ROADMAP.md queue 1 item 6 (the cached path)")
+    if dcfg.trace:
+        raise NotImplementedError(
+            "trace=True (step telemetry) is not ported yet: ROADMAP.md "
+            "queue 1 item 7")
+
+
+def check_kernel_flag(dcfg: DecodeConfig, device: torch.device) -> None:
+    """``use_pallas_kernel=False`` asked the reference for its plain jnp
+    path.  On a card the port has no such path to take quietly, so it
+    refuses; on the CPU the plain versions run whatever the flag says."""
+    if device.type == "cuda" and dcfg.use_pallas_kernel is False:
+        raise ValueError(
+            "use_pallas_kernel=False on a CUDA device: the port runs its "
+            "hand-written kernels on the card and has no plain path there; "
+            "leave it None (or True), or decode with device='cpu'")
+
+
+class Decoder:
+    """Block orchestration for any registered ``Strategy``.
+
+    ``model`` is the port's params dict (see ``models.model``) or a
+    callable ``tokens (B', L) -> logits (B', L, V)``.  ``device`` is where
+    the canvas lives (default ``"cuda"``; raises without a card unless the
+    caller asks for ``"cpu"``).
+    """
+
+    def __init__(self, model, cfg: ModelConfig, dcfg: DecodeConfig,
+                 device="cuda"):
+        self.cfg = cfg
+        self.dcfg = dcfg
+        self.device = resolve_device(device)
+        check_supported(dcfg)
+        check_kernel_flag(dcfg, self.device)
+        if callable(model):
+            self._model_fn = model
+        else:
+            from repro_torch.models.model import forward
+            self._model_fn = lambda t: forward(model, t, cfg)
+
+    # -- geometry ----------------------------------------------------------
+    def _geometry(self) -> Tuple[int, int, int, np.ndarray]:
+        """(gen, block_size, num_blocks, schedules): the reference's
+        ``Decoder._geometry``.  ``steps`` is spread exactly across blocks
+        (remainder to the leading blocks) and each block's widths spread
+        ``block_size`` over its budget likewise; rows are padded with their
+        final width, never zero."""
+        dcfg = self.dcfg
+        gen, bs = dcfg.gen_length, dcfg.block_size
+        assert gen % bs == 0, (gen, bs)
+        num_blocks = gen // bs
+        if dcfg.steps < num_blocks:
+            raise ValueError(
+                f"DecodeConfig.steps={dcfg.steps} is infeasible: semi-AR "
+                f"decoding runs at least one step per block and "
+                f"gen_length={gen} / block_size={bs} gives {num_blocks} "
+                f"blocks — raise steps or shrink the block count")
+        base, rem = divmod(dcfg.steps, num_blocks)
+        budgets = [base + (1 if b < rem else 0) for b in range(num_blocks)]
+        sched = np.zeros((num_blocks, max(budgets)), np.int32)
+        for b, spb in enumerate(budgets):
+            w, wr = divmod(bs, spb)
+            widths = [w + 1] * wr + [w] * (spb - wr)
+            sched[b] = widths + [widths[-1]] * (sched.shape[1] - spb)
+        return gen, bs, num_blocks, sched
+
+    # -- decoding ----------------------------------------------------------
+    def generate(self, rng, prompt, strategy=None,
+                 on_block_committed: Optional[Callable] = None
+                 ) -> Tuple[torch.Tensor, SampleStats]:
+        """Decode ``gen_length`` tokens after ``prompt`` (B, Lp).  Returns
+        (tokens (B, Lp+gen) on the decoder's device, SampleStats).
+
+        ``rng``: a ``torch.Generator`` on the device, an int seed, or
+        ``None`` (seed 0) — only the ``random`` strategy draws from it.
+        ``on_block_committed(block_index, lo, hi, x)`` fires after each
+        committed block."""
+        blocks = self.generate_blocks(rng, prompt, strategy)
+        while True:
+            try:
+                ev = next(blocks)
+            except StopIteration as fin:
+                return fin.value
+            if on_block_committed is not None:
+                on_block_committed(ev.block, ev.lo, ev.hi, ev.x)
+
+    def generate_blocks(self, rng, prompt, strategy=None):
+        """A generator of ``BlockEvent(block, lo, hi, x)``, one per
+        committed block; its return value is ``(tokens, stats)``."""
+        strat = resolve_strategy(strategy or self.dcfg.strategy)
+        geometry = self._geometry()       # geometry errors raise HERE
+        prompt = torch.as_tensor(prompt, device=self.device).long()
+        return self._blocks_gen(strat, self._generator(rng), prompt,
+                                geometry)
+
+    def _generator(self, rng) -> torch.Generator:
+        if isinstance(rng, torch.Generator):
+            return rng
+        return torch.Generator(device=self.device).manual_seed(
+            0 if rng is None else int(rng))
+
+    def _blocks_gen(self, strat: Strategy, gen: torch.Generator,
+                    prompt: torch.Tensor, geometry):
+        cfg, dcfg = self.cfg, self.dcfg
+        b, lp = prompt.shape
+        gen_len, bs, num_blocks, sched = geometry
+        x = fully_masked(cfg, prompt, gen_len)
+        carry = strat.init_carry(cfg, dcfg, self.device)
+        stats = SampleStats(tokens_generated=b * gen_len)
+        pos = torch.arange(x.shape[1], device=self.device)
+        t0 = time.perf_counter()
+        for blk in range(num_blocks):
+            lo, hi = lp + blk * bs, lp + (blk + 1) * bs
+            in_block = (pos >= lo) & (pos < hi)
+            x, carry, steps, fwd = run_block(
+                strat, self._model_fn, cfg, dcfg, sched[blk], x, gen,
+                in_block, carry)
+            stats.steps += steps
+            stats.forward_equivalents += fwd
+            yield BlockEvent(blk, lo, hi, x)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        stats.phase_counts = strat.phase_counts(carry)
+        stats.wall_time = time.perf_counter() - t0
+        return x, stats

@@ -1,0 +1,192 @@
+"""Decoding strategies of the port: the ``Strategy`` protocol, the registry
+and the heuristic, EB and WINO baselines (reference:
+``src/repro/core/strategies.py``).
+
+The protocol keeps the part of the reference's that the ported
+strategies use:
+
+  * ``init_carry(cfg, dcfg, device) -> carry`` — per-decode state
+    (``()`` for the stateless builtins; FDM-A counts its phases in a
+    tensor);
+  * ``step(rng, carry, x, active, model_fn, cfg, dcfg, n)
+    -> (new_x, new_carry, forwards)`` — one denoising step; ``rng`` is a
+    ``torch.Generator`` on the canvas's device, ``n`` the nominal commit
+    width (an int);
+  * ``phase_counts(carry)`` — host-side counters read from the final
+    carry into ``SampleStats``.
+
+The reference's trace-safe ``fused_step`` has no counterpart yet: the port
+drives every strategy from one eager loop (the CUDA-graph driver is
+ROADMAP.md queue 1 item 5); the block-entry hook and carry statistics
+come with the carry-ful strategies (item 7).  The registry is the port's
+own; the reference's registry is never touched.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple, Union
+
+import torch
+
+from repro_torch.configs.base import DecodeConfig, ModelConfig
+from repro_torch.core.confidence import local_confidence, score_logits
+
+ModelFn = Callable[[torch.Tensor], torch.Tensor]   # tokens (B,L) -> logits
+
+NEG = -1e30
+
+# registered in the reference, not ported yet (ROADMAP.md queue 1 item 7)
+NOT_PORTED = {"wino_r": "core/wino.py", "extrapolate": "core/extrapolate.py"}
+
+
+def rank_desc(conf: torch.Tensor) -> torch.Tensor:
+    """Dense descending rank per row: rank 0 = highest confidence; equal
+    scores rank by position (a stable sort, as ``jnp.argsort``)."""
+    order = torch.argsort(-conf, dim=-1, stable=True)
+    return torch.argsort(order, dim=-1, stable=True)
+
+
+def commit_topn(x: torch.Tensor, conf: torch.Tensor, cand: torch.Tensor,
+                eligible: torch.Tensor,
+                n: Union[int, torch.Tensor]) -> torch.Tensor:
+    """Commit cand tokens at the top-n eligible positions per example.
+
+    conf (B,L) ranking score; eligible (B,L) bool; n (B,) or an int.
+    """
+    c = torch.where(eligible, conf, torch.full_like(conf, NEG))
+    ranks = rank_desc(c)
+    n_arr = n if isinstance(n, torch.Tensor) else \
+        torch.full((x.shape[0],), n, device=x.device)
+    commit = eligible & (ranks < n_arr[:, None])
+    return torch.where(commit, cand.to(x.dtype), x)
+
+
+class Strategy:
+    """Base class for decoding strategies (see module docstring)."""
+
+    name: str = ""
+
+    def init_carry(self, cfg: ModelConfig, dcfg: DecodeConfig, device):
+        return ()
+
+    def phase_counts(self, carry) -> Dict[str, int]:
+        return {}
+
+    def step(self, rng, carry, x, active, model_fn: ModelFn,
+             cfg: ModelConfig, dcfg: DecodeConfig, n) -> Tuple:
+        raise NotImplementedError
+
+    def __repr__(self):
+        return f"<{type(self).__name__} {self.name!r}>"
+
+
+class StatelessStrategy(Strategy):
+    """Lifts ``step_fn(rng, x, active, model_fn, cfg, dcfg, n) -> (x,
+    forwards)`` into the protocol."""
+
+    def __init__(self, name: str, step_fn: Callable):
+        self.name = name
+        self._step_fn = step_fn
+
+    def step(self, rng, carry, x, active, model_fn, cfg, dcfg, n):
+        new_x, fwd = self._step_fn(rng, x, active, model_fn, cfg, dcfg, n)
+        return new_x, carry, fwd
+
+
+# --------------------------------------------------------------------------
+# registry
+# --------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, Strategy] = {}
+_BUILTINS_LOADED = False
+
+
+def register_strategy(strategy: Strategy, replace: bool = False):
+    """Register a ``Strategy`` instance under its ``name``."""
+    if not isinstance(strategy, Strategy):
+        raise TypeError(f"{strategy!r} is not a Strategy")
+    if not strategy.name:
+        raise ValueError(f"{strategy!r} has no name")
+    old = _REGISTRY.get(strategy.name)
+    if old is not None and old is not strategy and not replace:
+        raise ValueError(f"strategy {strategy.name!r} already registered "
+                         "(pass replace=True to override)")
+    _REGISTRY[strategy.name] = strategy
+    return strategy
+
+
+def _ensure_builtins() -> None:
+    global _BUILTINS_LOADED
+    if _BUILTINS_LOADED:
+        return
+    _BUILTINS_LOADED = True
+    import repro_torch.core.fdm      # noqa: F401  (registers "fdm")
+    import repro_torch.core.fdm_a    # noqa: F401  (registers "fdm_a")
+
+
+def resolve_strategy(name) -> Strategy:
+    """Look up a registered ``Strategy`` by name (a ``Strategy`` passes
+    through)."""
+    if isinstance(name, Strategy):
+        return name
+    _ensure_builtins()
+    if name in NOT_PORTED and name not in _REGISTRY:
+        raise NotImplementedError(
+            f"strategy {name!r} ({NOT_PORTED[name]} in the reference) is "
+            f"not ported yet: ROADMAP.md queue 1 item 7")
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown strategy {name!r}; "
+                       f"have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+# --------------------------------------------------------------------------
+# baseline step functions
+# --------------------------------------------------------------------------
+
+def heuristic_step(metric: str):
+    def step(rng, x, active, model_fn: ModelFn, cfg: ModelConfig,
+             dcfg: DecodeConfig, n) -> Tuple[torch.Tensor, int]:
+        s = score_logits(model_fn(x))
+        if metric == "random":
+            conf = torch.rand(x.shape, generator=rng, device=x.device)
+        else:
+            conf = local_confidence(s, metric)
+        return commit_topn(x, conf, s.argmax, active, n), 1
+    return step
+
+
+def eb_step(rng, x, active, model_fn: ModelFn, cfg: ModelConfig,
+            dcfg: DecodeConfig, n) -> Tuple[torch.Tensor, int]:
+    """Entropy-bounded: commit everything with H < bound, at least one."""
+    s = score_logits(model_fn(x))
+    low_entropy = (-s.neg_entropy) < dcfg.eb_threshold
+    conf = torch.where(active, s.neg_entropy,
+                       torch.full_like(s.neg_entropy, NEG))
+    best = rank_desc(conf) == 0                       # guarantee progress
+    commit = active & (low_entropy | best)
+    return torch.where(commit, s.argmax.to(x.dtype), x), 1
+
+
+def wino_step(rng, x, active, model_fn: ModelFn, cfg: ModelConfig,
+              dcfg: DecodeConfig, n) -> Tuple[torch.Tensor, int]:
+    """Wide-in (commit > τ₁) then narrow-out (revoke < τ₂ on re-score)."""
+    s = score_logits(model_fn(x))
+    conf = torch.where(active, s.max_prob, torch.full_like(s.max_prob, NEG))
+    best = rank_desc(conf) == 0
+    wide = active & ((s.max_prob > dcfg.wino_tau1) | best)
+    x_wide = torch.where(wide, s.argmax.to(x.dtype), x)
+    # verify: the probability of each committed token in its new context —
+    # a gather at the committed token, not the confidence kernel's argmax
+    # reduction, so plain PyTorch as in the reference's jnp
+    logp2 = torch.log_softmax(model_fn(x_wide).float(), dim=-1)
+    p_committed = torch.exp(torch.gather(
+        logp2, -1, x_wide[..., None].long())[..., 0])
+    revoke = wide & (p_committed < dcfg.wino_tau2) & ~best
+    return torch.where(revoke, torch.full_like(x_wide, cfg.mask_token_id),
+                       x_wide), 2
+
+
+for _metric in ("random", "probability", "margin", "entropy"):
+    register_strategy(StatelessStrategy(_metric, heuristic_step(_metric)))
+register_strategy(StatelessStrategy("eb", eb_step))
+register_strategy(StatelessStrategy("wino", wino_step))

@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+* ``confidence.confidence_fused`` — replaces the Pallas
+  ``src/repro/kernels/confidence.py:confidence_fused``.
+* ``flash_attention.flash_attention`` — replaces the Pallas
+  ``src/repro/kernels/flash_attention.py:flash_attention``.
+
+A wrapper given a CUDA tensor launches its kernel (built from ``csrc/`` at
+the first call, see ``_build``) or raises; given a CPU tensor it runs the
+plain PyTorch version.  Each wrapper counts its launches in its module's
+``launches``.
+"""

@@ -1,0 +1,92 @@
+"""Bidirectional flash attention: wrapper, plain version and launch count.
+
+``flash_attention(q, k, v, window=0)`` takes the reference's layout — q
+``(B, Lq, H, d)``, k/v ``(B, Lk, G, d)`` with G dividing H (query head h
+reads kv head ``h // (H // G)``) — and returns ``(B, Lq, H, d)`` in q's
+dtype: ``softmax(q kᵀ d^-½) v``, optionally restricted to the band
+``|i − j| < window``.  On a CUDA tensor it launches the hand-written kernel
+in ``csrc/flash_attention.cu`` or raises; on a CPU tensor it runs
+``attention_ref``, the plain version.  There is no fallback between them.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+launches = 0          # kernel launches by this wrapper (not the plain path)
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p] + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  window: int = 0) -> torch.Tensor:
+    """The plain version (mirrors the reference's ``kernels/ref.py``
+    ``attention_ref``, plus GQA grouping): f32 scores and softmax, f32 PV,
+    cast to q's dtype."""
+    b, lq, h, d = q.shape
+    lk, g = k.shape[1], k.shape[2]
+    rep = h // g
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (d ** -0.5)
+    if window:
+        qi = torch.arange(lq, device=q.device)[:, None]
+        ki = torch.arange(lk, device=q.device)[None, :]
+        band = (qi - ki).abs() < window
+        scores = torch.where(band, scores, torch.full_like(scores, -1e30))
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, vf).to(q.dtype)
+
+
+def _check(q, k, v, window):
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k and v must share a device")
+    if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
+                         f"{v.dtype}; need one of float32 or bfloat16")
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, lq, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if d % 32 or not 32 <= d <= 256:
+        raise ValueError(f"flash_attention: head dim {d} must be a "
+                         f"multiple of 32 in [32, 256]")
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int = 0) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check(q, k, v, window)
+    b, lq, h, d = q.shape
+    lk, g = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lib = _build.load("flash_attention")
+    fn = lib.repro_flash_attention
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, lq, lk, h, g, d, int(window), float(d ** -0.5),
+                 _DTYPE_CODE[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: CUDA "
+                           f"error {err}")
+    global launches
+    launches += 1
+    return out

@@ -1,0 +1,4 @@
+"""Model zoo of the port: the dense bidirectional LLaDA stack so far."""
+from repro_torch.models.model import forward, init_model, make_positions
+
+__all__ = ["forward", "init_model", "make_positions"]

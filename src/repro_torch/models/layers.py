@@ -1,0 +1,160 @@
+"""Shared layers: RMSNorm, standard RoPE, SwiGLU, embedding and LM head.
+
+Functional style like the reference (``src/repro/models/layers.py``):
+``init_*`` builds a dict of tensors, the matching apply function reads it.
+Matrices are stored in the compute dtype (``cfg.dtype``); norm scales stay
+float32.  Every projection casts its operands to the compute dtype and
+accumulates in float32 (cuBLAS does for bf16; the CPU runs f32 configs),
+rounding the result back to the compute dtype, as the reference's
+``matmul`` does.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import torch_dtype
+
+Params = dict
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch_dtype(cfg.dtype)
+
+
+# --------------------------------------------------------------------------
+# initializers
+# --------------------------------------------------------------------------
+
+_LO, _HI = 0.5 * math.erfc(3 / math.sqrt(2)), 0.5 * math.erfc(-3 / math.sqrt(2))
+
+
+def dense_init(gen: torch.Generator, shape, device, dtype,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Truncated normal on [-3σ, 3σ], σ = ``scale`` or 1/√fan_in — the
+    reference's initializer in distribution (the two generators draw
+    different numbers).  Drawn in f32 by inverse CDF, then cast."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+    u = u.mul_(_HI - _LO).add_(_LO).mul_(2).sub_(1)
+    z = u.erfinv_().mul_(math.sqrt(2) * std).clamp_(-3 * std, 3 * std)
+    return z.to(dtype)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype):
+    return torch.matmul(x.to(dtype), w.to(dtype))
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def init_norm(cfg: ModelConfig, device) -> Params:
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(
+            f"norm={cfg.norm!r}: the port has RMSNorm only so far "
+            f"(LayerNorm comes with the other architectures, ROADMAP.md)")
+    return {"scale": torch.ones(cfg.d_model, dtype=torch.float32,
+                                device=device)}
+
+
+def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig,
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in f32, cast back to x's dtype."""
+    if "bias" in p:
+        raise NotImplementedError("LayerNorm is not ported yet (ROADMAP.md)")
+    xf = x.float()
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# rotary embeddings
+# --------------------------------------------------------------------------
+
+def rope_frequencies(dim: int, theta: float, device) -> torch.Tensor:
+    # a Python-scalar base: no host-to-device copy (which would sync)
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return 1.0 / torch.pow(float(theta), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """x (B, L, H, hd), positions (B, L).  'standard' RoPE only: cos/sin in
+    f32, cast to x's dtype, rotating split halves (not interleaved pairs)."""
+    if cfg.rope != "standard":
+        raise NotImplementedError(
+            f"rope={cfg.rope!r}: only 'standard' RoPE is ported; the other "
+            f"modes come with the other architectures (ROADMAP.md queue 1 "
+            f"item 9)")
+    hd = x.shape[-1]
+    inv = rope_frequencies(hd, cfg.rope_theta, x.device)
+    ang = positions.float()[..., None] * inv                   # (B, L, hd/2)
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# MLP (SwiGLU)
+# --------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, device,
+             dtype) -> Params:
+    if cfg.act != "silu":
+        raise NotImplementedError(
+            f"act={cfg.act!r}: only SwiGLU is ported (ROADMAP.md)")
+    d, ff = cfg.d_model, cfg.d_ff
+    return {"gate": dense_init(gen, (d, ff), device, dtype),
+            "up": dense_init(gen, (d, ff), device, dtype),
+            "down": dense_init(gen, (ff, d), device, dtype)}
+
+
+def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = x.dtype
+    h = torch.nn.functional.silu(matmul(x, p["gate"], dt)) \
+        * matmul(x, p["up"], dt)
+    return matmul(h, p["down"], dt)
+
+
+# --------------------------------------------------------------------------
+# embeddings / head
+# --------------------------------------------------------------------------
+
+def init_embed(gen: torch.Generator, cfg: ModelConfig, device,
+               dtype) -> Params:
+    if cfg.tie_embeddings or cfg.rope == "sinusoidal":
+        raise NotImplementedError(
+            "tied or sinusoidal embeddings are not ported yet (ROADMAP.md)")
+    return {"tok": dense_init(gen, (cfg.vocab_size, cfg.d_model), device,
+                              dtype, scale=0.02),
+            "head": dense_init(gen, (cfg.d_model, cfg.vocab_size), device,
+                               dtype)}
+
+
+def embed_tokens(p: Params, tokens: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    return p["tok"][tokens].to(compute_dtype(cfg))
+
+
+def lm_head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """f32 logits from compute-dtype operands with f32 accumulation (the
+    reference's ``preferred_element_type=float32``).  A bf16 matmul would
+    round the logits to bf16 and move argmaxes and margins, so on the card
+    the product goes through cuBLAS's f32-output bf16 GEMM
+    (``torch.mm(..., out_dtype=torch.float32)``); on the CPU the operands
+    are widened to f32, which computes the same exact products."""
+    dt = compute_dtype(cfg)
+    w = p["head"].to(dt)
+    x2 = x.to(dt).reshape(-1, x.shape[-1])
+    if dt == torch.float32:
+        logits = x2 @ w
+    elif x2.device.type == "cuda":
+        logits = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        logits = x2.float() @ w.float()
+    return logits.reshape(*x.shape[:-1], w.shape[1])
