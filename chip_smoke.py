@@ -7,17 +7,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device  — requires CUDA; prints the card's name and power limit;
 2. build   — builds the hand-written kernels from ``src/repro_torch/
-             kernels/csrc`` (one nvcc per source, in parallel);
+             kernels/csrc`` (one nvcc per source, all in parallel);
 3. kernels — holds each kernel against its plain PyTorch version on the
-             card at the serving path's shapes and times kernel, plain
-             version and, for attention, SDPA (a yardstick only);
-4. reference — decodes a reduced LLaDA config on the card (kernels) and on
-             the CPU (plain versions) from the same weights and requires
-             identical tokens, steps and forward-equivalents;
-5. serving — full-width LLaDA-8B (random bf16 weights from a seed) behind
+             card at the serving paths' shapes (LLaDA-8B's and
+             Hymba-1.5B's, plus a ragged and a long selective scan) and
+             times kernel, plain version and, for attention, SDPA (a
+             yardstick only);
+4. reference — decodes reduced LLaDA and Hymba configs on the card
+             (kernels) and on the CPU (plain versions) from the same
+             weights and requires identical tokens, steps and
+             forward-equivalents;
+5. serving — full-width, full-depth LLaDA-8B, then Hymba-1.5B (random
+             bf16 weights from a seed; LLaDA's are freed first) behind
              ``ServingEngine``: mixed prompt lengths, strategies fdm, fdm_a
-             and probability; checks results, stats and that both kernels'
-             launch counters grew during this phase.
+             and probability; checks results and stats, and that every
+             kernel of the model's path was launched in its run (for
+             Hymba, one selective scan per flash-attention call).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -37,11 +42,14 @@ SEED = 0
 MEM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 BF16_OPS_PER_S = 989e12          # dense tensor-core bf16
 F32_OPS_PER_S = 67e12            # f32 outside the tensor cores
+# exp on the SFU: 16 per clock per SM x 132 SMs x 1.98 GHz (H100 SXM boost)
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # the serving phase's geometry (also the shapes the kernel phase checks)
 MAX_BATCH, GEN, BLOCK, K = 2, 64, 32, 2
 CANVAS = 64 + GEN                # longest prompt + generation
 REQUESTS = [(64, "fdm"), (60, "fdm"), (48, "fdm_a"), (48, "fdm_a"),
             (64, "probability"), (41, "probability")]
+FORWARD_REPS = 5
 
 
 def log(*args):
@@ -142,6 +150,39 @@ def check_attention(fa_mod, torch, b, l, h, g, d, window, dtype):
         else "operations"
 
 
+def check_scan(scan_mod, torch, b, l, di, n, xdtype):
+    """Kernel vs plain version, x in ``xdtype`` and Δ/B/C f32 as on the
+    serving path (tolerance 3e-2 with bf16 x, 2e-4 in f32, as the
+    reference's kernel tests).  Returns (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + l + di)
+    x = torch.randn(b, l, di, generator=gen, device="cuda").to(xdtype)
+    delta = torch.nn.functional.softplus(
+        torch.randn(b, l, di, generator=gen, device="cuda") - 2)
+    bs = torch.randn(b, l, n, generator=gen, device="cuda")
+    cs = torch.randn(b, l, n, generator=gen, device="cuda")
+    a_log = torch.log(torch.arange(1, n + 1, device="cuda",
+                                   dtype=torch.float32))[None].repeat(di, 1)
+    args = (x, delta, bs, cs, a_log)
+    got = scan_mod.selective_scan(*args)
+    torch.cuda.synchronize()
+    ref = scan_mod.selective_scan_ref(*args)
+    tol = 2e-4 if xdtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+    err = float((got.float() - ref.float()).abs().max())
+    ms = time_ms(lambda: scan_mod.selective_scan(*args))
+    plain_ms = time_ms(lambda: scan_mod.selective_scan_ref(*args), reps=3,
+                       inner=2)
+    nbytes = sum(t.numel() * t.element_size() for t in args) + \
+        got.numel() * got.element_size()
+    exps = b * l * di * n                 # one exp per state per step
+    flops = 7 * b * l * di * n            # Δ·A, Δ·B·x, fma, h·C, sum
+    t_bytes = nbytes / MEM_BYTES_PER_S
+    t_ops = max(exps / SFU_OPS_PER_S, flops / F32_OPS_PER_S)
+    return err, ms, plain_ms, 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _to_cuda(tree):
     if isinstance(tree, dict):
         return {k: _to_cuda(v) for k, v in tree.items()}
@@ -150,14 +191,14 @@ def _to_cuda(tree):
     return tree.cuda()
 
 
-def reference_phase(torch):
+def reference_phase(torch, name: str):
     """The port on the card (kernels, f32) against the port on the CPU
-    (plain versions) on a reduced LLaDA config: same weights, same prompts,
+    (plain versions) on a reduced config: same weights, same prompts,
     identical decodes required."""
     from repro_torch.configs import DecodeConfig, get_config
     from repro_torch.core import Decoder
     from repro_torch.models import init_model
-    cfg = get_config("llada-8b").reduced()
+    cfg = get_config(name).reduced()
     cpu_params = init_model(cfg, torch.Generator().manual_seed(SEED),
                             device="cpu")
     gpu_params = _to_cuda(cpu_params)
@@ -171,32 +212,45 @@ def reference_phase(torch):
         x_gpu, s_gpu = Decoder(gpu_params, cfg, dcfg,
                                device="cuda").generate(None, prompt)
         same = torch.equal(x_cpu, x_gpu.cpu())
-        log(f"reference {kw}: tokens equal={same} steps {s_cpu.steps}/"
+        log(f"reference {name} {kw}: tokens equal={same} steps "
+            f"{s_cpu.steps}/"
             f"{s_gpu.steps} forward_equivalents {s_cpu.forward_equivalents}"
             f"/{s_gpu.forward_equivalents}")
         if not same or s_cpu.steps != s_gpu.steps or \
                 s_cpu.forward_equivalents != s_gpu.forward_equivalents:
-            raise AssertionError(f"card decode differs from the CPU "
-                                 f"reference for {kw}")
+            raise AssertionError(f"card decode of {name} differs from "
+                                 f"the CPU reference for {kw}")
 
 
-def serving_phase(torch, conf_mod, fa_mod):
+def count_params(tree) -> int:
+    """Leaves counted recursively: a hybrid layer holds tensors (mix
+    scales) beside its sub-dicts."""
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(count_params(v) for v in tree)
+    return tree.numel()
+
+
+def serving_phase(torch, name: str, mods: dict):
+    """Serve ``name`` at full width and depth; ``mods`` maps each kernel of
+    the model's path to its module, whose launch count is set to 0 just
+    before the run and read just after.  Returns those counts."""
     import numpy as np
     from repro_torch.configs import DecodeConfig, get_config
     from repro_torch.models import init_model
     from repro_torch.serving import ServingEngine
-    cfg = get_config("llada-8b")
+    cfg = get_config(name)
     t0 = time.perf_counter()
     params = init_model(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                         device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for layer in params["blocks"]
-                   for sub in layer.values() for t in sub.values()) + \
-        sum(t.numel() for grp in ("embed", "norm_f")
-            for t in params[grp].values())
-    log(f"serving: llada-8b full width and depth ({cfg.num_layers} layers, "
-        f"d={cfg.d_model}, {cfg.num_heads} heads, d_ff={cfg.d_ff}, "
-        f"V={cfg.vocab_size}, {cfg.dtype}); {n_params} parameters made in "
+    n_params = count_params(params)
+    log(f"serving: {name} full width and depth ({cfg.num_layers} layers, "
+        f"d={cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv, "
+        f"d_ff={cfg.d_ff}, V={cfg.vocab_size}, window "
+        f"{cfg.sliding_window}, {cfg.arch_type}, {cfg.dtype}); "
+        f"{n_params} parameters made in "
         f"{time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     dcfg = DecodeConfig(gen_length=GEN, block_size=BLOCK, steps=GEN,
@@ -212,19 +266,22 @@ def serving_phase(torch, conf_mod, fa_mod):
         prompt = rs.integers(0, cfg.vocab_size - 1, lp).astype(np.int64)
         rids[engine.submit(prompt, strategy=strat)] = (lp, strat)
 
-    conf_mod.launches = 0
-    fa_mod.launches = 0
+    for mod in mods.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     engine.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"confidence": conf_mod.launches,
-                "flash_attention": fa_mod.launches}
-    log(f"serving: {len(rids)} requests in {len(batches)} batches, "
+    launches = {k: mod.launches for k, mod in mods.items()}
+    log(f"serving {name}: {len(rids)} requests in {len(batches)} batches, "
         f"{wall:.2f} s; kernel launches {launches}")
     if not all(launches.values()):
-        raise AssertionError(f"a kernel was not launched on the serving "
-                             f"path: {launches}")
+        raise AssertionError(f"a kernel was not launched on the {name} "
+                             f"serving path: {launches}")
+    if "selective_scan" in launches and \
+            launches["selective_scan"] != launches["flash_attention"]:
+        raise AssertionError(f"{name}: one selective scan per attention "
+                             f"call expected, got {launches}")
 
     for rid, (lp, strat) in rids.items():
         req = engine.result(rid)
@@ -265,11 +322,12 @@ def serving_phase(torch, conf_mod, fa_mod):
         log(f"batch {members} ({strat}): steps {steps}, "
             f"forward_equivalents {batch_fwd}")
     summary = engine.summary()
-    log("serving summary: " + json.dumps(summary))
-    log(f"serving decode tokens/s: {summary['decode_tps']}")
+    log(f"serving {name} summary: " + json.dumps(summary))
+    log(f"serving {name} decode tokens/s: {summary['decode_tps']}")
 
-    # one forward at the scoring and the K-candidate batch: the span on
-    # the card's clock against the host's time to enqueue it
+    # forwards at the scoring and the K-candidate batch: the span on the
+    # card's clock against the host's time to enqueue it, median (and
+    # range) of FORWARD_REPS forwards, each started on an idle card
     from repro_torch.models import forward
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for b in (MAX_BATCH, K * MAX_BATCH):
@@ -277,16 +335,23 @@ def serving_phase(torch, conf_mod, fa_mod):
                                generator=gen, device="cuda")
         forward(params, tokens, cfg)
         torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        forward(params, tokens, cfg)
-        end.record()
-        host_ms = 1e3 * (time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        log(f"forward B={b} L={CANVAS}: {start.elapsed_time(end):.3f} ms "
-            f"on the card's clock, {host_ms:.3f} ms to enqueue on the host")
+        card, host = [], []
+        for _ in range(FORWARD_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            forward(params, tokens, cfg)
+            end.record()
+            host.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            card.append(start.elapsed_time(end))
+        log(f"forward {name} B={b} L={CANVAS}: "
+            f"{statistics.median(card):.3f} ms on the card's clock "
+            f"[{min(card):.3f}, {max(card):.3f}], "
+            f"{statistics.median(host):.3f} ms to enqueue on the host "
+            f"[{min(host):.3f}, {max(host):.3f}] (median [range] of "
+            f"{FORWARD_REPS})")
 
     # where the host's time goes in one forward (cProfile adds its own
     # per-call cost, so only the shares are meaningful)
@@ -299,7 +364,8 @@ def serving_phase(torch, conf_mod, fa_mod):
     torch.cuda.synchronize()
     rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])
     total = sum(v[2] for _, v in rows)
-    log(f"host profile of one forward B={K * MAX_BATCH}: {1e3 * total:.2f} ms "
+    log(f"host profile of one {name} forward B={K * MAX_BATCH}: "
+        f"{1e3 * total:.2f} ms "
         f"of own time in {sum(v[1] for _, v in rows)} calls; top 10:")
     for (path, line, fn), (_, calls, own, _, _) in rows[:10]:
         log(f"  {1e3 * own:8.2f} ms {calls:6d} calls  {fn} "
@@ -316,6 +382,7 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels import confidence as conf_mod
     from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import selective_scan as scan_mod
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -336,44 +403,82 @@ def main() -> None:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # 3. kernels against their plain versions, main-path shapes
-    vocab = 126464
     conf_rows = K * MAX_BATCH * CANVAS
-    for rows, dtype in ((conf_rows, torch.float32),
-                        (MAX_BATCH * CANVAS, torch.float32),
-                        (conf_rows, torch.bfloat16)):
+    conf_errs = []
+    for rows, vocab, dtype in ((conf_rows, 126464, torch.float32),
+                               (MAX_BATCH * CANVAS, 126464, torch.float32),
+                               (conf_rows, 126464, torch.bfloat16),
+                               (conf_rows, 32001, torch.float32)):
         err, ms, plain, bound = check_confidence(conf_mod, torch, rows,
                                                  vocab, dtype)
+        conf_errs.append(err)
         log(f"confidence rows={rows} V={vocab} {dtype}: max_abs_err {err} "
             f"kernel {ms:.4f} ms plain {plain:.4f} ms bound {bound:.4f} ms "
             f"(bytes)")
-        if (rows, dtype) == (conf_rows, torch.float32):
-            conf_entry = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                              bound_ms=bound)
+        if (rows, vocab, dtype) == (conf_rows, 126464, torch.float32):
+            conf_entry = dict(ms=ms, plain_ms=plain, bound_ms=bound)
+    conf_entry["max_abs_err"] = max(conf_errs)
     attn_errs = []
-    for b, h, g, w in ((MAX_BATCH, 32, 32, 0), (K * MAX_BATCH, 32, 32, 0),
-                       (MAX_BATCH, 32, 8, 0), (MAX_BATCH, 32, 32, 32)):
+    for b, l, h, g, d, w in ((MAX_BATCH, CANVAS, 32, 32, 128, 0),
+                             (K * MAX_BATCH, CANVAS, 32, 32, 128, 0),
+                             (MAX_BATCH, CANVAS, 32, 8, 128, 0),
+                             (MAX_BATCH, CANVAS, 32, 32, 128, 32),
+                             (MAX_BATCH, CANVAS, 25, 5, 64, 1024),
+                             (MAX_BATCH, 2048, 25, 5, 64, 1024)):
         err, ms, plain, sdpa, bound, by = check_attention(
-            fa_mod, torch, b, CANVAS, h, g, 128, w, torch.bfloat16)
+            fa_mod, torch, b, l, h, g, d, w, torch.bfloat16)
         attn_errs.append(err)
-        log(f"attention B={b} L={CANVAS} H={h} G={g} d=128 window={w} bf16: "
+        log(f"attention B={b} L={l} H={h} G={g} d={d} window={w} bf16: "
             f"max_abs_err {err} kernel {ms:.4f} ms plain {plain:.4f} ms "
             f"sdpa {sdpa:.4f} ms bound {bound:.4f} ms ({by})")
-        if (b, g, w) == (MAX_BATCH, 32, 0):
+        if (b, l, g, w) == (MAX_BATCH, CANVAS, 32, 0):
             attn_entry = dict(ms=ms, plain_ms=plain, library_ms=sdpa,
                               bound_ms=bound, bound_by=by)
     attn_entry["max_abs_err"] = max(attn_errs)
+    scan_errs = []
+    for b, l, di, n, xdt in ((MAX_BATCH, CANVAS, 3200, 16, torch.bfloat16),
+                             (K * MAX_BATCH, CANVAS, 3200, 16,
+                              torch.bfloat16),
+                             (2, 300, 130, 16, torch.float32),
+                             (1, 2048, 3200, 16, torch.bfloat16)):
+        err, ms, plain, bound, by = check_scan(scan_mod, torch, b, l, di, n,
+                                               xdt)
+        scan_errs.append(err)
+        log(f"selective_scan B={b} L={l} di={di} N={n} x {xdt}, f32 "
+            f"delta/B/C: max_abs_err {err} kernel {ms:.4f} ms plain "
+            f"{plain:.4f} ms library none bound {bound:.4f} ms ({by})")
+        if (b, l) == (MAX_BATCH, CANVAS):
+            scan_entry = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                              bound_by=by)
+    scan_entry["max_abs_err"] = max(scan_errs)
 
-    # 4. end-to-end agreement with the CPU reference on a small config
-    reference_phase(torch)
+    # 4. end-to-end agreement with the CPU reference on small configs
+    reference_phase(torch, "llada-8b")
+    reference_phase(torch, "hymba-1.5b")
 
-    # 5. the main path
-    launches = serving_phase(torch, conf_mod, fa_mod)
+    # 5. the main paths, one model at a time (each frees its weights)
+    t0 = time.perf_counter()
+    llada = serving_phase(torch, "llada-8b", {"confidence": conf_mod,
+                                              "flash_attention": fa_mod})
+    log(f"serving phase llada-8b: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hymba = serving_phase(torch, "hymba-1.5b", {
+        "confidence": conf_mod, "flash_attention": fa_mod,
+        "selective_scan": scan_mod})
+    log(f"serving phase hymba-1.5b: {time.perf_counter() - t0:.1f} s")
+
+    def launches(kernel):
+        by_path = {"llada-8b": llada.get(kernel, 0),
+                   "hymba-1.5b": hymba[kernel]}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
 
     kernels = [
         {"name": "confidence", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/confidence.cu",
          "replaces": "src/repro/kernels/confidence.py:101",
-         "launches": launches["confidence"],
+         **launches("confidence"),
          "max_abs_err": conf_entry["max_abs_err"], "ms": conf_entry["ms"],
          "plain_ms": conf_entry["plain_ms"],
          "bound_ms": conf_entry["bound_ms"], "bound_by": "bytes",
@@ -381,12 +486,20 @@ def main() -> None:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:81",
-         "launches": launches["flash_attention"],
+         **launches("flash_attention"),
          "max_abs_err": attn_entry["max_abs_err"], "ms": attn_entry["ms"],
          "plain_ms": attn_entry["plain_ms"],
          "bound_ms": attn_entry["bound_ms"],
          "bound_by": attn_entry["bound_by"],
          "library_ms": attn_entry["library_ms"]},
+        {"name": "selective_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+         "replaces": "src/repro/kernels/selective_scan.py:67",
+         **launches("selective_scan"),
+         "max_abs_err": scan_entry["max_abs_err"], "ms": scan_entry["ms"],
+         "plain_ms": scan_entry["plain_ms"],
+         "bound_ms": scan_entry["bound_ms"],
+         "bound_by": scan_entry["bound_by"], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -15,6 +15,7 @@ from repro_torch.configs.base import (DecodeConfig, EncDecConfig,
 
 _MODULES: Dict[str, str] = {
     "llada-8b": "repro_torch.configs.llada_8b",
+    "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
 }
 
 

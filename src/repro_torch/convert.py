@@ -2,8 +2,8 @@
 
 The reference stacks the layers of each homogeneous group on a leading
 axis (``params["blocks"]`` is a list of groups, every leaf ``(len(group),
-...)``); the port holds one dict per layer.  For the dense stack every
-layer is one group.
+...)``); the port holds one dict per layer.  For the dense and hybrid
+stacks every layer is one group.
 
 * ``from_jax_params(tree)`` — a reference tree whose leaves are numpy
   arrays (``jax.device_get(params)``) -> the port's params.
@@ -23,7 +23,10 @@ import torch
 
 from repro_torch.device import resolve_device
 
-_KEEP_F32 = ("scale",)     # norm scales stay float32
+# the reference's f32 vectors stay f32 under a dtype cast: norm scales and
+# the Mamba head's a_log and dt_bias (used in f32: a bf16 a_log would move
+# every decay) and mix scales
+_KEEP_F32 = ("scale", "a_log", "dt_bias", "mix_attn", "mix_ssm")
 
 
 def _tensor(a, device, dtype, key: str) -> torch.Tensor:
@@ -57,8 +60,8 @@ def _group_len(group: dict) -> int:
 def from_jax_params(tree: dict, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> dict:
     """Reference params (numpy leaves) -> port params on ``device``.
-    ``dtype`` casts the matrices (norm scales stay f32); ``None`` keeps
-    f32."""
+    ``dtype`` casts the matrices (the ``_KEEP_F32`` vectors stay f32);
+    ``None`` keeps f32."""
     dev = resolve_device(device)
     unknown = set(tree) - {"embed", "norm_f", "blocks"}
     if unknown:
@@ -105,7 +108,7 @@ def from_npz(path: str, device="cuda",
 
 def to_flat(params: dict) -> Dict[str, np.ndarray]:
     """Port params -> ``{reference path: f32 array}``, layers restacked as
-    one group (the dense stack's layout)."""
+    one group (the dense and hybrid stacks' layout)."""
     flat: Dict[str, np.ndarray] = {}
     _walk(params["embed"], "embed/", flat)
     _walk(params["norm_f"], "norm_f/", flat)

@@ -11,7 +11,8 @@
 """
 from repro_torch.core.confidence import (Scores, global_confidence,
                                          local_confidence, score_logits)
-from repro_torch.core.decoder import BlockEvent, Decoder, SampleStats
+from repro_torch.core.decoder import (BlockEvent, Decoder, SampleStats,
+                                      validate_cache_policy)
 from repro_torch.core.fdm import fdm_select, fdm_step
 from repro_torch.core.fdm_a import FDMAStrategy, fdm_a_plan
 from repro_torch.core.strategies import (Strategy, commit_topn, rank_desc,
@@ -19,7 +20,7 @@ from repro_torch.core.strategies import (Strategy, commit_topn, rank_desc,
 
 __all__ = [
     "Scores", "score_logits", "local_confidence", "global_confidence",
-    "Decoder", "SampleStats", "BlockEvent",
+    "Decoder", "SampleStats", "BlockEvent", "validate_cache_policy",
     "fdm_select", "fdm_step", "FDMAStrategy", "fdm_a_plan",
     "Strategy", "commit_topn", "rank_desc", "register_strategy",
     "resolve_strategy",

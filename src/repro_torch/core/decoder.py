@@ -9,8 +9,10 @@ per-block step budgets and commit widths follow the reference's
 match the reference decode for every strategy that draws no randomness.
 
 Not ported yet (each raises ``NotImplementedError``): ``cache_policy``
-other than ``none`` (ROADMAP.md queue 1 item 6), ``trace=True`` and the
-strategies ``wino_r``/``extrapolate`` (item 7).  ``fused_loop`` and
+other than ``none`` (ROADMAP.md queue 1 item 6; a hybrid or SSM config
+gets the reference's ``ValueError`` first, since it can never serve
+one), ``trace=True`` and the strategies ``wino_r``/``extrapolate``
+(item 7).  ``fused_loop`` and
 ``fused_blocks`` select among the reference's three drivers, which decode
 identically; the port has one eager driver and ignores them.
 """
@@ -71,8 +73,32 @@ class BlockEvent(NamedTuple):
     x: Any
 
 
-def check_supported(dcfg: DecodeConfig) -> None:
-    """Raise ``NotImplementedError`` for decode options not ported yet."""
+def validate_cache_policy(cfg: ModelConfig, dcfg: DecodeConfig) -> None:
+    """The reference's boundary check of the cache-policy axis: raise
+    ``ValueError`` if ``cfg`` cannot serve ``dcfg.cache_policy`` at all
+    (``ServingEngine.submit`` callers map it to a 400).
+
+    The fixed-shape block cache scatters fresh window K/V into full-length
+    buffers; recurrent state (ssm/hybrid) is a running reduction and has
+    no per-position rows to scatter into, so those archs only support
+    ``cache_policy="none"``.
+    """
+    if dcfg.cache_policy == "none":
+        return
+    if cfg.arch_type in ("ssm", "hybrid") or cfg.attention == "none":
+        raise ValueError(
+            f"cache_policy={dcfg.cache_policy!r} requires an "
+            f"attention-backed architecture (gqa/mla); "
+            f"{cfg.name!r} is arch_type={cfg.arch_type!r} with "
+            f"attention={cfg.attention!r} — recurrent state cannot ride "
+            f"the fixed-shape block cache")
+
+
+def check_supported(cfg: ModelConfig, dcfg: DecodeConfig) -> None:
+    """Raise ``ValueError`` for a cache policy ``cfg`` can never serve (as
+    the reference does), then ``NotImplementedError`` for decode options
+    not ported yet."""
+    validate_cache_policy(cfg, dcfg)
     if dcfg.cache_policy != "none":
         raise NotImplementedError(
             f"cache_policy={dcfg.cache_policy!r} is not ported yet: "
@@ -108,7 +134,7 @@ class Decoder:
         self.cfg = cfg
         self.dcfg = dcfg
         self.device = resolve_device(device)
-        check_supported(dcfg)
+        check_supported(cfg, dcfg)
         check_kernel_flag(dcfg, self.device)
         if callable(model):
             self._model_fn = model

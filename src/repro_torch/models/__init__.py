@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense bidirectional LLaDA stack so far."""
+"""Model zoo of the port: the dense (LLaDA) and hybrid (Hymba)
+bidirectional stacks so far."""
 from repro_torch.models.model import forward, init_model, make_positions
 
 __all__ = ["forward", "init_model", "make_positions"]

@@ -1,40 +1,63 @@
 """Block assembly of the port (reference: ``src/repro/models/blocks.py``):
-the dense bidirectional block, norm → attention → norm → SwiGLU, with
-residuals.  The other families (MoE, SSM, hybrid, encoder-decoder) raise
-``NotImplementedError`` until their slice (ROADMAP.md queue 1 item 9).
+
+* dense:           norm → attention → norm → SwiGLU;
+* hybrid (Hymba):  norm → [attention ∥ Mamba], fused mean → norm → SwiGLU;
+
+with residuals.  The other families (MoE, SSM/xLSTM, encoder-decoder,
+VLM) raise ``NotImplementedError`` until their slice (ROADMAP.md queue 1
+item 9).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import attention_forward, init_attention
 from repro_torch.models.layers import (Params, apply_mlp, apply_norm,
                                        init_mlp, init_norm)
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "dense" or cfg.is_moe or cfg.is_encdec \
-            or not cfg.d_ff:
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a block family not ported yet."""
+    if cfg.arch_type not in ("dense", "hybrid") or cfg.is_moe \
+            or cfg.is_encdec or not cfg.d_ff \
+            or (cfg.arch_type == "hybrid" and cfg.ssm is None):
         raise NotImplementedError(
             f"{cfg.name!r} (arch_type={cfg.arch_type!r}): the port runs the "
-            f"dense block only so far (ROADMAP.md queue 1 item 9)")
+            f"dense and hybrid blocks only so far (ROADMAP.md queue 1 "
+            f"item 9)")
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, idx: int, device,
                dtype) -> Params:
-    check_dense(cfg)
-    return {"norm1": init_norm(cfg, device),
-            "attn": init_attention(gen, cfg, device, dtype),
-            "norm2": init_norm(cfg, device),
-            "mlp": init_mlp(gen, cfg, device, dtype)}
+    check_ported(cfg)
+    p: Params = {"norm1": init_norm(cfg, device),
+                 "attn": init_attention(gen, cfg, device, dtype),
+                 "norm2": init_norm(cfg, device)}
+    if cfg.arch_type == "hybrid":
+        p["mamba"] = ssm_lib.init_mamba(gen, cfg, device, dtype)
+        # learnable fusion of the two parallel head groups (f32, as the
+        # reference keeps them)
+        p["mix_attn"] = torch.ones(cfg.d_model, dtype=torch.float32,
+                                   device=device)
+        p["mix_ssm"] = torch.ones(cfg.d_model, dtype=torch.float32,
+                                  device=device)
+    p["mlp"] = init_mlp(gen, cfg, device, dtype)
+    return p
 
 
 def block_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
                   cfg: ModelConfig, idx: int) -> torch.Tensor:
     """x (B, L, d) -> x'.  (The reference also returns an MoE aux loss,
-    which is always zero for a dense block.)"""
+    which is always zero for these blocks.)"""
     h = apply_norm(p["norm1"], x, cfg)
-    x = x + attention_forward(p["attn"], h, positions, cfg)
+    attn_out = attention_forward(p["attn"], h, positions, cfg)
+    if cfg.arch_type == "hybrid":
+        ssm_out = ssm_lib.mamba_forward(p["mamba"], h, cfg)
+        x = x + 0.5 * (attn_out * p["mix_attn"].to(x.dtype)
+                       + ssm_out * p["mix_ssm"].to(x.dtype))
+    else:
+        x = x + attn_out
     h = apply_norm(p["norm2"], x, cfg)
     return x + apply_mlp(p["mlp"], h, cfg)

@@ -23,11 +23,12 @@ from repro_torch.models.layers import (Params, apply_norm, compute_dtype,
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                device="cuda", dtype: Optional[torch.dtype] = None) -> Params:
     """Seeded random weights, made directly on ``device`` in ``dtype``
-    (default: the config's compute dtype; norm scales stay f32).
+    (default: the config's compute dtype; norm scales and the Mamba
+    head's a_log, dt_bias and mix scales stay f32, as the reference's).
     ``generator`` must live on ``device``; ``None`` seeds one with 0."""
     dev = resolve_device(device)
     dt = dtype or compute_dtype(cfg)
-    blocks_lib.check_dense(cfg)
+    blocks_lib.check_ported(cfg)
     gen = generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(0)
     params: Params = {"embed": init_embed(gen, cfg, dev, dt),

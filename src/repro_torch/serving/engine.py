@@ -87,7 +87,7 @@ class ServingEngine:
         self.cfg = cfg
         self.dcfg = dcfg
         self.device = resolve_device(device)
-        check_supported(dcfg)
+        check_supported(cfg, dcfg)
         check_kernel_flag(dcfg, self.device)
         self.max_batch = max_batch
         self.length_bucket = max(length_bucket, 1)
@@ -107,15 +107,16 @@ class ServingEngine:
                trace: Optional[bool] = None) -> int:
         """Queue a prompt; returns the request id.  The overrides build the
         request's effective ``DecodeConfig``, validated HERE: an unknown
-        strategy raises ``KeyError``, a bad geometry ``ValueError``, and
-        an option the port does not run yet ``NotImplementedError``."""
+        strategy raises ``KeyError``, a bad geometry or a cache policy the
+        model can never serve ``ValueError``, and an option the port does
+        not run yet ``NotImplementedError``."""
         over = {k: v for k, v in dict(
             strategy=strategy, steps=steps, gen_length=gen_length,
             block_size=block_size, cache_policy=cache_policy,
             trace=trace).items() if v is not None}
         dcfg = dataclasses.replace(self.dcfg, **over) if over else self.dcfg
         resolve_strategy(dcfg.strategy)
-        check_supported(dcfg)
+        check_supported(self.cfg, dcfg)
         check_kernel_flag(dcfg, self.device)
         for knob in ("gen_length", "block_size", "steps"):
             if getattr(dcfg, knob) < 1:

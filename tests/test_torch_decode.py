@@ -69,6 +69,36 @@ def test_decode_matches_reference_exactly(weights, prompt, case):
         assert gstats.steps == kw["gen_length"] or case == "fdm_a_phases"
 
 
+HJCFG = jax_get_config("hymba-1.5b").reduced()
+HCFG = get_config("hymba-1.5b").reduced()
+
+
+@pytest.fixture(scope="module")
+def hymba_weights():
+    jp = jax_init_model(jax.random.PRNGKey(0), HJCFG)
+    return jp, from_jax_params(jax.device_get(jp), device="cpu")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_hymba_decode_matches_reference_exactly(hymba_weights, prompt,
+                                                case):
+    """The hybrid stack (attention ∥ Mamba, window 32 over a 48-token
+    canvas): the same exactness as the dense stack's."""
+    jp, tp = hymba_weights
+    kw = {**BASE, **CASES[case]}
+    want, wstats = JaxDecoder(jp, HJCFG, JaxDecodeConfig(**kw)).generate(
+        jax.random.PRNGKey(0), jnp.asarray(prompt))
+    got, gstats = Decoder(tp, HCFG, DecodeConfig(**kw),
+                          device="cpu").generate(None, prompt)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert gstats.steps == wstats.steps
+    assert gstats.forward_equivalents == wstats.forward_equivalents
+    assert gstats.phase_counts == wstats.phase_counts
+    assert (got[:, 16:] != HCFG.mask_token_id).all()
+    if case == "fdm_a_phases":
+        assert all(v > 0 for v in gstats.phase_counts.values())
+
+
 @pytest.mark.parametrize("gen,bs,steps", [(32, 8, 20), (32, 8, 32),
                                           (24, 8, 10), (16, 16, 5),
                                           (32, 8, 64), (32, 8, 3)])
@@ -138,6 +168,21 @@ def test_random_strategy_commits_n_argmax_tokens_in_block(weights):
 def test_unported_decode_options_raise(over, exc):
     with pytest.raises(exc, match="not ported yet"):
         Decoder(lambda t: t, CFG, DecodeConfig(**BASE, **over), device="cpu")
+
+
+@pytest.mark.parametrize("policy", ["prefix", "dual"])
+def test_cache_policy_on_hybrid_raises_value_error(policy):
+    """A recurrent-state model can never serve a block cache: ValueError
+    with the reference's reason, before the not-ported check."""
+    from repro.core.decoder import validate_cache_policy as jax_validate
+    kw = dict(BASE, cache_policy=policy)
+    with pytest.raises(ValueError) as want:
+        jax_validate(HJCFG, JaxDecodeConfig(**kw))
+    with pytest.raises(ValueError) as got:
+        Decoder(lambda t: t, HCFG, DecodeConfig(**kw), device="cpu")
+    assert str(got.value) == str(want.value)
+    assert "recurrent state cannot ride" in str(got.value)
+    Decoder(lambda t: t, HCFG, DecodeConfig(**BASE), device="cpu")
 
 
 @pytest.mark.parametrize("name", ["wino_r", "extrapolate"])

@@ -1,0 +1,123 @@
+"""The port's hand-written kernels against their plain versions, on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA card.  The file
+imports nothing of JAX, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m gpu --noconftest \\
+        tests/test_torch_gpu.py
+
+(``--noconftest``: the suite's ``conftest.py`` imports JAX.)  Tolerances
+are the reference's kernel tests': 2e-4 in f32, 2e-2 (attention) and 3e-2
+(selective scan, y rounded to bf16) in bf16.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import confidence as conf_mod
+from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import selective_scan as scan_mod
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("rows,vocab", [(512, 126464), (512, 32001),
+                                        (7, 1000), (5, 513)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_confidence_kernel_matches_plain(cuda, rows, vocab, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    x = (5 * torch.randn(rows, vocab, generator=gen, device=cuda)).to(dtype)
+    x[1, 2] = x[1, vocab - 3] = x[1].max() + 1
+    before = conf_mod.launches
+    got = conf_mod.confidence_fused(x)
+    torch.cuda.synchronize()
+    assert conf_mod.launches == before + 1
+    want = conf_mod.confidence_ref(x)
+    assert torch.equal(got[0], want[0]) and float(got[2][1]) == 0.0
+    torch.testing.assert_close(got[1], want[1], rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(got[2], want[2], rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(got[3], want[3], rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("b,l,h,g,d,w,dtype", [
+    (2, 128, 32, 32, 128, 0, torch.bfloat16),
+    (2, 128, 32, 8, 128, 0, torch.bfloat16),
+    (1, 300, 2, 2, 64, 50, torch.float32),
+    (1, 257, 1, 1, 256, 128, torch.bfloat16),
+    (2, 128, 25, 5, 64, 1024, torch.bfloat16),    # Hymba's heads
+    (1, 600, 25, 5, 64, 256, torch.float32),      # Hymba's, band live
+])
+def test_flash_kernel_matches_plain(cuda, b, l, h, g, d, w, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(l)
+    q = torch.randn(b, l, h, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, l, g, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, l, g, d, generator=gen, device=cuda).to(dtype)
+    before = fa_mod.launches
+    got = fa_mod.flash_attention(q, k, v, w)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == before + 1
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(),
+                               fa_mod.attention_ref(q, k, v, w).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,l,di,n,xdt,rdt", [
+    (2, 128, 3200, 16, torch.bfloat16, torch.float32),   # serving shape
+    (2, 300, 130, 16, torch.float32, torch.float32),     # ragged L and di
+    (1, 256, 128, 8, torch.bfloat16, torch.bfloat16),
+    (1, 600, 64, 4, torch.float32, torch.float32),
+    (1, 70, 40, 32, torch.float32, torch.bfloat16),
+    (1, 33, 17, 5, torch.float32, torch.float32),        # N not a power of 2
+])
+def test_scan_kernel_matches_plain(cuda, b, l, di, n, xdt, rdt):
+    gen = torch.Generator(device=cuda).manual_seed(l + di)
+    x = torch.randn(b, l, di, generator=gen, device=cuda).to(xdt)
+    delta = torch.nn.functional.softplus(
+        torch.randn(b, l, di, generator=gen, device=cuda) - 2).to(rdt)
+    bs = torch.randn(b, l, n, generator=gen, device=cuda).to(rdt)
+    cs = torch.randn(b, l, n, generator=gen, device=cuda).to(rdt)
+    a_log = torch.log(torch.arange(1, n + 1, device=cuda,
+                                   dtype=torch.float32))[None].repeat(di, 1)
+    before = scan_mod.launches
+    got = scan_mod.selective_scan(x, delta, bs, cs, a_log)
+    torch.cuda.synchronize()
+    assert scan_mod.launches == before + 1 and got.dtype == xdt
+    tol = 2e-4 if xdt == torch.float32 else 3e-2
+    want = scan_mod.selective_scan_ref(x, delta, bs, cs, a_log)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name", ["llada-8b", "hymba-1.5b"])
+def test_reduced_forward_on_card_matches_cpu(cuda, name):
+    """The whole forward through the kernels (f32) against the plain
+    versions on the CPU, same weights: within 1e-4, as the CPU parity
+    tests hold the port to the reference."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(name).reduced()
+    params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 48),
+                           generator=torch.Generator().manual_seed(1))
+    want = forward(params, tokens, cfg)
+
+    def to_cuda(tree):
+        if isinstance(tree, dict):
+            return {k: to_cuda(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_cuda(v) for v in tree]
+        return tree.to(cuda)
+    before = (fa_mod.launches, scan_mod.launches)
+    got = forward(to_cuda(params), tokens.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == before[0] + cfg.num_layers
+    assert scan_mod.launches == before[1] + (
+        cfg.num_layers if cfg.arch_type == "hybrid" else 0)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

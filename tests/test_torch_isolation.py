@@ -14,6 +14,11 @@ FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py"]
 
 
+def test_files_cover_the_hybrid_slice():
+    names = {p.name for p in FILES}
+    assert {"ssm.py", "selective_scan.py", "hymba_1_5b.py"} <= names
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -53,10 +58,11 @@ def test_port_imports_and_runs_with_jax_blocked():
         "import repro_torch, repro_torch.serving, repro_torch.convert\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models import forward, init_model\n"
-        "cfg = get_config('llada-8b-tiny')\n"
-        "p = init_model(cfg, device='cpu')\n"
-        "out = forward(p, torch.zeros(1, 8, dtype=torch.long), cfg)\n"
-        "assert out.shape == (1, 8, cfg.vocab_size)\n"
+        "for name in ('llada-8b-tiny', 'hymba-1.5b-tiny'):\n"
+        "    cfg = get_config(name)\n"
+        "    p = init_model(cfg, device='cpu')\n"
+        "    out = forward(p, torch.zeros(1, 8, dtype=torch.long), cfg)\n"
+        "    assert out.shape == (1, 8, cfg.vocab_size)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -3,8 +3,9 @@
 On the CPU each wrapper runs its plain PyTorch version; it is held against
 the reference's Pallas kernel in interpret mode and against the
 reference's jnp oracle, on the same inputs made with numpy, at the shapes
-and tolerances of ``tests/test_kernels.py``.  The ``gpu`` cases launch the
-hand-written CUDA kernels and skip without a card.
+and tolerances of ``tests/test_kernels.py``.  The hand-written CUDA
+kernels are held against the plain versions on the card by
+``tests/test_torch_gpu.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -163,54 +164,3 @@ def test_library_is_keyed_by_source_and_built_in_ignored_dir():
     repo = _build.BUILD_DIR.parents[1]
     ignored = (repo / ".gitignore").read_text().split()
     assert "build/" in ignored
-
-
-# --------------------------------------------------------------------------
-# on the card: the hand-written kernels against their plain versions
-# --------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("rows,vocab", [(512, 126464), (7, 1000), (5, 513)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_confidence_kernel_matches_plain(cuda, rows, vocab, dtype):
-    gen = torch.Generator(device=cuda).manual_seed(rows)
-    x = (5 * torch.randn(rows, vocab, generator=gen, device=cuda)).to(dtype)
-    x[1, 2] = x[1, vocab - 3] = x[1].max() + 1
-    before = conf_mod.launches
-    got = conf_mod.confidence_fused(x)
-    torch.cuda.synchronize()
-    assert conf_mod.launches == before + 1
-    want = conf_mod.confidence_ref(x)
-    assert torch.equal(got[0], want[0]) and float(got[2][1]) == 0.0
-    torch.testing.assert_close(got[1], want[1], rtol=2e-4, atol=2e-5)
-    torch.testing.assert_close(got[2], want[2], rtol=2e-4, atol=2e-5)
-    torch.testing.assert_close(got[3], want[3], rtol=2e-3, atol=2e-4)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,l,h,g,d,w,dtype", [
-    (2, 128, 32, 32, 128, 0, torch.bfloat16),
-    (2, 128, 32, 8, 128, 0, torch.bfloat16),
-    (1, 300, 2, 2, 64, 50, torch.float32),
-    (1, 257, 1, 1, 256, 128, torch.bfloat16),
-])
-def test_flash_kernel_matches_plain(cuda, b, l, h, g, d, w, dtype):
-    gen = torch.Generator(device=cuda).manual_seed(l)
-    q = torch.randn(b, l, h, d, generator=gen, device=cuda).to(dtype)
-    k = torch.randn(b, l, g, d, generator=gen, device=cuda).to(dtype)
-    v = torch.randn(b, l, g, d, generator=gen, device=cuda).to(dtype)
-    before = fa_mod.launches
-    got = fa_mod.flash_attention(q, k, v, w)
-    torch.cuda.synchronize()
-    assert fa_mod.launches == before + 1
-    tol = 2e-4 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got.float(),
-                               fa_mod.attention_ref(q, k, v, w).float(),
-                               rtol=tol, atol=tol)

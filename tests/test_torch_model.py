@@ -43,13 +43,18 @@ def test_configs_match_field_for_field():
     import repro_torch.configs.base as tb
     for jc, tc in ((jax_get_config("llada-8b"), get_config("llada-8b")),
                    (jax_get_config("llada-8b").reduced(**TESTBED),
-                    get_config("llada-8b").reduced(**TESTBED))):
+                    get_config("llada-8b").reduced(**TESTBED)),
+                   (jax_get_config("hymba-1.5b"), get_config("hymba-1.5b")),
+                   (jax_get_config("hymba-1.5b-tiny"),
+                    get_config("hymba-1.5b-tiny"))):
         assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
     assert dataclasses.asdict(jb.DecodeConfig()) == \
         dataclasses.asdict(tb.DecodeConfig())
     for gen in (8, 12, 13, 64, 256):
         assert jb.default_block_size(gen) == tb.default_block_size(gen)
     assert get_config("llada-8b-tiny") == get_config("llada-8b").reduced()
+    assert get_config("hymba-1.5b-tiny") == \
+        get_config("hymba-1.5b").reduced()
 
 
 def test_bridge_round_trips_every_leaf(jax_params):
@@ -199,7 +204,8 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(arch_type="moe"), "dense block only"),
+    (dict(arch_type="moe"), "dense and hybrid blocks only"),
+    (dict(arch_type="ssm"), "dense and hybrid blocks only"),
     (dict(rope="half"), "only 'standard' RoPE"),
     (dict(qk_norm=True), "qk_norm"),
 ])
@@ -208,3 +214,102 @@ def test_unported_architectures_raise(over, match):
     with pytest.raises(NotImplementedError, match=match):
         params = init_model(cfg, device="cpu")
         forward(params, torch.zeros(1, 4, dtype=torch.long), cfg)
+
+
+# --------------------------------------------------------------------------
+# the hybrid (Hymba) stack: attention ∥ Mamba
+# --------------------------------------------------------------------------
+
+# hymba reduced has window 32, so a 48-token canvas crosses the band; the
+# G=5 variant groups heads like the full model's 25:5
+HYBRID = {"reduced": {}, "gqa5": dict(d_model=320, num_heads=5,
+                                      num_kv_heads=1)}
+
+
+def _hybrid(over):
+    jcfg = jax_get_config("hymba-1.5b").reduced(**over)
+    jp = jax_init_model(jax.random.PRNGKey(1), jcfg)
+    return jcfg, get_config("hymba-1.5b").reduced(**over), jp, \
+        from_jax_params(jax.device_get(jp), device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(HYBRID))
+def test_hybrid_forward_logits_match_reference(name):
+    jcfg, tcfg, jp, tp = _hybrid(HYBRID[name])
+    assert tcfg.sliding_window == 32
+    rs = np.random.default_rng(0)
+    tokens = rs.integers(0, jcfg.vocab_size, (2, 48)).astype(np.int32)
+    tokens[:, 20:] = jcfg.mask_token_id
+    want = np.asarray(jax_forward(jp, jnp.asarray(tokens), jcfg)[0])
+    got = forward(tp, torch.from_numpy(tokens).long(), tcfg)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", sorted(HYBRID))
+def test_hybrid_block_matches_reference(name):
+    from repro.models.blocks import block_forward as jax_block_forward
+    from repro.models.model import make_positions as jax_positions
+    from repro_torch.models.blocks import block_forward
+    jcfg, tcfg, jp, tp = _hybrid(HYBRID[name])
+    x = np.random.default_rng(4).standard_normal(
+        (2, 48, jcfg.d_model)).astype(np.float32)
+    blk = jax.tree.map(lambda a: a[1], jp["blocks"][0])
+    blk = dict(blk, mix_attn=blk["mix_attn"] * 0.7,
+               mix_ssm=blk["mix_ssm"] * 1.3)
+    tblk = dict(tp["blocks"][1], **{
+        k: torch.from_numpy(np.array(blk[k])) for k in ("mix_attn",
+                                                         "mix_ssm")})
+    want, _ = jax_block_forward(blk, jnp.asarray(x),
+                                jax_positions(jcfg, 2, 48), jcfg, 1)
+    got = block_forward(tblk, torch.from_numpy(x),
+                        torch.arange(48)[None].expand(2, 48), tcfg, 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_hybrid_bridge_round_trips_and_keeps_f32_vectors():
+    jcfg, tcfg, jp, _ = _hybrid({})
+    tree = jax.device_get(jp)
+    want = _flatten(tree)
+    got = to_flat(from_jax_params(tree, device="cpu"))
+    assert sorted(got) == sorted(want)
+    for key, arr in want.items():
+        np.testing.assert_array_equal(got[key], arr, err_msg=key)
+    assert "blocks/0/mamba/a_log" in got and "blocks/0/mix_ssm" in got
+    bf = from_jax_params(tree, device="cpu", dtype=torch.bfloat16)
+    layer = bf["blocks"][1]
+    assert layer["mamba"]["w_in"].dtype == torch.bfloat16
+    assert layer["mamba"]["conv_w"].dtype == torch.bfloat16
+    for key in ("a_log", "dt_bias"):
+        assert layer["mamba"][key].dtype == torch.float32
+        np.testing.assert_array_equal(layer["mamba"][key].numpy(),
+                                      want[f"blocks/0/mamba/{key}"][1])
+    assert layer["mix_attn"].dtype == torch.float32
+
+
+def test_hybrid_init_model_matches_reference_tree():
+    jcfg, tcfg = (jax_get_config("hymba-1.5b").reduced(),
+                  get_config("hymba-1.5b").reduced())
+    shapes = jax.eval_shape(
+        lambda: jax_init_model(jax.random.PRNGKey(0), jcfg))
+    want = {"/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                     for p in path): (tuple(leaf.shape), str(leaf.dtype))
+            for path, leaf in jax.tree_util.tree_flatten_with_path(
+                shapes)[0]}
+    params = init_model(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    got = {k: (v.shape, str(v.dtype)) for k, v in to_flat(params).items()}
+    assert got == want
+    m = params["blocks"][0]["mamba"]
+    n = tcfg.ssm.state_size
+    torch.testing.assert_close(m["a_log"][5], torch.log(
+        torch.arange(1, n + 1, dtype=torch.float32)))
+    assert torch.equal(m["dt_bias"], torch.full_like(m["dt_bias"], -4.6))
+    assert torch.equal(params["blocks"][1]["mix_ssm"],
+                       torch.ones(tcfg.d_model))
+    bcfg = dataclasses.replace(tcfg, dtype="bfloat16")
+    bf = init_model(bcfg, device="cpu")
+    assert bf["blocks"][0]["mamba"]["w_in"].dtype == torch.bfloat16
+    assert bf["blocks"][0]["mamba"]["a_log"].dtype == torch.float32
+    logits = forward(bf, torch.zeros(1, 6, dtype=torch.long), bcfg)
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all()

@@ -113,3 +113,51 @@ def test_output_validator():
         validate_block_tokens(np.array([[0, 512]]), 512)
     with pytest.raises(CorruptOutputError):
         validate_block_tokens(np.array([-1]), 512)
+
+
+HJCFG = jax_get_config("hymba-1.5b").reduced()
+HCFG = get_config("hymba-1.5b").reduced()
+
+
+@pytest.fixture(scope="module")
+def hymba_weights():
+    jp = jax_init_model(jax.random.PRNGKey(2), HJCFG)
+    return jp, from_jax_params(jax.device_get(jp), device="cpu")
+
+
+def test_hybrid_engine_matches_reference(hymba_weights):
+    """The slice's path end to end: Hymba behind the engine, mixed prompt
+    lengths and strategies, against the reference engine."""
+    jp, tp = hymba_weights
+    reqs = REQUESTS[:4]
+    prompts = _prompts()[:4]
+
+    def serve(engine):
+        rids = [engine.submit(p, strategy=s)
+                for p, (_, s) in zip(prompts, reqs)]
+        engine.run_until_idle()
+        return [engine.result(r) for r in rids]
+
+    want = serve(JaxServingEngine(jp, HJCFG, JaxDecodeConfig(**BASE),
+                                  max_batch=2, length_bucket=8))
+    got = serve(ServingEngine(tp, HCFG, DecodeConfig(**BASE), max_batch=2,
+                              length_bucket=8, device="cpu"))
+    for g, w in zip(got, want):
+        assert g.status == w.status == "done"
+        np.testing.assert_array_equal(g.result, np.asarray(w.result))
+        for key in ("steps", "forward_equivalents", "phase_counts"):
+            assert getattr(g.stats, key) == getattr(w.stats, key), key
+
+
+@pytest.mark.parametrize("policy", ["prefix", "dual"])
+def test_submit_refuses_cache_policy_on_hybrid(hymba_weights, policy):
+    """As the reference's engine: ValueError (a 400), not 'not ported'."""
+    jp, tp = hymba_weights
+    prompt = np.full((6,), 3, np.int32)
+    jengine = JaxServingEngine(jp, HJCFG, JaxDecodeConfig(**BASE))
+    with pytest.raises(ValueError, match="recurrent state"):
+        jengine.submit(prompt, cache_policy=policy)
+    engine = ServingEngine(tp, HCFG, DecodeConfig(**BASE), device="cpu")
+    with pytest.raises(ValueError, match="recurrent state"):
+        engine.submit(prompt, cache_policy=policy)
+    assert engine.queue_depth == 0

@@ -1,0 +1,186 @@
+"""The port's selective scan and Mamba head against the reference's.
+
+On the CPU ``selective_scan`` runs its plain version; it is held against
+the reference's Pallas kernel (interpret mode) and its jnp oracle on the
+same inputs made with numpy, at the shapes and tolerances of
+``tests/test_kernels.py`` (rtol = atol = 2e-4 in f32, 3e-2 in bf16).
+``mamba_forward`` is held against the reference's chunked associative
+scan on bridged weights within 1e-4 in f32: the two scans sum in
+different orders.  The hand-written kernel is held against the plain
+version on the card by ``tests/test_torch_gpu.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.kernels.ref import selective_scan_ref as jax_scan_ref
+from repro.kernels.selective_scan import selective_scan as jax_scan
+from repro.models import ssm as jax_ssm
+from repro.models.ssm import MAMBA_CHUNK
+from repro_torch.configs import get_config
+from repro_torch.convert import from_jax_params
+from repro_torch.kernels import selective_scan as scan_mod
+from repro_torch.models import ssm
+
+SCAN_SHAPES = [
+    (2, 300, 130, 16),    # ragged time + channel tiles
+    (1, 256, 128, 8),     # exact tiles
+    (2, 100, 64, 16),     # single partial tile
+]
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _both(a: np.ndarray, dtype: str):
+    jdt, tdt = DTYPES[dtype]
+    return jnp.asarray(a, jnp.float32).astype(jdt), \
+        torch.from_numpy(np.asarray(a, np.float32)).to(tdt)
+
+
+def _scan_inputs(b, l, di, n, seed):
+    rs = np.random.default_rng(seed)
+    x = rs.standard_normal((b, l, di))
+    delta = np.log1p(np.exp(rs.standard_normal((b, l, di)) - 2))
+    bs = rs.standard_normal((b, l, n))
+    cs = rs.standard_normal((b, l, n))
+    a_log = np.log(np.arange(1, n + 1, dtype=np.float32))[None].repeat(di, 0)
+    return x, delta, bs, cs, a_log
+
+
+@pytest.mark.parametrize("b,l,di,n", SCAN_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scan_plain_matches_pallas_and_oracle(b, l, di, n, dtype):
+    x, delta, bs, cs, a_log = _scan_inputs(b, l, di, n, l + di)
+    (jx, tx), (jd, td), (jb, tb), (jc, tc) = (
+        _both(a, dtype) for a in (x, delta, bs, cs))
+    ja, ta = jnp.asarray(a_log), torch.from_numpy(a_log)
+    got = scan_mod.selective_scan(tx, td, tb, tc, ta)
+    assert got.dtype == tx.dtype and got.shape == (b, l, di)
+    tol = 2e-4 if dtype == "float32" else 3e-2
+    for want in (jax_scan(jx, jd, jb, jc, ja),
+                 jax_scan_ref(jx, jd, jb, jc, ja)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+def test_scan_mixed_dtypes_match_oracle():
+    """The serving path's mix: x bf16, Δ/B/C f32; y comes back bf16."""
+    x, delta, bs, cs, a_log = _scan_inputs(2, 70, 48, 16, 5)
+    jx, tx = _both(x, "bfloat16")
+    rest = [_both(a, "float32") for a in (delta, bs, cs)]
+    got = scan_mod.selective_scan(tx, *(t for _, t in rest),
+                                  torch.from_numpy(a_log))
+    want = jax_scan_ref(jx, *(j for j, _ in rest), jnp.asarray(a_log))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=3e-2, atol=3e-2)
+
+
+def test_scan_state_carries_across_tiles():
+    """A constant drive with slow decay must accumulate monotonically far
+    beyond one Pallas time tile (the state is carried, not reset)."""
+    b, l, di, n = 1, 600, 64, 4
+    x = torch.ones(b, l, di)
+    delta = torch.full((b, l, di), 0.01)
+    bs = torch.ones(b, l, n)
+    cs = torch.ones(b, l, n)
+    a_log = torch.full((di, n), -3.0)   # A ≈ -0.05: slow decay
+    y = scan_mod.selective_scan(x, delta, bs, cs, a_log)
+    assert float(y[0, 599, 0]) > float(y[0, 100, 0]) > float(y[0, 5, 0])
+    want = jax_scan(*(jnp.asarray(t.numpy()) for t in
+                      (x, delta, bs, cs, a_log)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_scan_wrapper_refuses_other_devices_and_counts_no_plain_launch():
+    x = torch.empty(1, 4, 8, device="meta")
+    bs = torch.empty(1, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        scan_mod.selective_scan(x, x, bs, bs, torch.empty(8, 16))
+    before = scan_mod.launches
+    scan_mod.selective_scan(torch.zeros(1, 4, 8), torch.zeros(1, 4, 8),
+                            torch.zeros(1, 4, 16), torch.zeros(1, 4, 16),
+                            torch.zeros(8, 16))
+    assert scan_mod.launches == before
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(delta=(1, 5, 8)), "must be one"),
+    (dict(b_sel=(1, 4, 8)), "do not fit"),
+    (dict(a_log=(8, 40), b_sel=(1, 4, 40), c_sel=(1, 4, 40)), "state size"),
+    (dict(dtype=torch.float16), "float32 or bfloat16"),
+])
+def test_scan_kernel_checks_refuse_what_it_cannot_take(bad, match):
+    """``_check`` guards the kernel's launch; it runs on meta tensors."""
+    shapes = dict(x=(1, 4, 8), delta=(1, 4, 8), b_sel=(1, 4, 16),
+                  c_sel=(1, 4, 16), a_log=(8, 16))
+    dtype = bad.pop("dtype", torch.float32)
+    shapes.update(bad)
+    ts = {k: torch.empty(v, device="meta") for k, v in shapes.items()}
+    ts["x"] = ts["x"].to(dtype)
+    with pytest.raises(ValueError, match=match):
+        scan_mod._check(ts["x"], ts["delta"], ts["b_sel"], ts["c_sel"],
+                        ts["a_log"])
+
+
+# --------------------------------------------------------------------------
+# the Mamba head against the reference's (chunked associative scan)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mamba_weights():
+    jcfg = jax_get_config("hymba-1.5b").reduced()
+    jp = jax_ssm.init_mamba(jax.random.PRNGKey(3), jcfg)
+    # a spread of decays and biases, so the scan is not near-trivial
+    rs = np.random.default_rng(3)
+    jp = dict(jp, dt_bias=jnp.asarray(rs.uniform(-3, 0, jp["dt_bias"].shape),
+                                      jnp.float32))
+    tp = from_jax_params({"embed": {}, "norm_f": {}, "blocks": [
+        jax.tree.map(lambda a: np.asarray(a)[None], jp)]},
+        device="cpu")["blocks"][0]
+    return jcfg, get_config("hymba-1.5b").reduced(), jp, tp
+
+
+@pytest.mark.parametrize("length", [48, MAMBA_CHUNK + 44])
+def test_mamba_forward_matches_reference(mamba_weights, length):
+    """L = 300 > MAMBA_CHUNK crosses the reference's chunk carry."""
+    jcfg, tcfg, jp, tp = mamba_weights
+    x = np.random.default_rng(length).standard_normal(
+        (2, length, jcfg.d_model)).astype(np.float32)
+    want = jax_ssm.mamba_forward(jp, jnp.asarray(x), jcfg)
+    got = ssm.mamba_forward(tp, torch.from_numpy(x), tcfg)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("part", ["conv", "scan_terms"])
+def test_mamba_parts_match_reference(mamba_weights, part):
+    jcfg, tcfg, jp, tp = mamba_weights
+    rs = np.random.default_rng(11)
+    di = jcfg.ssm.expand * jcfg.d_model
+    x = (3 * rs.standard_normal((2, 20, di))).astype(np.float32)
+    if part == "conv":
+        want = [jax_ssm._mamba_conv_full(jp, jnp.asarray(x), jcfg)]
+        got = [ssm._mamba_conv_full(tp, torch.from_numpy(x), tcfg)]
+    else:
+        # a bias spread over ±40 takes softplus into both of its tails
+        tp = dict(tp, dt_bias=torch.linspace(-40, 40, di))
+        jp = dict(jp, dt_bias=jnp.linspace(-40, 40, di))
+        _, _, c_want = jax_ssm._mamba_scan_terms(jp, jnp.asarray(x), jcfg)
+        delta, b_sel, c_sel = ssm._mamba_scan_terms(tp, torch.from_numpy(x),
+                                                    tcfg)
+        bcdt = np.asarray(jnp.asarray(x) @ jp["w_bcdt"])
+        n = jcfg.ssm.state_size
+        want = [jax.nn.softplus(bcdt[..., 2 * n:] + jp["dt_bias"]),
+                bcdt[..., :n], c_want]
+        got = [delta, b_sel, c_sel]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
