@@ -10,9 +10,13 @@ Phases, in order; any failure raises and the script exits non-zero:
              kernels/csrc`` (one nvcc per source, all in parallel);
 3. kernels — holds each kernel against its plain PyTorch version on the
              card at the serving paths' shapes (LLaDA-8B's and
-             Hymba-1.5B's, plus a ragged and a long selective scan) and
-             times kernel, plain version and, for attention, SDPA (a
-             yardstick only);
+             Hymba-1.5B's, plus a ragged and a long selective scan, a
+             long banded and an Lq != Lk attention) and times kernel,
+             plain version and, for attention, SDPA (a yardstick only),
+             each call to call and, for attention, also on the device
+             alone; counts the tensor-core instructions (HMMA/HGMMA) in
+             the bf16 attention kernels' SASS and requires no ptxas
+             spills in them at d=64 and d=128;
 4. reference — decodes reduced LLaDA and Hymba configs on the card
              (kernels) and on the CPU (plain versions) from the same
              weights and requires identical tokens, steps and
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -50,6 +55,17 @@ CANVAS = 64 + GEN                # longest prompt + generation
 REQUESTS = [(64, "fdm"), (60, "fdm"), (48, "fdm_a"), (48, "fdm_a"),
             (64, "probability"), (41, "probability")]
 FORWARD_REPS = 5
+# attention shapes of the kernel phase, (B, Lq, Lk, H, G, d, window), bf16:
+# LLaDA-8B's scoring and K-candidate batches, a GQA and a banded variant,
+# Hymba-1.5B's heads at serving length and at 2048 with its band live, and
+# a block of queries against the whole canvas (Lq != Lk)
+ATTN_SHAPES = ((MAX_BATCH, CANVAS, CANVAS, 32, 32, 128, 0),
+               (K * MAX_BATCH, CANVAS, CANVAS, 32, 32, 128, 0),
+               (MAX_BATCH, CANVAS, CANVAS, 32, 8, 128, 0),
+               (MAX_BATCH, CANVAS, CANVAS, 32, 32, 128, 32),
+               (MAX_BATCH, CANVAS, CANVAS, 25, 5, 64, 1024),
+               (MAX_BATCH, 2048, 2048, 25, 5, 64, 1024),
+               (MAX_BATCH, BLOCK, CANVAS, 32, 32, 128, 0))
 
 
 def log(*args):
@@ -81,6 +97,96 @@ def time_ms(fn, reps: int = 7, inner: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 5, inner: int = 20) -> float:
+    """Median over ``reps`` of the mean device time of ``inner``
+    back-to-back calls, enqueued while the card spins
+    (``torch.cuda._sleep``) so that host dispatch leaves no gap between
+    them: the kernel's own time, without the wrapper's."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10_000_000)          # ~5 ms of spinning
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def short_symbol(sym: str) -> str:
+    """``_ZN12_GLOBAL__N_12tc15flash_tc_kernelILi64EEEv...`` ->
+    ``tc::flash_tc_kernel<64>``; the symbol itself where the pattern
+    does not fit."""
+    i, names = 3, []
+    if not sym.startswith("_ZN"):
+        return sym
+    while i < len(sym) and sym[i].isdigit():
+        j = i
+        while sym[j].isdigit():
+            j += 1
+        n = int(sym[i:j])
+        names.append(sym[j:j + n])
+        i = j + n
+    names = [n for n in names if not n.startswith("_GLOBAL__N")]
+    m = re.match(r"I((?:f|13__nv_bfloat16|Li-?\d+E|Lb[01]E)+)E", sym[i:])
+    if not names:
+        return sym
+    if not m:
+        return "::".join(names)
+    args = [a or ("bf16" if b else c or d) for a, b, c, d in re.findall(
+        r"(f)|(13__nv_bfloat16)|Li(-?\d+)E|Lb([01])E", m.group(1))]
+    args = ["float" if a == "f" else a for a in args]
+    return "::".join(names) + "<" + ",".join(args) + ">"
+
+
+def ptxas_report(text: str) -> dict:
+    """Per kernel of one ``nvcc -Xptxas -v`` log: registers and spill
+    bytes, keyed by the short symbol."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(_Z\w+)", line)
+        if m:
+            cur = out.setdefault(short_symbol(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def sass_mma_counts(lib_path) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) per kernel in a built
+    library's SASS, from ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    counts, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = short_symbol(m.group(1))
+            counts[cur] = 0
+        elif cur is not None and re.search(r"\bH(?:G)?MMA\b", line):
+            counts[cur] += 1
+    return counts
 
 
 def check_confidence(conf_mod, torch, rows: int, vocab: int, dtype):
@@ -115,39 +221,47 @@ def check_confidence(conf_mod, torch, rows: int, vocab: int, dtype):
     return err, ms, plain_ms, bound
 
 
-def check_attention(fa_mod, torch, b, l, h, g, d, window, dtype):
+def check_attention(fa_mod, torch, b, lq, lk, h, g, d, window, dtype):
     """Kernel vs plain version (bf16 tolerance 2e-2, as the reference's
-    kernel tests).  Returns (max_abs_err, ms, plain_ms, sdpa_ms,
-    bound_ms)."""
+    kernel tests).  Returns a dict: max_abs_err, ms, plain_ms, library_ms
+    (SDPA) call to call, device_ms and library_device_ms on the device
+    alone, bound_ms and bound_by."""
     import torch.nn.functional as F
-    gen = torch.Generator(device="cuda").manual_seed(SEED + l + g + window)
-    q = torch.randn(b, l, h, d, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(b, l, g, d, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(b, l, g, d, generator=gen, device="cuda").to(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + lk + g + window)
+    q = torch.randn(b, lq, h, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, lk, g, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, lk, g, d, generator=gen, device="cuda").to(dtype)
     got = fa_mod.flash_attention(q, k, v, window)
     torch.cuda.synchronize()
     ref = fa_mod.attention_ref(q, k, v, window)
     torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2,
                                atol=2e-2)
-    err = float((got.float() - ref.float()).abs().max())
-    ms = time_ms(lambda: fa_mod.flash_attention(q, k, v, window))
-    plain_ms = time_ms(lambda: fa_mod.attention_ref(q, k, v, window))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None
     if window:
-        idx = torch.arange(l, device="cuda")
-        mask = (idx[:, None] - idx[None, :]).abs() < window
-    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=g != h))
-    idx = torch.arange(l)
-    pairs = int(((idx[:, None] - idx[None, :]).abs() < window).sum()) \
-        if window else l * l
+        mask = (torch.arange(lq, device="cuda")[:, None] -
+                torch.arange(lk, device="cuda")[None, :]).abs() < window
+
+    def kernel():
+        return fa_mod.flash_attention(q, k, v, window)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=g != h)
+    out = dict(max_abs_err=float((got.float() - ref.float()).abs().max()),
+               ms=time_ms(kernel),
+               plain_ms=time_ms(lambda: fa_mod.attention_ref(q, k, v,
+                                                             window)),
+               library_ms=time_ms(sdpa), device_ms=device_ms(kernel),
+               library_device_ms=device_ms(sdpa))
+    pairs = int(((torch.arange(lq)[:, None] - torch.arange(lk)[None, :])
+                 .abs() < window).sum()) if window else lq * lk
     ops = 4 * b * h * pairs * d
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bound = 1e3 * max(nbytes / MEM_BYTES_PER_S, ops / BF16_OPS_PER_S)
-    return err, ms, plain_ms, sdpa_ms, bound, \
-        "bytes" if nbytes / MEM_BYTES_PER_S >= ops / BF16_OPS_PER_S \
-        else "operations"
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    out.update(bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return out
 
 
 def check_scan(scan_mod, torch, b, l, di, n, xdtype):
@@ -394,13 +508,22 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    _build.build_all()
+    libs = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.last_build['seconds']:.2f} s)")
     for name, text in _build.last_build["ptxas"].items():
-        for line in text.splitlines():
-            if "registers" in line or "spill stores" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for fn, rep in ptxas_report(text).items():
+            log(f"  ptxas {name} {fn}: {rep}")
+            if re.fullmatch(r"tc::flash_tc_kernel<(64|128)>", fn) and (
+                    rep.get("spill_stores") or rep.get("spill_loads")):
+                raise AssertionError(f"ptxas spills in {fn}: {rep}")
+    mma = sass_mma_counts(libs["flash_attention"])
+    tc_counts = {fn: n for fn, n in mma.items() if "flash_tc_kernel" in fn}
+    log(f"sass flash_attention: HMMA/HGMMA per kernel: "
+        f"{json.dumps(mma, sort_keys=True)}")
+    if len(tc_counts) != 8 or not all(tc_counts.values()):
+        raise AssertionError(f"the bf16 attention kernels are not all on "
+                             f"the tensor cores: {tc_counts}")
 
     # 3. kernels against their plain versions, main-path shapes
     conf_rows = K * MAX_BATCH * CANVAS
@@ -419,21 +542,22 @@ def main() -> None:
             conf_entry = dict(ms=ms, plain_ms=plain, bound_ms=bound)
     conf_entry["max_abs_err"] = max(conf_errs)
     attn_errs = []
-    for b, l, h, g, d, w in ((MAX_BATCH, CANVAS, 32, 32, 128, 0),
-                             (K * MAX_BATCH, CANVAS, 32, 32, 128, 0),
-                             (MAX_BATCH, CANVAS, 32, 8, 128, 0),
-                             (MAX_BATCH, CANVAS, 32, 32, 128, 32),
-                             (MAX_BATCH, CANVAS, 25, 5, 64, 1024),
-                             (MAX_BATCH, 2048, 25, 5, 64, 1024)):
-        err, ms, plain, sdpa, bound, by = check_attention(
-            fa_mod, torch, b, l, h, g, d, w, torch.bfloat16)
-        attn_errs.append(err)
-        log(f"attention B={b} L={l} H={h} G={g} d={d} window={w} bf16: "
-            f"max_abs_err {err} kernel {ms:.4f} ms plain {plain:.4f} ms "
-            f"sdpa {sdpa:.4f} ms bound {bound:.4f} ms ({by})")
-        if (b, l, g, w) == (MAX_BATCH, CANVAS, 32, 0):
-            attn_entry = dict(ms=ms, plain_ms=plain, library_ms=sdpa,
-                              bound_ms=bound, bound_by=by)
+    for b, lq, lk, h, g, d, w in ATTN_SHAPES:
+        r = check_attention(fa_mod, torch, b, lq, lk, h, g, d, w,
+                            torch.bfloat16)
+        attn_errs.append(r["max_abs_err"])
+        log(f"attention B={b} Lq={lq} Lk={lk} H={h} G={g} d={d} window={w} "
+            f"bf16: max_abs_err {r['max_abs_err']} kernel "
+            f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa "
+            f"{r['library_ms']:.4f} ms (kernel/sdpa "
+            f"{r['ms'] / r['library_ms']:.3f}); on the device alone kernel "
+            f"{r['device_ms']:.4f} ms sdpa {r['library_device_ms']:.4f} ms "
+            f"(kernel/sdpa {r['device_ms'] / r['library_device_ms']:.3f}); "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        if (b, lq, g, w) == (MAX_BATCH, CANVAS, 32, 0):
+            attn_entry = {key: r[key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "device_ms", "library_device_ms")}
     attn_entry["max_abs_err"] = max(attn_errs)
     scan_errs = []
     for b, l, di, n, xdt in ((MAX_BATCH, CANVAS, 3200, 16, torch.bfloat16),
@@ -491,7 +615,9 @@ def main() -> None:
          "plain_ms": attn_entry["plain_ms"],
          "bound_ms": attn_entry["bound_ms"],
          "bound_by": attn_entry["bound_by"],
-         "library_ms": attn_entry["library_ms"]},
+         "library_ms": attn_entry["library_ms"],
+         "device_ms": attn_entry["device_ms"],
+         "library_device_ms": attn_entry["library_device_ms"]},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
          "replaces": "src/repro/kernels/selective_scan.py:67",

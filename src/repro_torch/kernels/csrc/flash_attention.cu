@@ -4,26 +4,62 @@
 // src/repro/kernels/flash_attention.py: non-causal softmax(q k^T d^-1/2) v
 // with f32 online-softmax accumulators, an optional band |i - j| < window
 // (0 = full) that skips key tiles wholly outside it, and the ragged end of
-// Lk masked with the same -1e30 convention.  Beyond the Pallas kernel it
+// Lk masked.  A query row with no key inside its band (only possible when
+// Lq > Lk) gets 0, as in the Pallas kernel.  Beyond the Pallas kernel it
 // groups GQA heads natively (kv head = h / (H / G)), so the caller does not
 // expand K/V.  Layout is the reference's: q (B, Lq, H, d), k/v (B, Lk, G, d),
 // out (B, Lq, H, d); f32 or bf16; d a multiple of 32 up to 256.
 //
-// Bound: the work is 4*B*H*Lq*Lk*d operations on 4*B*L*H*d*2 bytes (bf16,
-// Lq = Lk = L), i.e. L/2 operations per byte.  Below the card's ridge of
-// ~295 bf16 operations per byte (L < ~590, the decode shapes) the bytes
-// bound it; above, the tensor cores.  This first kernel uses neither well:
-// it is plain f32 FMA from shared memory, written to be right first, so
-// its arithmetic rather than either bound limits it.  Design: one CTA of 8
-// warps per (b*h, 64-query tile); the Q tile and each 64-row K/V tile are
-// staged in shared memory as f32 (K rows padded by 4 words so the
-// per-lane 16-byte reads hit distinct banks); each warp owns 8 query rows,
-// each lane 2 keys of the tile for Q K^T and d/32 output columns for P V;
-// P goes through a per-warp shared buffer.  wgmma/mma.sync, TMA and
-// double buffering are later work.
+// Bound: the work is 4*B*H*Lq*Lk*d operations (fewer under a band) on
+// 2*B*L*(H+G)*d*2 bytes (bf16, Lq = Lk = L), i.e. at most L/2 operations
+// per byte.  Below the card's ridge of ~295 bf16 operations per byte
+// (L < ~590: the serving shapes, L = 128) the bytes bound it; above (the
+// long-context shape, L = 2048 under Hymba's 1024 band) the tensor cores.
+//
+// bf16, the serving path: FlashAttention-2 on the tensor cores
+// (`flash_tc_kernel`).  One CTA of 4 warps owns 64 query rows, 16 per
+// warp; its grid is ceil(Lq/64) x B*H CTAs: 128 for LLaDA-8B at B=2,
+// L=128 (256 at B=4), 100 for Hymba-1.5B at B=2 (200 at B=4), each one
+// wave (registers allow 2 CTAs per SM at d=128, 3 at d=64), and 1600 at
+// L=2048.  A 64-row q tile gives each of 4 warps one m16 fragment; a
+// 32-row tile of 2 warps would double the CTAs but not the warps in
+// flight, and would load every K/V tile twice as often.  Per 64-key tile:
+//   - K and V stay bf16 in shared memory, rows padded by 16 bytes so the
+//     eight 16-byte rows an `ldmatrix` phase reads fall in distinct banks;
+//     they are double-buffered, the next tile's 16-byte `cp.async.cg`
+//     copies in flight while the tensor cores work on this one;
+//   - S = Q K^T on `mma.sync.m16n8k16` (bf16 in, f32 out), Q's fragments
+//     loaded once with `ldmatrix` and held in registers for d <= 128 (for
+//     d > 128 they are re-read from shared memory per k-step, which keeps
+//     the accumulator of d/8 x 4 floats per lane out of local memory);
+//   - the row max and row sum reduce across the quad of lanes that holds a
+//     row; exp2 with the scale folded into log2(e);
+//   - P is rounded to bf16 in registers, where the S accumulator's layout
+//     is already the A operand's, and fed to P V with V read through
+//     `ldmatrix.trans`: P never touches shared memory.
+// The epilogue divides by l, rounds to bf16 and skips ragged query rows.
+// The band's whole-tile skip is the Pallas kernel's closest-approach test,
+// turned into the interval of live key tiles; tiles that straddle the band
+// edge or the ragged end of Lk are masked per element, the rest not.  GQA
+// heads are not packed into one CTA (each query head re-reads its group's
+// K/V tiles, from L2): at the serving shapes the K/V bytes are a few MB
+// and the grid is already under a wave.  Not yet used: wgmma, TMA and
+// warp specialisation, a q offset for a cached window's band.
+//
+// f32, the reference phase's path: the first kernel, plain f32 FMA from
+// shared memory (`flash_kernel<float, ...>`), kept exactly as it was.  The
+// card's f32 decodes of the reduced configs must equal the CPU's token for
+// token; random weights put every max-probability near 1/V, so scores
+// moved by TF32's or bf16's ~1e-3 (the tensor cores' f32 inputs) flip
+// argmaxes.  Design: one CTA of 8 warps per (b*h, 64-query tile); the Q
+// tile and each 64-row K/V tile are staged in shared memory as f32 (K rows
+// padded by 4 words so the per-lane 16-byte reads hit distinct banks);
+// each warp owns 8 query rows, each lane 2 keys of the tile for Q K^T and
+// d/32 output columns for P V; P goes through a per-warp shared buffer.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <cmath>
 
 namespace {
 
@@ -35,16 +71,9 @@ constexpr int kThreads = kWarps * 32;
 constexpr float kNeg = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -193,19 +222,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The dynamic shared-memory limit is a per-device attribute: it is set on
+// every launch (a cheap call), so every device and every thread sees it.
 template <typename T, int DPL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Lq, int Lk, int H, int G, int window,
                    float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DPL * 32>();
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel<T, DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
   const dim3 grid((Lq + kQT - 1) / kQT, B * H), block(kThreads);
   flash_kernel<T, DPL><<<grid, block, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -231,10 +258,338 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores.  Fragment layouts of mma.m16n8k16 (PTX ISA), with
+// lane = 4 * grp + qd: the A tile (16 x 16, row-major) is four 32-bit
+// registers holding rows {grp, grp + 8} x columns {2qd, 2qd + 1} and the
+// same plus 8 columns; B (16 x 8, k-major) is two registers, k rows
+// {2qd, 2qd + 1} and {2qd + 8, 2qd + 9} at column grp; the f32 C tile is
+// c0, c1 at row grp, columns 2qd, 2qd + 1 and c2, c3 at row grp + 8.  One
+// `ldmatrix.x4` loads four 8 x 8 blocks, lanes 8m..8m+7 giving the row
+// addresses of block m, and returns block m in register m in exactly the
+// A/B layout (`.trans` transposes each block on the way).
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kRows = 64;              // query rows per CTA, 16 per warp
+constexpr int kKeys = 64;              // keys per K/V tile
+constexpr int kWarps = kRows / 16;
+constexpr int kThreads = kWarps * 32;
+constexpr int kPad = 8;                // bf16 of padding per shared row
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t smem_bytes() {         // Q, then 2 K and 2 V buffers
+  return sizeof(bf16) * static_cast<size_t>(kRows + 4 * kKeys) * (D + kPad);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy to shared memory; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a b on the tensor cores: bf16 inputs, f32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 in one register, lo in the low half (the
+// lower column of a fragment pair).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Rows [r0, r0 + 64) of a bf16 matrix with row stride `stride` (elements)
+// into a shared tile of pitch D + kPad; rows at or past n_rows are zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          int64_t stride, int r0, int n_rows,
+                                          int tid) {
+  constexpr int kChunks = D / 8;         // 16-byte chunks per row
+#pragma unroll
+  for (int it = 0; it < 64 * kChunks / kThreads; ++it) {
+    const int idx = tid + it * kThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const bool ok = r0 + r < n_rows;
+    const bf16* from = src + (ok ? r0 + r : 0) * stride + c * 8;
+    cp_async_16(smem_addr(dst + r * (D + kPad) + c * 8), from, ok ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, int Lq,
+                int Lk, int H, int G, int window, float scale_log2) {
+  constexpr int P = D + kPad;            // shared row pitch, elements
+  constexpr int KD = D / 16;             // k-steps of Q K^T
+  constexpr int ND = D / 8;              // 8-column tiles of O
+  constexpr int NS = kKeys / 8;          // 8-column tiles of S
+  constexpr bool kQInRegs = D <= 128;
+  extern __shared__ uint4 tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* Ks = Qs + kRows * P;
+  bf16* Vs = Ks + 2 * kKeys * P;
+
+  const int q0 = blockIdx.x * kRows;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int g = h / (H / G);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int64_t q_stride = static_cast<int64_t>(H) * D;
+  const int64_t kv_stride = static_cast<int64_t>(G) * D;
+  const bf16* qb = q + (static_cast<int64_t>(b) * Lq * H + h) * D;
+  const bf16* kb = k + (static_cast<int64_t>(b) * Lk * G + g) * D;
+  const bf16* vb = v + (static_cast<int64_t>(b) * Lk * G + g) * D;
+
+  // Live key tiles [lo, hi): a tile works iff the closest approach of the
+  // two tiles is inside the band (an interval, since the distance is
+  // V-shaped in the tile index); uniform across the CTA.
+  int lo = 0, hi = (Lk + kKeys - 1) / kKeys;
+  if (window > 0) {
+    auto dist = [&](int t) {
+      const int k0 = t * kKeys;
+      return max(q0 - (k0 + kKeys - 1), k0 - (q0 + kRows - 1));
+    };
+    while (lo < hi && dist(lo) >= window) ++lo;
+    while (hi > lo && dist(hi - 1) >= window) --hi;
+  }
+
+  load_tile<D>(Qs, qb, q_stride, q0, Lq, tid);
+  if (lo < hi) {
+    load_tile<D>(Ks, kb, kv_stride, lo * kKeys, Lk, tid);
+    load_tile<D>(Vs, vb, kv_stride, lo * kKeys, Lk, tid);
+  }
+  cp_async_commit();
+
+  // ldmatrix row addresses of this lane: Q as A (rows lane % 16, column
+  // block lane / 16); K as B (keys 8 (lane / 16) + lane % 8, column block
+  // (lane / 8) % 2); V as B through .trans (keys 8 ((lane / 8) % 2) +
+  // lane % 8, column block lane / 16).
+  const uint32_t q_addr =
+      smem_addr(Qs + (warp * 16 + lane % 16) * P + (lane / 16) * 8);
+  const int k_off = ((lane / 16) * 8 + lane % 8) * P + ((lane / 8) % 2) * 8;
+  const int v_off = (((lane / 8) % 2) * 8 + lane % 8) * P + (lane / 16) * 8;
+  const int i0 = q0 + warp * 16 + lane / 4;     // this lane's rows i0, i0+8
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};        // row max of raw scores
+  float l[2] = {0.f, 0.f};                    // this lane's share of l
+  uint32_t qf[kQInRegs ? KD : 1][4];
+
+  for (int t = lo; t < hi; ++t) {
+    const int buf = (t - lo) & 1;
+    if (t + 1 < hi) {                         // next tile into the other buffer
+      load_tile<D>(Ks + (buf ^ 1) * kKeys * P, kb, kv_stride,
+                   (t + 1) * kKeys, Lk, tid);
+      load_tile<D>(Vs + (buf ^ 1) * kKeys * P, vb, kv_stride,
+                   (t + 1) * kKeys, Lk, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (kQInRegs) {
+      if (t == lo) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) ldsm_x4(q_addr + kk * 32, qf[kk]);
+      }
+    }
+
+    // S = Q K^T, 16 rows x 64 keys per warp
+    const uint32_t k_tile = smem_addr(Ks + buf * kKeys * P + k_off);
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQInRegs) {
+        qa[0] = qf[kk][0]; qa[1] = qf[kk][1];
+        qa[2] = qf[kk][2]; qa[3] = qf[kk][3];
+      } else {
+        ldsm_x4(q_addr + kk * 32, qa);
+      }
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t kf[4];
+        ldsm_x4(k_tile + (n * 8 * P + kk * 16) * 2, kf);
+        mma_bf16(s[n], qa, kf[0], kf[1]);
+        mma_bf16(s[n + 1], qa, kf[2], kf[3]);
+      }
+    }
+
+    // per-element mask only on tiles that straddle the band's edge or the
+    // ragged end of Lk
+    const int k0 = t * kKeys;
+    const bool ragged = k0 + kKeys > Lk;
+    const bool edge = window > 0 &&
+        max(q0 + kRows - 1 - k0, k0 + kKeys - 1 - q0) >= window;
+    if (ragged || edge) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
+          const int i = i0 + (e >> 1) * 8;
+          if (j >= Lk || (window > 0 && abs(i - j) >= window))
+            s[n][e] = -INFINITY;
+        }
+      }
+    }
+
+    // online softmax; a lane holds 2 rows, a row lives in one quad
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // a row with no live key yet keeps base 0, so exp2(-inf) = 0
+      base[r] = mx[r] == -INFINITY ? 0.f : mx[r] * scale_log2;
+      const float alpha = exp2f(m[r] * scale_log2 - base[r]);
+      m[r] = mx[r];
+      l[r] *= alpha;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+    }
+    // P in bf16, straight from S's layout into the A operand of P V
+    uint32_t pa[kKeys / 16][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const float p0 = exp2f(fmaf(s[n][0], scale_log2, -base[0]));
+      const float p1 = exp2f(fmaf(s[n][1], scale_log2, -base[0]));
+      const float p2 = exp2f(fmaf(s[n][2], scale_log2, -base[1]));
+      const float p3 = exp2f(fmaf(s[n][3], scale_log2, -base[1]));
+      l[0] += p0 + p1;
+      l[1] += p2 + p3;
+      pa[n / 2][(n % 2) * 2] = pack_bf16(p0, p1);
+      pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+
+    // O += P V
+    const uint32_t v_tile = smem_addr(Vs + buf * kKeys * P + v_off);
+#pragma unroll
+    for (int kc = 0; kc < kKeys / 16; ++kc) {
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t vf[4];
+        ldsm_x4_trans(v_tile + (kc * 16 * P + n * 8) * 2, vf);
+        mma_bf16(acc[n], pa[kc], vf[0], vf[1]);
+        mma_bf16(acc[n + 1], pa[kc], vf[2], vf[3]);
+      }
+    }
+    __syncthreads();                          // buffer free for tile t + 2
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    const int i = i0 + r * 8;
+    if (i < Lq) {
+      bf16* out = o + ((static_cast<int64_t>(b) * Lq + i) * H + h) * D +
+                  (lane % 4) * 2;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<uint32_t*>(out + n * 8) =
+            pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int Lq, int Lk, int H, int G, int window,
+                   float scale, cudaStream_t stream) {
+  constexpr size_t bytes = smem_bytes<D>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Lq + kRows - 1) / kRows, B * H), block(kThreads);
+  flash_tc_kernel<D><<<grid, block, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), Lq, Lk, H, G,
+      window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
+                     void* o, int B, int Lq, int Lk, int H, int G, int window,
+                     float scale, cudaStream_t s) {
+  // cp.async moves 16-byte chunks: every base address must be aligned
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
+    return cudaErrorInvalidValue;
+  switch (d / 32) {
+    case 1: return launch<32>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
+    case 2: return launch<64>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
+    case 3: return launch<96>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
+    case 4: return launch<128>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
+    case 5: return launch<160>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
+    case 6: return launch<192>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
+    case 7: return launch<224>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
+    case 8: return launch<256>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 = launched).
+// dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core
+// kernel; q, k, v and o 16-byte aligned).  Returns cudaGetLastError() after
+// the launch (0 = launched).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int Lq,
                                      int Lk, int H, int G, int d, int window,
@@ -248,8 +603,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (dtype == 0) {
     err = dispatch<float>(d, q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
   } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(d, q, k, v, o, B, Lq, Lk, H, G, window,
-                                  scale, s);
+    err = tc::dispatch(d, q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -7,6 +7,10 @@ dtype: ``softmax(q kᵀ d^-½) v``, optionally restricted to the band
 ``|i − j| < window``.  On a CUDA tensor it launches the hand-written kernel
 in ``csrc/flash_attention.cu`` or raises; on a CPU tensor it runs
 ``attention_ref``, the plain version.  There is no fallback between them.
+In bf16 the kernel runs on the tensor cores and copies 16-byte chunks, so
+a bf16 tensor whose storage starts off a 16-byte boundary (a view at an
+odd element offset; never a fresh allocation) is refused with a
+``RuntimeError``; f32 runs the FMA kernel.
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ imports nothing of JAX, so it runs on a machine that has only PyTorch:
 
 (``--noconftest``: the suite's ``conftest.py`` imports JAX.)  Tolerances
 are the reference's kernel tests': 2e-4 in f32, 2e-2 (attention) and 3e-2
-(selective scan, y rounded to bf16) in bf16.
+(selective scan, y rounded to bf16) in bf16.  Attention in f32 runs the
+FMA kernel, in bf16 the tensor-core kernel.
 """
 import pytest
 import torch
@@ -66,6 +67,62 @@ def test_flash_kernel_matches_plain(cuda, b, l, h, g, d, w, dtype):
     torch.testing.assert_close(got.float(),
                                fa_mod.attention_ref(q, k, v, w).float(),
                                rtol=tol, atol=tol)
+
+
+def _bf16_qkv(device, b, lq, lk, h, g, d, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(b, lq, h, d, generator=gen, device=device)
+            .to(torch.bfloat16),
+            torch.randn(b, lk, g, d, generator=gen, device=device)
+            .to(torch.bfloat16),
+            torch.randn(b, lk, g, d, generator=gen, device=device)
+            .to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("b,lq,lk,h,g,d,w", [
+    (1, 130, 130, 2, 2, 32, 0),          # d=32, L not a multiple of 64
+    (1, 130, 130, 4, 1, 96, 0),          # d=96, one kv head
+    (1, 200, 200, 2, 1, 256, 17),        # d=256 (Q re-read per k-step)
+    (2, 64, 200, 8, 8, 64, 0),           # Lq < Lk
+    (1, 200, 64, 4, 2, 128, 0),          # Lq > Lk
+    (1, 64, 200, 4, 4, 64, 17),          # Lq < Lk under a band
+    (1, 130, 130, 25, 5, 64, 1),         # band of one key, G=5
+    (2, 130, 130, 32, 8, 128, 17),       # band inside a tile, G=8
+    (1, 130, 130, 8, 1, 128, 0),         # G=1
+    (1, 300, 300, 25, 5, 64, 64),        # band of exactly one tile width
+])
+def test_flash_bf16_tensor_core_edges(cuda, b, lq, lk, h, g, d, w):
+    """The bf16 tensor-core kernel at its edges: every head dim class,
+    ragged and unequal lengths, bands narrower than a tile, GQA groups."""
+    q, k, v = _bf16_qkv(cuda, b, lq, lk, h, g, d, seed=lq + 7 * lk + d + w)
+    before = fa_mod.launches
+    got = fa_mod.flash_attention(q, k, v, w)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == before + 1 and got.shape == q.shape
+    torch.testing.assert_close(got.float(),
+                               fa_mod.attention_ref(q, k, v, w).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_flash_bf16_refuses_misaligned_storage(cuda):
+    """The tensor-core kernel copies 16-byte chunks: a contiguous bf16
+    view that starts off a 16-byte boundary is refused, not misread."""
+    q, k, v = _bf16_qkv(cuda, 1, 64, 64, 2, 2, 64, seed=5)
+    flat = torch.empty(q.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa_mod.flash_attention(shifted, k, v)
+
+
+def test_flash_bf16_is_bitwise_deterministic(cuda):
+    """No atomics and no order that varies: equal inputs, equal bits."""
+    q, k, v = _bf16_qkv(cuda, 2, 300, 300, 25, 5, 64, seed=3)
+    first = fa_mod.flash_attention(q, k, v, 128)
+    second = fa_mod.flash_attention(q, k, v, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("b,l,di,n,xdt,rdt", [
