@@ -13,10 +13,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              Hymba-1.5B's, plus a ragged and a long selective scan, a
              long banded and an Lq != Lk attention) and times kernel,
              plain version and, for attention, SDPA (a yardstick only),
-             each call to call and, for attention, also on the device
-             alone; counts the tensor-core instructions (HMMA/HGMMA) in
-             the bf16 attention kernels' SASS and requires no ptxas
-             spills in them at d=64 and d=128;
+             each call to call and on the device alone; counts the
+             tensor-core instructions (HMMA/HGMMA) in the bf16 attention
+             kernels' SASS and requires no ptxas spills in them at d=64
+             and d=128, nor in the selective scan's two passes at N=16;
 4. reference — decodes reduced LLaDA and Hymba configs on the card
              (kernels) and on the CPU (plain versions) from the same
              weights and requires identical tokens, steps and
@@ -55,6 +55,12 @@ CANVAS = 64 + GEN                # longest prompt + generation
 REQUESTS = [(64, "fdm"), (60, "fdm"), (48, "fdm_a"), (48, "fdm_a"),
             (64, "probability"), (41, "probability")]
 FORWARD_REPS = 5
+# confidence shapes of the kernel phase, (rows, V, dtype): LLaDA-8B's
+# K-candidate and scoring batches in f32 and bf16, and Hymba-1.5B's V
+CONF_SHAPES = ((K * MAX_BATCH * CANVAS, 126464, "float32"),
+               (MAX_BATCH * CANVAS, 126464, "float32"),
+               (K * MAX_BATCH * CANVAS, 126464, "bfloat16"),
+               (K * MAX_BATCH * CANVAS, 32001, "float32"))
 # attention shapes of the kernel phase, (B, Lq, Lk, H, G, d, window), bf16:
 # LLaDA-8B's scoring and K-candidate batches, a GQA and a banded variant,
 # Hymba-1.5B's heads at serving length and at 2048 with its band live, and
@@ -66,6 +72,13 @@ ATTN_SHAPES = ((MAX_BATCH, CANVAS, CANVAS, 32, 32, 128, 0),
                (MAX_BATCH, CANVAS, CANVAS, 25, 5, 64, 1024),
                (MAX_BATCH, 2048, 2048, 25, 5, 64, 1024),
                (MAX_BATCH, BLOCK, CANVAS, 32, 32, 128, 0))
+# selective-scan shapes of the kernel phase, (B, L, di, N, x dtype), Δ/B/C
+# f32: Hymba-1.5B's Mamba branch at the scoring and K-candidate batches, a
+# ragged L and di in f32, and one 2048-token row (Hymba's window is 1024)
+SCAN_SHAPES = ((MAX_BATCH, CANVAS, 3200, 16, "bfloat16"),
+               (K * MAX_BATCH, CANVAS, 3200, 16, "bfloat16"),
+               (2, 300, 130, 16, "float32"),
+               (1, 2048, 3200, 16, "bfloat16"))
 
 
 def log(*args):
@@ -189,16 +202,49 @@ def sass_mma_counts(lib_path) -> dict:
     return counts
 
 
-def check_confidence(conf_mod, torch, rows: int, vocab: int, dtype):
-    """Kernel vs plain version; argmax exact, the rest within the
-    tolerances of tests/test_kernels.py.  Returns (max_abs_err, ms,
-    plain_ms, bound_ms)."""
+def conf_inputs(torch, rows: int, vocab: int, dtype: str):
+    """Logits for the confidence kernel, with duplicated maxima in every
+    eighth row; returns the kernel's arguments."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + rows)
-    x = (5 * torch.randn(rows, vocab, generator=gen, device="cuda")).to(dtype)
-    for r in range(0, rows, max(rows // 8, 1)):      # duplicated maxima
+    x = (5 * torch.randn(rows, vocab, generator=gen, device="cuda")).to(
+        getattr(torch, dtype))
+    for r in range(0, rows, max(rows // 8, 1)):
         top = x[r].float().max() + 1
         x[r, 3 + r % 7] = top
         x[r, vocab - 5 - r % 11] = top
+    return (x,)
+
+
+def attn_inputs(torch, b, lq, lk, h, g, d, window):
+    """bf16 q, k, v and the band for the attention kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + lk + g + window)
+    q = torch.randn(b, lq, h, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(b, lk, g, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, lk, g, d, generator=gen, device="cuda").bfloat16()
+    return q, k, v, window
+
+
+def scan_inputs(torch, b, l, di, n, xdtype: str):
+    """x in ``xdtype`` and f32 Δ/B/C as on the serving path, a_log with a
+    spread of decays; returns the kernel's arguments."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + l + di)
+    x = torch.randn(b, l, di, generator=gen, device="cuda").to(
+        getattr(torch, xdtype))
+    delta = torch.nn.functional.softplus(
+        torch.randn(b, l, di, generator=gen, device="cuda") - 2)
+    bs = torch.randn(b, l, n, generator=gen, device="cuda")
+    cs = torch.randn(b, l, n, generator=gen, device="cuda")
+    a_log = torch.log(torch.arange(1, n + 1, device="cuda",
+                                   dtype=torch.float32))[None].repeat(di, 1)
+    return x, delta, bs, cs, a_log
+
+
+def check_confidence(conf_mod, torch, rows: int, vocab: int, dtype: str):
+    """Kernel vs plain version; argmax exact, the rest within the
+    tolerances of tests/test_kernels.py.  Returns a dict: max_abs_err,
+    ms and plain_ms call to call, device_ms on the device alone,
+    bound_ms."""
+    (x,) = conf_inputs(torch, rows, vocab, dtype)
     got = conf_mod.confidence_fused(x)
     torch.cuda.synchronize()
     ref = conf_mod.confidence_ref(x)
@@ -212,25 +258,27 @@ def check_confidence(conf_mod, torch, rows: int, vocab: int, dtype):
                              (got[2], ref[2], 2e-4, 2e-5),
                              (got[3], ref[3], 2e-3, 2e-4)):
         torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
-    err = max(float((g - r).abs().max()) for g, r in zip(got[1:], ref[1:]))
-    ms = time_ms(lambda: conf_mod.confidence_fused(x))
-    plain_ms = time_ms(lambda: conf_mod.confidence_ref(x), reps=3, inner=2)
+
+    def kernel():
+        return conf_mod.confidence_fused(x)
     nbytes = x.numel() * x.element_size() + rows * 16
     ops = 5 * x.numel()                   # max, sub, exp, add, fma per logit
-    bound = 1e3 * max(nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S)
-    return err, ms, plain_ms, bound
+    return dict(
+        max_abs_err=max(float((g - r).abs().max())
+                        for g, r in zip(got[1:], ref[1:])),
+        ms=time_ms(kernel), device_ms=device_ms(kernel),
+        plain_ms=time_ms(lambda: conf_mod.confidence_ref(x), reps=3,
+                         inner=2),
+        bound_ms=1e3 * max(nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S))
 
 
-def check_attention(fa_mod, torch, b, lq, lk, h, g, d, window, dtype):
+def check_attention(fa_mod, torch, b, lq, lk, h, g, d, window):
     """Kernel vs plain version (bf16 tolerance 2e-2, as the reference's
     kernel tests).  Returns a dict: max_abs_err, ms, plain_ms, library_ms
     (SDPA) call to call, device_ms and library_device_ms on the device
     alone, bound_ms and bound_by."""
     import torch.nn.functional as F
-    gen = torch.Generator(device="cuda").manual_seed(SEED + lk + g + window)
-    q = torch.randn(b, lq, h, d, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(b, lk, g, d, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(b, lk, g, d, generator=gen, device="cuda").to(dtype)
+    q, k, v, _ = attn_inputs(torch, b, lq, lk, h, g, d, window)
     got = fa_mod.flash_attention(q, k, v, window)
     torch.cuda.synchronize()
     ref = fa_mod.attention_ref(q, k, v, window)
@@ -264,37 +312,36 @@ def check_attention(fa_mod, torch, b, lq, lk, h, g, d, window, dtype):
     return out
 
 
-def check_scan(scan_mod, torch, b, l, di, n, xdtype):
+def check_scan(scan_mod, torch, b, l, di, n, xdtype: str):
     """Kernel vs plain version, x in ``xdtype`` and Δ/B/C f32 as on the
     serving path (tolerance 3e-2 with bf16 x, 2e-4 in f32, as the
-    reference's kernel tests).  Returns (max_abs_err, ms, plain_ms,
-    bound_ms, bound_by)."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + l + di)
-    x = torch.randn(b, l, di, generator=gen, device="cuda").to(xdtype)
-    delta = torch.nn.functional.softplus(
-        torch.randn(b, l, di, generator=gen, device="cuda") - 2)
-    bs = torch.randn(b, l, n, generator=gen, device="cuda")
-    cs = torch.randn(b, l, n, generator=gen, device="cuda")
-    a_log = torch.log(torch.arange(1, n + 1, device="cuda",
-                                   dtype=torch.float32))[None].repeat(di, 1)
-    args = (x, delta, bs, cs, a_log)
+    reference's kernel tests).  Returns a dict: max_abs_err, ms and
+    plain_ms call to call, device_ms on the device alone, bound_ms and
+    bound_by (one exp per state and step), and design_floor_ms (the two
+    passes' exps, 2 per state and step, on the SFU)."""
+    args = scan_inputs(torch, b, l, di, n, xdtype)
     got = scan_mod.selective_scan(*args)
     torch.cuda.synchronize()
     ref = scan_mod.selective_scan_ref(*args)
-    tol = 2e-4 if xdtype == torch.float32 else 3e-2
+    tol = 2e-4 if xdtype == "float32" else 3e-2
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
-    err = float((got.float() - ref.float()).abs().max())
-    ms = time_ms(lambda: scan_mod.selective_scan(*args))
-    plain_ms = time_ms(lambda: scan_mod.selective_scan_ref(*args), reps=3,
-                       inner=2)
+
+    def kernel():
+        return scan_mod.selective_scan(*args)
     nbytes = sum(t.numel() * t.element_size() for t in args) + \
         got.numel() * got.element_size()
     exps = b * l * di * n                 # one exp per state per step
     flops = 7 * b * l * di * n            # Δ·A, Δ·B·x, fma, h·C, sum
     t_bytes = nbytes / MEM_BYTES_PER_S
     t_ops = max(exps / SFU_OPS_PER_S, flops / F32_OPS_PER_S)
-    return err, ms, plain_ms, 1e3 * max(t_bytes, t_ops), \
-        "bytes" if t_bytes >= t_ops else "operations"
+    return dict(
+        max_abs_err=float((got.float() - ref.float()).abs().max()),
+        ms=time_ms(kernel), device_ms=device_ms(kernel),
+        plain_ms=time_ms(lambda: scan_mod.selective_scan_ref(*args),
+                         reps=3, inner=2),
+        bound_ms=1e3 * max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        design_floor_ms=1e3 * 2 * exps / SFU_OPS_PER_S)
 
 
 def _to_cuda(tree):
@@ -511,12 +558,20 @@ def main() -> None:
     libs = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.last_build['seconds']:.2f} s)")
+    # no spills allowed in the bf16 attention kernels at d=64 and d=128
+    # and in both scan passes at NP=16 (Hymba's N)
+    no_spill = r"tc::flash_tc_kernel<(64|128)>|sscan_chunk_kernel<16,[01]>"
     for name, text in _build.last_build["ptxas"].items():
-        for fn, rep in ptxas_report(text).items():
+        report = ptxas_report(text)
+        for fn, rep in report.items():
             log(f"  ptxas {name} {fn}: {rep}")
-            if re.fullmatch(r"tc::flash_tc_kernel<(64|128)>", fn) and (
+            if re.fullmatch(no_spill, fn) and (
                     rep.get("spill_stores") or rep.get("spill_loads")):
                 raise AssertionError(f"ptxas spills in {fn}: {rep}")
+        if name == "selective_scan" and not any(
+                re.fullmatch(no_spill, fn) for fn in report):
+            raise AssertionError(f"no NP=16 scan kernel in the ptxas "
+                                 f"report: {sorted(report)}")
     mma = sass_mma_counts(libs["flash_attention"])
     tc_counts = {fn: n for fn, n in mma.items() if "flash_tc_kernel" in fn}
     log(f"sass flash_attention: HMMA/HGMMA per kernel: "
@@ -526,25 +581,20 @@ def main() -> None:
                              f"the tensor cores: {tc_counts}")
 
     # 3. kernels against their plain versions, main-path shapes
-    conf_rows = K * MAX_BATCH * CANVAS
     conf_errs = []
-    for rows, vocab, dtype in ((conf_rows, 126464, torch.float32),
-                               (MAX_BATCH * CANVAS, 126464, torch.float32),
-                               (conf_rows, 126464, torch.bfloat16),
-                               (conf_rows, 32001, torch.float32)):
-        err, ms, plain, bound = check_confidence(conf_mod, torch, rows,
-                                                 vocab, dtype)
-        conf_errs.append(err)
-        log(f"confidence rows={rows} V={vocab} {dtype}: max_abs_err {err} "
-            f"kernel {ms:.4f} ms plain {plain:.4f} ms bound {bound:.4f} ms "
-            f"(bytes)")
-        if (rows, vocab, dtype) == (conf_rows, 126464, torch.float32):
-            conf_entry = dict(ms=ms, plain_ms=plain, bound_ms=bound)
+    for rows, vocab, dtype in CONF_SHAPES:
+        r = check_confidence(conf_mod, torch, rows, vocab, dtype)
+        conf_errs.append(r["max_abs_err"])
+        log(f"confidence rows={rows} V={vocab} {dtype}: max_abs_err "
+            f"{r['max_abs_err']} kernel {r['ms']:.4f} ms, on the device "
+            f"alone {r['device_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.4f} ms (bytes)")
+        if (rows, vocab, dtype) == CONF_SHAPES[0]:
+            conf_entry = r
     conf_entry["max_abs_err"] = max(conf_errs)
     attn_errs = []
     for b, lq, lk, h, g, d, w in ATTN_SHAPES:
-        r = check_attention(fa_mod, torch, b, lq, lk, h, g, d, w,
-                            torch.bfloat16)
+        r = check_attention(fa_mod, torch, b, lq, lk, h, g, d, w)
         attn_errs.append(r["max_abs_err"])
         log(f"attention B={b} Lq={lq} Lk={lk} H={h} G={g} d={d} window={w} "
             f"bf16: max_abs_err {r['max_abs_err']} kernel "
@@ -555,25 +605,20 @@ def main() -> None:
             f"(kernel/sdpa {r['device_ms'] / r['library_device_ms']:.3f}); "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         if (b, lq, g, w) == (MAX_BATCH, CANVAS, 32, 0):
-            attn_entry = {key: r[key] for key in (
-                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "device_ms", "library_device_ms")}
+            attn_entry = r
     attn_entry["max_abs_err"] = max(attn_errs)
     scan_errs = []
-    for b, l, di, n, xdt in ((MAX_BATCH, CANVAS, 3200, 16, torch.bfloat16),
-                             (K * MAX_BATCH, CANVAS, 3200, 16,
-                              torch.bfloat16),
-                             (2, 300, 130, 16, torch.float32),
-                             (1, 2048, 3200, 16, torch.bfloat16)):
-        err, ms, plain, bound, by = check_scan(scan_mod, torch, b, l, di, n,
-                                               xdt)
-        scan_errs.append(err)
+    for b, l, di, n, xdt in SCAN_SHAPES:
+        r = check_scan(scan_mod, torch, b, l, di, n, xdt)
+        scan_errs.append(r["max_abs_err"])
         log(f"selective_scan B={b} L={l} di={di} N={n} x {xdt}, f32 "
-            f"delta/B/C: max_abs_err {err} kernel {ms:.4f} ms plain "
-            f"{plain:.4f} ms library none bound {bound:.4f} ms ({by})")
+            f"delta/B/C: max_abs_err {r['max_abs_err']} kernel "
+            f"{r['ms']:.4f} ms, on the device alone {r['device_ms']:.4f} "
+            f"ms; plain {r['plain_ms']:.4f} ms library none bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), two-pass exp "
+            f"floor {r['design_floor_ms']:.4f} ms")
         if (b, l) == (MAX_BATCH, CANVAS):
-            scan_entry = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                              bound_by=by)
+            scan_entry = r
     scan_entry["max_abs_err"] = max(scan_errs)
 
     # 4. end-to-end agreement with the CPU reference on small configs
@@ -601,15 +646,15 @@ def main() -> None:
     kernels = [
         {"name": "confidence", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/confidence.cu",
-         "replaces": "src/repro/kernels/confidence.py:101",
+         "replaces": "src/repro/kernels/confidence.py:102",
          **launches("confidence"),
          "max_abs_err": conf_entry["max_abs_err"], "ms": conf_entry["ms"],
          "plain_ms": conf_entry["plain_ms"],
          "bound_ms": conf_entry["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None, "device_ms": conf_entry["device_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:81",
+         "replaces": "src/repro/kernels/flash_attention.py:83",
          **launches("flash_attention"),
          "max_abs_err": attn_entry["max_abs_err"], "ms": attn_entry["ms"],
          "plain_ms": attn_entry["plain_ms"],
@@ -625,7 +670,8 @@ def main() -> None:
          "max_abs_err": scan_entry["max_abs_err"], "ms": scan_entry["ms"],
          "plain_ms": scan_entry["plain_ms"],
          "bound_ms": scan_entry["bound_ms"],
-         "bound_by": scan_entry["bound_by"], "library_ms": None},
+         "bound_by": scan_entry["bound_by"], "library_ms": None,
+         "device_ms": scan_entry["device_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -8,10 +8,14 @@ layout — x/delta ``(B, L, di)``, b_sel/c_sel ``(B, L, N)``, a_log
     y_t = ⟨h_t, C_t⟩;  h_0 = 0, f32 accumulators.
 
 x, delta, b_sel and c_sel may each be f32 or bf16.  On a CUDA tensor it
-launches the hand-written kernel in ``csrc/selective_scan.cu`` (which never
-writes the ``(B, L, di, N)`` decay/drive tensors) or raises; on a CPU
-tensor it runs ``selective_scan_ref``, the plain version.  There is no
-fallback between them.
+launches the hand-written kernel in ``csrc/selective_scan.cu`` or raises;
+on a CPU tensor it runs ``selective_scan_ref``, the plain version.  There
+is no fallback between them.  The kernel is a chunked two-pass scan: L
+is cut into chunks of ``chunk_len(B, L, di)`` steps, pass 1 writes each
+chunk's end state and decay product to an f32 workspace that this
+wrapper allocates, and pass 2 folds those carries and walks each chunk
+again for y.  It never writes the ``(B, L, di, N)`` decay/drive tensors.
+Its two launches count as one in ``launches``.
 """
 from __future__ import annotations
 
@@ -24,8 +28,21 @@ from repro_torch.kernels import _build
 launches = 0          # kernel launches by this wrapper (not the plain path)
 
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-MAX_STATE = 32        # N the kernel takes (one lane per state, per warp)
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+MAX_STATE = 32        # N the kernel takes (a thread holds all N in registers)
+MIN_CHUNK = 16        # fewest steps in a chunk of the two-pass scan
+MAX_CHUNKS = 16       # most chunks one row's L is cut into
+# threads a call aims at: three blocks of 128 on each of an H100's 132 SMs
+TARGET_THREADS = 51_200
+
+
+def chunk_len(batch: int, length: int, di: int) -> int:
+    """Steps per chunk of the kernel's two-pass scan: enough chunks for
+    ``TARGET_THREADS`` threads (one per row, channel and chunk), at most
+    ``MAX_CHUNKS`` of them and each of at least ``MIN_CHUNK`` steps; the
+    last chunk is shorter where ``length`` is ragged."""
+    chunks = min(MAX_CHUNKS, -(-TARGET_THREADS // (batch * di)))
+    return max(MIN_CHUNK, -(-length // chunks))
 
 
 def selective_scan_ref(x: torch.Tensor, delta: torch.Tensor,
@@ -85,15 +102,21 @@ def selective_scan(x: torch.Tensor, delta: torch.Tensor, b_sel: torch.Tensor,
     a_log = a_log.float()
     _check(x, delta, b_sel, c_sel, a_log)
     bsz, length, di = x.shape
+    n = a_log.shape[1]
+    chunk = chunk_len(bsz, length, di)
+    nch = -(-length // chunk)
     y = torch.empty_like(x)
+    # pass 1's carries: h_end then P, each (B, nch - 1, N, di)
+    ws = torch.empty(2 * bsz * (nch - 1) * n * di, dtype=torch.float32,
+                     device=x.device)
     lib = _build.load("selective_scan")
     fn = lib.repro_selective_scan
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), delta.data_ptr(), b_sel.data_ptr(),
-                 c_sel.data_ptr(), a_log.data_ptr(), y.data_ptr(), bsz,
-                 length, di, a_log.shape[1], _BF16[x.dtype],
+                 c_sel.data_ptr(), a_log.data_ptr(), ws.data_ptr(),
+                 y.data_ptr(), bsz, length, di, n, chunk, _BF16[x.dtype],
                  _BF16[delta.dtype], _BF16[b_sel.dtype], _BF16[c_sel.dtype],
                  stream)
     if err != 0:

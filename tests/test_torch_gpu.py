@@ -125,6 +125,18 @@ def test_flash_bf16_is_bitwise_deterministic(cuda):
     assert torch.equal(first, second)
 
 
+def _scan_args(device, b, l, di, n, xdt, rdt):
+    gen = torch.Generator(device=device).manual_seed(l + di)
+    x = torch.randn(b, l, di, generator=gen, device=device).to(xdt)
+    delta = torch.nn.functional.softplus(
+        torch.randn(b, l, di, generator=gen, device=device) - 2).to(rdt)
+    bs = torch.randn(b, l, n, generator=gen, device=device).to(rdt)
+    cs = torch.randn(b, l, n, generator=gen, device=device).to(rdt)
+    a_log = torch.log(torch.arange(1, n + 1, device=device,
+                                   dtype=torch.float32))[None].repeat(di, 1)
+    return x, delta, bs, cs, a_log
+
+
 @pytest.mark.parametrize("b,l,di,n,xdt,rdt", [
     (2, 128, 3200, 16, torch.bfloat16, torch.float32),   # serving shape
     (2, 300, 130, 16, torch.float32, torch.float32),     # ragged L and di
@@ -132,23 +144,29 @@ def test_flash_bf16_is_bitwise_deterministic(cuda):
     (1, 600, 64, 4, torch.float32, torch.float32),
     (1, 70, 40, 32, torch.float32, torch.bfloat16),
     (1, 33, 17, 5, torch.float32, torch.float32),        # N not a power of 2
+    (1, 2048, 3200, 16, torch.bfloat16, torch.float32),  # 16 chunks of 128
+    (4, 128, 3200, 16, torch.bfloat16, torch.float32),   # K-candidate batch
+    (1, 1, 64, 16, torch.float32, torch.float32),        # L = 1: one pass
+    (1, 15, 33, 5, torch.float32, torch.float32),        # L under one chunk
 ])
 def test_scan_kernel_matches_plain(cuda, b, l, di, n, xdt, rdt):
-    gen = torch.Generator(device=cuda).manual_seed(l + di)
-    x = torch.randn(b, l, di, generator=gen, device=cuda).to(xdt)
-    delta = torch.nn.functional.softplus(
-        torch.randn(b, l, di, generator=gen, device=cuda) - 2).to(rdt)
-    bs = torch.randn(b, l, n, generator=gen, device=cuda).to(rdt)
-    cs = torch.randn(b, l, n, generator=gen, device=cuda).to(rdt)
-    a_log = torch.log(torch.arange(1, n + 1, device=cuda,
-                                   dtype=torch.float32))[None].repeat(di, 1)
+    args = _scan_args(cuda, b, l, di, n, xdt, rdt)
     before = scan_mod.launches
-    got = scan_mod.selective_scan(x, delta, bs, cs, a_log)
+    got = scan_mod.selective_scan(*args)
     torch.cuda.synchronize()
     assert scan_mod.launches == before + 1 and got.dtype == xdt
     tol = 2e-4 if xdt == torch.float32 else 3e-2
-    want = scan_mod.selective_scan_ref(x, delta, bs, cs, a_log)
+    want = scan_mod.selective_scan_ref(*args)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_scan_is_bitwise_deterministic(cuda):
+    """No atomics and a fixed carry-fold order: equal inputs, equal bits."""
+    args = _scan_args(cuda, 2, 300, 3200, 16, torch.bfloat16, torch.float32)
+    first = scan_mod.selective_scan(*args)
+    second = scan_mod.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("name", ["llada-8b", "hymba-1.5b"])

@@ -11,7 +11,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py", REPO / "tools" / "flash_ab.py"]
+    [REPO / "chip_smoke.py", REPO / "tools" / "kernel_ab.py"]
 
 
 def test_files_cover_the_hybrid_slice():

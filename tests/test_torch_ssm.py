@@ -98,6 +98,63 @@ def test_scan_state_carries_across_tiles():
                                atol=2e-4)
 
 
+def _two_pass_scan(x, delta, b_sel, c_sel, a_log):
+    """The card kernel's chunked two-pass scan, emulated in plain f32
+    torch: ``scan_mod.chunk_len``'s split of L; pass 1 walks every chunk
+    but the last from h = 0, keeping its end state and decay product;
+    pass 2 folds the earlier chunks' carries, H = P_i·H + h_end_i, and
+    walks its chunk again from H for y."""
+    a = -torch.exp(a_log)
+    bsz, length, di = x.shape
+    chunk = scan_mod.chunk_len(bsz, length, di)
+    bounds = [(t0, min(length, t0 + chunk))
+              for t0 in range(0, length, chunk)]
+    assert len(bounds) <= scan_mod.MAX_CHUNKS
+    assert all(t1 - t0 >= scan_mod.MIN_CHUNK for t0, t1 in bounds[:-1])
+
+    def walk(h, t0, t1, ys):
+        prod = torch.ones_like(h)
+        for t in range(t0, t1):
+            dt = delta[:, t, :, None]
+            decay = torch.exp(dt * a)
+            h = decay * h + dt * b_sel[:, t, None, :] * x[:, t, :, None]
+            prod = prod * decay
+            ys.append(torch.sum(h * c_sel[:, t, None, :], dim=-1))
+        return h, prod
+
+    zeros = torch.zeros(bsz, di, a.shape[-1])
+    carries = [walk(zeros, t0, t1, []) for t0, t1 in bounds[:-1]]
+    ys = []
+    for j, (t0, t1) in enumerate(bounds):
+        h = zeros
+        for h_end, prod in carries[:j]:
+            h = prod * h + h_end
+        walk(h, t0, t1, ys)
+    return torch.stack(ys, dim=1)
+
+
+@pytest.mark.parametrize("b,l,di,n", [
+    (2, 300, 130, 16),    # L not a multiple of the chunk; ragged di
+    (1, 10, 64, 16),      # L shorter than one chunk
+    (1, 1, 64, 16),       # L = 1
+    (1, 40, 33, 5),       # N = 5, ragged di and L
+    (3, 64, 48, 8),       # B = 3
+    (1, 2048, 8, 4),      # the most chunks, 128 steps each
+])
+def test_two_pass_chunk_arithmetic_matches_plain_and_oracle(b, l, di, n):
+    """The chunk split, carry fold and re-walk of the card kernel, in f32
+    on the CPU, against the plain sequential scan and the JAX oracle."""
+    x, delta, bs, cs, a_log = _scan_inputs(b, l, di, n, 7 * l + di)
+    ts = [torch.from_numpy(np.asarray(t, np.float32))
+          for t in (x, delta, bs, cs, a_log)]
+    got = _two_pass_scan(*ts)
+    assert got.shape == (b, l, di)
+    for want in (scan_mod.selective_scan_ref(*ts),
+                 jax_scan_ref(*(jnp.asarray(t.numpy()) for t in ts))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                                   rtol=2e-4, atol=2e-4)
+
+
 def test_scan_wrapper_refuses_other_devices_and_counts_no_plain_launch():
     x = torch.empty(1, 4, 8, device="meta")
     bs = torch.empty(1, 4, 16, device="meta")
