@@ -8,12 +8,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device  — requires CUDA; prints the card's name and power limit;
 2. build   — builds the hand-written kernels from ``src/repro_torch/
              kernels/csrc`` (one nvcc per source, all in parallel);
+             requires no ptxas spills in the confidence kernels;
 3. kernels — holds each kernel against its plain PyTorch version on the
              card at the serving paths' shapes (LLaDA-8B's and
              Hymba-1.5B's, plus a ragged and a long selective scan, a
              long banded and an Lq != Lk attention) and times kernel,
              plain version and, for attention, SDPA (a yardstick only),
-             each call to call and on the device alone; counts the
+             each call to call and on the device alone (with each
+             confidence shape's share of its bound); counts the
              tensor-core instructions (HMMA/HGMMA) in the bf16 attention
              kernels' SASS and requires no ptxas spills in them at d=64
              and d=128, nor in the selective scan's two passes at N=16;
@@ -56,11 +58,13 @@ REQUESTS = [(64, "fdm"), (60, "fdm"), (48, "fdm_a"), (48, "fdm_a"),
             (64, "probability"), (41, "probability")]
 FORWARD_REPS = 5
 # confidence shapes of the kernel phase, (rows, V, dtype): LLaDA-8B's
-# K-candidate and scoring batches in f32 and bf16, and Hymba-1.5B's V
+# K-candidate and scoring batches in f32 and bf16, and Hymba-1.5B's
+# K-candidate and scoring batches (V = 32001: rows off 16-byte boundaries)
 CONF_SHAPES = ((K * MAX_BATCH * CANVAS, 126464, "float32"),
                (MAX_BATCH * CANVAS, 126464, "float32"),
                (K * MAX_BATCH * CANVAS, 126464, "bfloat16"),
-               (K * MAX_BATCH * CANVAS, 32001, "float32"))
+               (K * MAX_BATCH * CANVAS, 32001, "float32"),
+               (MAX_BATCH * CANVAS, 32001, "float32"))
 # attention shapes of the kernel phase, (B, Lq, Lk, H, G, d, window), bf16:
 # LLaDA-8B's scoring and K-candidate batches, a GQA and a banded variant,
 # Hymba-1.5B's heads at serving length and at 2048 with its band live, and
@@ -558,9 +562,11 @@ def main() -> None:
     libs = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.last_build['seconds']:.2f} s)")
-    # no spills allowed in the bf16 attention kernels at d=64 and d=128
-    # and in both scan passes at NP=16 (Hymba's N)
-    no_spill = r"tc::flash_tc_kernel<(64|128)>|sscan_chunk_kernel<16,[01]>"
+    # no spills allowed in the bf16 attention kernels at d=64 and d=128,
+    # in both scan passes at NP=16 (Hymba's N) and in both confidence
+    # kernels (at most 64 registers: four CTAs per SM)
+    no_spill = (r"tc::flash_tc_kernel<(64|128)>|sscan_chunk_kernel<16,[01]>"
+                r"|confidence_kernel<(float|bf16)>")
     for name, text in _build.last_build["ptxas"].items():
         report = ptxas_report(text)
         for fn, rep in report.items():
@@ -572,6 +578,10 @@ def main() -> None:
                 re.fullmatch(no_spill, fn) for fn in report):
             raise AssertionError(f"no NP=16 scan kernel in the ptxas "
                                  f"report: {sorted(report)}")
+        if name == "confidence" and sum(
+                fn.startswith("confidence_kernel<") for fn in report) != 2:
+            raise AssertionError(f"not one confidence kernel per dtype in "
+                                 f"the ptxas report: {sorted(report)}")
     mma = sass_mma_counts(libs["flash_attention"])
     tc_counts = {fn: n for fn, n in mma.items() if "flash_tc_kernel" in fn}
     log(f"sass flash_attention: HMMA/HGMMA per kernel: "
@@ -588,7 +598,8 @@ def main() -> None:
         log(f"confidence rows={rows} V={vocab} {dtype}: max_abs_err "
             f"{r['max_abs_err']} kernel {r['ms']:.4f} ms, on the device "
             f"alone {r['device_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms "
-            f"bound {r['bound_ms']:.4f} ms (bytes)")
+            f"bound {r['bound_ms']:.4f} ms (bytes); share of the bound on "
+            f"the device alone {r['bound_ms'] / r['device_ms']:.3f}")
         if (rows, vocab, dtype) == CONF_SHAPES[0]:
             conf_entry = r
     conf_entry["max_abs_err"] = max(conf_errs)

@@ -3,9 +3,11 @@
 ``confidence_fused(logits)`` maps logits ``(..., V)`` (f32 or bf16) to
 ``(argmax int32, max_prob, margin, neg_entropy)``, each ``(...,)`` f32 —
 the function of the reference's Pallas ``confidence_fused``.  On a CUDA
-tensor it launches the hand-written kernel in ``csrc/confidence.cu`` (one
-pass over the vocab) or raises; on a CPU tensor it runs ``confidence_ref``,
-the plain version.  There is no fallback from one to the other.
+tensor it launches the hand-written kernel in ``csrc/confidence.cu`` once
+(one CTA per row, one pass over the vocab: the row's head up to its first
+16-byte boundary, then 16-byte vector loads, four in flight per thread,
+then the tail) or raises; on a CPU tensor it runs ``confidence_ref``, the
+plain version.  There is no fallback from one to the other.
 """
 from __future__ import annotations
 

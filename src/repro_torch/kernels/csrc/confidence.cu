@@ -8,28 +8,63 @@
 //   m2 (second largest logit; equal to m when the max occurs twice),
 //   i1 (argmax; the lowest index among equal maxima, as jnp.argmax).
 //
-// Bound: device-memory bytes.  Each logit is read once and takes about
-// five float operations, so the arithmetic intensity is ~1 op/byte for
-// f32, far below the card's ridge; the least time is rows*V*sizeof(T) over
-// the memory rate.  Design: one CTA per row, 256 threads striding the
-// vocab with 16-byte vector loads (coalesced: neighbouring threads read
-// neighbouring 16-byte chunks), per-thread accumulators in registers, then
-// a warp-shuffle merge and a shared-memory merge across the 8 warps.  No
-// intermediate touches device memory.  At the decode shapes (hundreds of
-// rows, V = 126464) one CTA per row fills the 132 SMs; splitting V across
-// CTAs for few-row calls is later work.
+// Bound: device-memory bytes.  Each logit is read once and takes about a
+// dozen instructions (five compares and selects for the top two and the
+// argmax; subtract, multiply and ex2 for the exp; add, clamp and FMA for s
+// and u), ~3 per byte in f32 and ~6 in bf16, below the card's ridge; the
+// least time is rows*V*sizeof(T) over the memory rate.
+//
+// Design: one CTA of 256 threads per row, one kernel per dtype.  A row is
+// cut into three parts, reckoned from the row's own address (so a
+// misaligned base pointer or a V that is not a multiple of the vector
+// width, Hymba's V = 32001, keeps the vector loads):
+//   head  — from the row's start up to its first 16-byte boundary (at most
+//           3 f32 or 7 bf16 logits), one logit each for the first threads;
+//   body  — whole 16-byte chunks.  In each step every thread issues
+//           kLoads = 4 unconditional streaming (evict-first) vector loads,
+//           at chunks c0 + k*256 (k = 0..3; coalesced: neighbouring threads
+//           read neighbouring chunks), before it folds any of them, so a
+//           256-row call keeps ~32 KB in flight per SM.  Only the last,
+//           partial step clamps its chunk indices and masks the surplus
+//           values to -inf;
+//   tail  — the rest, fewer than one chunk, one logit each for the first
+//           threads.
+// A thread's indices rise along its stream (head, body steps, tail).  Each
+// body step is folded as one group of 16 f32 or 32 bf16 values: its top
+// two and the first index of its maximum by comparisons alone, a rescale
+// of (s, u) only where the running max rises (one exp per group), then the
+// group's exps added without branches.  The exps are ex2.approx of
+// (l - m)*log2(e); a -inf logit adds exactly 0 to s and, through
+// max(l, -3.4e38)*0, to u.  Equal maxima keep the first (lowest) index in
+// a thread and give m2 = m; `merge` keeps that across threads.  Then a
+// warp-shuffle merge and a shared-memory merge across the 8 warps.  No
+// intermediate touches device memory.
+//
+// The vocab is not split across CTAs: at the serving path's row counts
+// (224-512 rows: batches are padded to max_batch) one split measured
+// faster than two (0.0902 against 0.0935 ms at 512 x 126464 f32, 0.0188
+// against 0.0204 at 256 x 32001 on an H100); two won only at 128 rows.
+// The split waits for the cached path, whose window queries make few-row
+// calls.
 //
 // Built without --use_fast_math: the accumulators start at -3.4e38 and
 // s * exp(m_old - m_new) must give exactly 0 there, not NaN.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
+// The cut, fold and merge trees at these values are emulated in plain
+// torch by tests/test_torch_kernels.py::test_confidence_cta_* (thread
+// count and loads per step as parameters).
 constexpr int kThreads = 256;
+constexpr int kLoads = 4;                 // 16-byte loads in flight per thread
+constexpr int kMinBlocks = 4;             // CTAs per SM: <= 64 registers
 constexpr int kWarps = kThreads / 32;
 constexpr float kNeg = -3.4e38f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Acc {
   float m, s, u, m2;
@@ -40,21 +75,45 @@ __device__ __forceinline__ void init(Acc& a) {
   a.m = kNeg; a.s = 0.f; a.u = 0.f; a.m2 = kNeg; a.i1 = 0;
 }
 
-// One element l at vocab index j; j increases along a thread's stream, so
-// keeping the old argmax on l == m keeps the lowest index.
-__device__ __forceinline__ void push(Acc& a, float l, int j) {
-  if (l > a.m) {
-    const float alpha = expf(a.m - l);
-    a.s = a.s * alpha + 1.f;
-    a.u = a.u * alpha + l;
-    a.m2 = a.m;
-    a.m = l;
-    a.i1 = j;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Fold one group of K x NV values, in rising index order, into a.  The
+// value at v[k * NV + e] has vocab index base + k * kStride + e; masked
+// values are -inf.
+template <int K, int NV, int kStride>
+__device__ __forceinline__ void fold(Acc& a, const float (&v)[K * NV],
+                                     int base) {
+  float gm = -INFINITY, g2 = -INFINITY;
+  int gi = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int e = 0; e < NV; ++e) {
+      const float l = v[k * NV + e];
+      g2 = fmaxf(g2, fminf(gm, l));       // a repeated max gives g2 = gm
+      gi = l > gm ? k * kStride + e : gi; // first index of the max
+      gm = fmaxf(gm, l);
+    }
+  }
+  if (gm > a.m) {                         // the running max rises
+    const float alpha = ex2((a.m - gm) * kLog2e);
+    a.s *= alpha;
+    a.u *= alpha;
+    a.m2 = fmaxf(a.m, g2);
+    a.m = gm;
+    a.i1 = base + gi;
   } else {
-    if (l > a.m2) a.m2 = l;          // l == m: duplicated max -> m2 = m
-    const float e = expf(l - a.m);
+    a.m2 = fmaxf(a.m2, gm);               // gm == m: tied max, m2 = m
+  }
+#pragma unroll
+  for (int j = 0; j < K * NV; ++j) {
+    const float e = ex2((v[j] - a.m) * kLog2e);
     a.s += e;
-    if (e > 0.f) a.u += l * e;
+    a.u = fmaf(fmaxf(v[j], kNeg), e, a.u);  // -inf * 0 would be NaN
   }
 }
 
@@ -87,24 +146,27 @@ __device__ __forceinline__ Acc shfl_down(const Acc& a, int off) {
   return b;
 }
 
+// A 16-byte chunk of T: its raw type, streaming load and widening to f32.
 template <typename T> struct Vec;
 template <> struct Vec<float> {
   static constexpr int N = 4;               // 4 x f32 = 16 bytes
-  __device__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  using Raw = float4;
+  __device__ static Raw load(const Raw* p) { return __ldcs(p); }
+  __device__ static void widen(const Raw& r, float* out) {
+    out[0] = r.x; out[1] = r.y; out[2] = r.z; out[3] = r.w;
   }
   __device__ static float one(const float* p) { return *p; }
 };
 template <> struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;               // 8 x bf16 = 16 bytes
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+  using Raw = uint4;
+  __device__ static Raw load(const Raw* p) { return __ldcs(p); }
+  __device__ static void widen(const Raw& r, float* out) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x; out[2 * i + 1] = f.y;
+    for (int i = 0; i < 4; ++i) {           // bf16 -> f32 is a 16-bit shift
+      out[2 * i] = __uint_as_float(w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
   }
   __device__ static float one(const __nv_bfloat16* p) {
@@ -112,34 +174,78 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
-template <typename T, bool kVector>
-__global__ void __launch_bounds__(kThreads)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 confidence_kernel(const T* __restrict__ logits, int vocab,
                   int32_t* __restrict__ argmax, float* __restrict__ maxp,
                   float* __restrict__ margin, float* __restrict__ negent) {
-  const int row = blockIdx.x;
+  using V = Vec<T>;
+  constexpr int N = V::N;
+  constexpr int kStep = kLoads * kThreads;  // chunks per CTA step
+  const int row = blockIdx.x, t = threadIdx.x;
   const T* x = logits + static_cast<int64_t>(row) * vocab;
+  // the row's cut: head up to the first 16-byte boundary, body, tail
+  const int mis =
+      static_cast<int>(reinterpret_cast<uintptr_t>(x) % 16 / sizeof(T));
+  const int head = min((N - mis) % N, vocab);
+  const int chunks = (vocab - head) / N;
+  const int body_end = head + chunks * N;
+  const typename V::Raw* body =
+      reinterpret_cast<const typename V::Raw*>(x + head);
+
+  // head and tail logits, loaded first on clamped indices, masked after
+  float hv = V::one(x + min(t, vocab - 1));
+  float tv = V::one(x + min(body_end + t, vocab - 1));
+  hv = t < head ? hv : -INFINITY;
+  tv = t < vocab - body_end ? tv : -INFINITY;
+
   Acc acc;
   init(acc);
-  if (kVector) {
-    constexpr int N = Vec<T>::N;
-    const int chunks = vocab / N;           // vocab % N == 0 on this path
-    for (int c = threadIdx.x; c < chunks; c += kThreads) {
-      float v[N];
-      Vec<T>::load(x + static_cast<int64_t>(c) * N, v);
-#pragma unroll
-      for (int e = 0; e < N; ++e) push(acc, v[e], c * N + e);
-    }
-  } else {
-    for (int j = threadIdx.x; j < vocab; j += kThreads) {
-      push(acc, Vec<T>::one(x + j), j);
-    }
+  {
+    const float h[1] = {hv};
+    fold<1, 1, 0>(acc, h, t);
   }
+  const int full = chunks / kStep;          // steps with every chunk live
+  int c0 = t;
+  for (int step = 0; step < full; ++step, c0 += kStep) {
+    typename V::Raw r[kLoads];
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      r[k] = V::load(body + c0 + k * kThreads);
+    }
+    float v[kLoads * N];
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) V::widen(r[k], v + k * N);
+    fold<kLoads, N, kThreads * N>(acc, v, head + c0 * N);
+  }
+  if (chunks % kStep) {                     // the last, partial step
+    typename V::Raw r[kLoads];
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      r[k] = V::load(body + min(c0 + k * kThreads, chunks - 1));
+    }
+    float v[kLoads * N];
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      V::widen(r[k], v + k * N);
+      const bool live = c0 + k * kThreads < chunks;
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        v[k * N + e] = live ? v[k * N + e] : -INFINITY;
+      }
+    }
+    fold<kLoads, N, kThreads * N>(acc, v, head + c0 * N);
+  }
+  {
+    const float tl[1] = {tv};
+    fold<1, 1, 0>(acc, tl, body_end + t);
+  }
+
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) merge(acc, shfl_down(acc, off));
 
   __shared__ Acc part[kWarps];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = t / 32, lane = t % 32;
   if (lane == 0) part[warp] = acc;
   __syncthreads();
   if (warp == 0) {
@@ -163,22 +269,10 @@ template <typename T>
 cudaError_t launch(const void* logits, int rows, int vocab, void* argmax,
                    void* maxp, void* margin, void* negent,
                    cudaStream_t stream) {
-  const bool aligned =
-      (reinterpret_cast<uintptr_t>(logits) % 16 == 0) &&
-      (vocab % Vec<T>::N == 0);
-  const dim3 grid(rows), block(kThreads);
-  const T* x = static_cast<const T*>(logits);
-  int32_t* a = static_cast<int32_t*>(argmax);
-  float* p = static_cast<float*>(maxp);
-  float* mg = static_cast<float*>(margin);
-  float* ne = static_cast<float*>(negent);
-  if (aligned) {
-    confidence_kernel<T, true><<<grid, block, 0, stream>>>(x, vocab, a, p,
-                                                           mg, ne);
-  } else {
-    confidence_kernel<T, false><<<grid, block, 0, stream>>>(x, vocab, a, p,
-                                                            mg, ne);
-  }
+  confidence_kernel<T><<<rows, kThreads, 0, stream>>>(
+      static_cast<const T*>(logits), vocab, static_cast<int32_t*>(argmax),
+      static_cast<float*>(maxp), static_cast<float*>(margin),
+      static_cast<float*>(negent));
   return cudaGetLastError();
 }
 

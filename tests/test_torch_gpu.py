@@ -46,6 +46,58 @@ def test_confidence_kernel_matches_plain(cuda, rows, vocab, dtype):
     torch.testing.assert_close(got[3], want[3], rtol=2e-3, atol=2e-4)
 
 
+def _conf_logits(device, rows, vocab, dtype, seed):
+    """Logits with a maximum tied at two far-apart indices in row 1."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (5 * torch.randn(rows, vocab, generator=gen, device=device)).to(dtype)
+    x[1, 2] = x[1, vocab - 3] = x[1].max() + 1
+    return x
+
+
+def _check_conf_kernel(x):
+    """One launch, argmax exact, margin 0 on row 1's tie, the rest within
+    the tolerances of ``test_confidence_kernel_matches_plain``."""
+    before = conf_mod.launches
+    got = conf_mod.confidence_fused(x)
+    torch.cuda.synchronize()
+    assert conf_mod.launches == before + 1
+    want = conf_mod.confidence_ref(x)
+    assert torch.equal(got[0], want[0]) and float(got[2][1]) == 0.0
+    torch.testing.assert_close(got[1], want[1], rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(got[2], want[2], rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(got[3], want[3], rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_confidence_kernel_hymba_scoring_shape(cuda, dtype):
+    """Hymba's scoring batch, 256 x 32001: f32 rows start 0, 4, 8 and 12
+    bytes past a 16-byte boundary, bf16 rows 0, 2, ... 14."""
+    _check_conf_kernel(_conf_logits(cuda, 256, 32001, dtype, seed=256))
+
+
+@pytest.mark.parametrize("vocab", [32001, 126464])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_confidence_kernel_misaligned_base(cuda, dtype, vocab):
+    """Logits in a contiguous view that starts one element into a larger
+    buffer: every row's head is peeled from its own address."""
+    x = _conf_logits(cuda, 16, vocab, dtype, seed=vocab)
+    flat = torch.empty(x.numel() + 1, device=cuda, dtype=dtype)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    _check_conf_kernel(shifted)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_confidence_kernel_is_bitwise_deterministic(cuda, dtype):
+    """No atomics and a fixed merge order: equal inputs, equal bits."""
+    x = _conf_logits(cuda, 512, 32001, dtype, seed=9)
+    first = conf_mod.confidence_fused(x)
+    second = conf_mod.confidence_fused(x)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 @pytest.mark.parametrize("b,l,h,g,d,w,dtype", [
     (2, 128, 32, 32, 128, 0, torch.bfloat16),
     (2, 128, 32, 8, 128, 0, torch.bfloat16),
