@@ -12,7 +12,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. kernels — holds each kernel against its plain PyTorch version on the
              card at the serving paths' shapes (LLaDA-8B's and
              Hymba-1.5B's, plus a ragged and a long selective scan, a
-             long banded and an Lq != Lk attention) and times kernel,
+             long banded and an Lq != Lk attention, the cached windows'
+             attention and confidence calls, and banded windows at a q
+             offset in bf16 and f32) and times kernel,
              plain version and, for attention, SDPA (a yardstick only),
              each call to call and on the device alone (with each
              confidence shape's share of its bound); counts the
@@ -22,13 +24,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. reference — decodes reduced LLaDA and Hymba configs on the card
              (kernels) and on the CPU (plain versions) from the same
              weights and requires identical tokens, steps and
-             forward-equivalents;
+             forward-equivalents; LLaDA also under the cache policies
+             ``prefix``, ``dual`` and ``prefix`` without refreshes;
 5. serving — full-width, full-depth LLaDA-8B, then Hymba-1.5B (random
              bf16 weights from a seed; LLaDA's are freed first) behind
              ``ServingEngine``: mixed prompt lengths, strategies fdm, fdm_a
              and probability; checks results and stats, and that every
              kernel of the model's path was launched in its run (for
-             Hymba, one selective scan per flash-attention call).
+             Hymba, one selective scan per flash-attention call).  LLaDA
+             serves the same requests on the same weights under the cache
+             policies ``none``, ``prefix`` and ``dual``, one path each,
+             with each batch's forward-equivalents held to its strategy's
+             count (fdm, probability) or range (fdm_a);
+6. KV A/B  — (between LLaDA's serving and Hymba's) one B=2 request at the
+             reference's ``BENCH_kv_cache.json`` geometry (prompt 128,
+             gen 128, block 32, probability) on full-width LLaDA-8B under
+             each policy: seconds, and forward-equivalents of exactly 128,
+             68 and 20; one full, one ``prefix`` and one ``dual`` window
+             forward on the card's clock against host enqueue time
+             (interleaved), each with a capture by its kernels on the card
+             (``torch.profiler``), and the forwards by where the host's
+             time goes (cProfile).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -57,25 +73,41 @@ CANVAS = 64 + GEN                # longest prompt + generation
 REQUESTS = [(64, "fdm"), (60, "fdm"), (48, "fdm_a"), (48, "fdm_a"),
             (64, "probability"), (41, "probability")]
 FORWARD_REPS = 5
+POLICIES = ("none", "prefix", "dual")
+# the KV A/B phase: the reference's BENCH_kv_cache.json geometry and counts
+KV_PROMPT, KV_GEN, KV_BLOCK = 128, 128, 32
+KV_FWD = {"none": 128.0, "prefix": 68.0, "dual": 20.0}
 # confidence shapes of the kernel phase, (rows, V, dtype): LLaDA-8B's
 # K-candidate and scoring batches in f32 and bf16, and Hymba-1.5B's
-# K-candidate and scoring batches (V = 32001: rows off 16-byte boundaries)
+# K-candidate and scoring batches (V = 32001: rows off 16-byte boundaries),
+# and the dual window's scoring and K-candidate rows (B·block, K·B·block)
 CONF_SHAPES = ((K * MAX_BATCH * CANVAS, 126464, "float32"),
                (MAX_BATCH * CANVAS, 126464, "float32"),
                (K * MAX_BATCH * CANVAS, 126464, "bfloat16"),
                (K * MAX_BATCH * CANVAS, 32001, "float32"),
-               (MAX_BATCH * CANVAS, 32001, "float32"))
-# attention shapes of the kernel phase, (B, Lq, Lk, H, G, d, window), bf16:
-# LLaDA-8B's scoring and K-candidate batches, a GQA and a banded variant,
-# Hymba-1.5B's heads at serving length and at 2048 with its band live, and
-# a block of queries against the whole canvas (Lq != Lk)
-ATTN_SHAPES = ((MAX_BATCH, CANVAS, CANVAS, 32, 32, 128, 0),
-               (K * MAX_BATCH, CANVAS, CANVAS, 32, 32, 128, 0),
-               (MAX_BATCH, CANVAS, CANVAS, 32, 8, 128, 0),
-               (MAX_BATCH, CANVAS, CANVAS, 32, 32, 128, 32),
-               (MAX_BATCH, CANVAS, CANVAS, 25, 5, 64, 1024),
-               (MAX_BATCH, 2048, 2048, 25, 5, 64, 1024),
-               (MAX_BATCH, BLOCK, CANVAS, 32, 32, 128, 0))
+               (MAX_BATCH * CANVAS, 32001, "float32"),
+               (MAX_BATCH * BLOCK, 126464, "float32"),
+               (K * MAX_BATCH * BLOCK, 126464, "float32"))
+# attention shapes of the kernel phase, (B, Lq, Lk, H, G, d, window,
+# q_offset), bf16: LLaDA-8B's scoring and K-candidate batches, a GQA and a
+# banded variant, Hymba-1.5B's heads at serving length and at 2048 with its
+# band live, a block of queries against the whole canvas (Lq != Lk: the
+# dual window at B=2), the prefix window and the K-candidate batches of
+# the dual and the prefix window, and two banded windows at a q offset (the
+# first skips whole key tiles), which also run in f32 (ATTN_F32)
+ATTN_SHAPES = ((MAX_BATCH, CANVAS, CANVAS, 32, 32, 128, 0, 0),
+               (K * MAX_BATCH, CANVAS, CANVAS, 32, 32, 128, 0, 0),
+               (MAX_BATCH, CANVAS, CANVAS, 32, 8, 128, 0, 0),
+               (MAX_BATCH, CANVAS, CANVAS, 32, 32, 128, 32, 0),
+               (MAX_BATCH, CANVAS, CANVAS, 25, 5, 64, 1024, 0),
+               (MAX_BATCH, 2048, 2048, 25, 5, 64, 1024, 0),
+               (MAX_BATCH, BLOCK, CANVAS, 32, 32, 128, 0, 0),
+               (MAX_BATCH, GEN, CANVAS, 32, 32, 128, 0, 0),
+               (K * MAX_BATCH, BLOCK, CANVAS, 32, 32, 128, 0, 0),
+               (K * MAX_BATCH, GEN, CANVAS, 32, 32, 128, 0, 0),
+               (MAX_BATCH, 64, 2048, 25, 5, 64, 1024, 1024),
+               (MAX_BATCH, BLOCK, CANVAS, 32, 32, 128, 32, 64))
+ATTN_F32 = ATTN_SHAPES[-2:]
 # selective-scan shapes of the kernel phase, (B, L, di, N, x dtype), Δ/B/C
 # f32: Hymba-1.5B's Mamba branch at the scoring and K-candidate batches, a
 # ragged L and di in f32, and one 2048-token row (Hymba's window is 1024)
@@ -219,13 +251,15 @@ def conf_inputs(torch, rows: int, vocab: int, dtype: str):
     return (x,)
 
 
-def attn_inputs(torch, b, lq, lk, h, g, d, window):
-    """bf16 q, k, v and the band for the attention kernel."""
+def attn_inputs(torch, b, lq, lk, h, g, d, window, q_offset=0,
+                dtype="bfloat16"):
+    """q, k, v in ``dtype`` (bf16 by default), the band and its q offset
+    for the attention kernel."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + lk + g + window)
-    q = torch.randn(b, lq, h, d, generator=gen, device="cuda").bfloat16()
-    k = torch.randn(b, lk, g, d, generator=gen, device="cuda").bfloat16()
-    v = torch.randn(b, lk, g, d, generator=gen, device="cuda").bfloat16()
-    return q, k, v, window
+    q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(
+        getattr(torch, dtype)) for shape in ((b, lq, h, d), (b, lk, g, d),
+                                             (b, lk, g, d)))
+    return q, k, v, window, q_offset
 
 
 def scan_inputs(torch, b, l, di, n, xdtype: str):
@@ -276,41 +310,42 @@ def check_confidence(conf_mod, torch, rows: int, vocab: int, dtype: str):
         bound_ms=1e3 * max(nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S))
 
 
-def check_attention(fa_mod, torch, b, lq, lk, h, g, d, window):
-    """Kernel vs plain version (bf16 tolerance 2e-2, as the reference's
-    kernel tests).  Returns a dict: max_abs_err, ms, plain_ms, library_ms
-    (SDPA) call to call, device_ms and library_device_ms on the device
-    alone, bound_ms and bound_by."""
+def check_attention(fa_mod, torch, b, lq, lk, h, g, d, window, q_offset,
+                    dtype="bfloat16"):
+    """Kernel vs plain version (tolerance 2e-2 in bf16, 2e-4 in f32, as
+    the reference's kernel tests).  Returns a dict: max_abs_err, ms,
+    plain_ms, library_ms (SDPA) call to call, device_ms and
+    library_device_ms on the device alone, bound_ms and bound_by."""
     import torch.nn.functional as F
-    q, k, v, _ = attn_inputs(torch, b, lq, lk, h, g, d, window)
-    got = fa_mod.flash_attention(q, k, v, window)
+    q, k, v, _, _ = attn_inputs(torch, b, lq, lk, h, g, d, window, q_offset,
+                                dtype)
+    got = fa_mod.flash_attention(q, k, v, window, q_offset)
     torch.cuda.synchronize()
-    ref = fa_mod.attention_ref(q, k, v, window)
-    torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2,
-                               atol=2e-2)
+    ref = fa_mod.attention_ref(q, k, v, window, q_offset)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    mask = None
-    if window:
-        mask = (torch.arange(lq, device="cuda")[:, None] -
-                torch.arange(lk, device="cuda")[None, :]).abs() < window
+    qpos = q_offset + torch.arange(lq)
+    band = (qpos[:, None] - torch.arange(lk)[None, :]).abs() < window
+    mask = band.cuda() if window else None
 
     def kernel():
-        return fa_mod.flash_attention(q, k, v, window)
+        return fa_mod.flash_attention(q, k, v, window, q_offset)
 
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                               enable_gqa=g != h)
     out = dict(max_abs_err=float((got.float() - ref.float()).abs().max()),
                ms=time_ms(kernel),
-               plain_ms=time_ms(lambda: fa_mod.attention_ref(q, k, v,
-                                                             window)),
+               plain_ms=time_ms(lambda: fa_mod.attention_ref(
+                   q, k, v, window, q_offset)),
                library_ms=time_ms(sdpa), device_ms=device_ms(kernel),
                library_device_ms=device_ms(sdpa))
-    pairs = int(((torch.arange(lq)[:, None] - torch.arange(lk)[None, :])
-                 .abs() < window).sum()) if window else lq * lk
+    pairs = int(band.sum()) if window else lq * lk
     ops = 4 * b * h * pairs * d
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    peak = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / peak
     out.update(bound_ms=1e3 * max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
     return out
@@ -356,10 +391,21 @@ def _to_cuda(tree):
     return tree.cuda()
 
 
-def reference_phase(torch, name: str):
+# the reference phase's decodes: every config uncached, and LLaDA under
+# each cache policy
+REFERENCE_CASES = [dict(strategy="fdm", gamma=0.0), dict(strategy="fdm_a"),
+                   dict(strategy="probability"), dict(strategy="eb")]
+CACHED_REFERENCE_CASES = [
+    dict(strategy=s, cache_policy=p, cache_refresh=r, **g)
+    for p, r in (("prefix", "block"), ("dual", "block"), ("prefix", "off"))
+    for s, g in (("fdm", dict(gamma=0.0)), ("fdm_a", {}),
+                 ("probability", {}))]
+
+
+def reference_phase(torch, name: str, cases):
     """The port on the card (kernels, f32) against the port on the CPU
     (plain versions) on a reduced config: same weights, same prompts,
-    identical decodes required."""
+    identical decodes required, forward-equivalents exactly equal."""
     from repro_torch.configs import DecodeConfig, get_config
     from repro_torch.core import Decoder
     from repro_torch.models import init_model
@@ -369,8 +415,7 @@ def reference_phase(torch, name: str):
     gpu_params = _to_cuda(cpu_params)
     gen = torch.Generator().manual_seed(SEED)
     prompt = torch.randint(0, cfg.vocab_size - 1, (2, 16), generator=gen)
-    for kw in (dict(strategy="fdm", gamma=0.0), dict(strategy="fdm_a"),
-               dict(strategy="probability"), dict(strategy="eb")):
+    for kw in cases:
         dcfg = DecodeConfig(gen_length=32, block_size=16, steps=32, **kw)
         x_cpu, s_cpu = Decoder(cpu_params, cfg, dcfg,
                                device="cpu").generate(None, prompt)
@@ -397,29 +442,37 @@ def count_params(tree) -> int:
     return tree.numel()
 
 
-def serving_phase(torch, name: str, mods: dict):
-    """Serve ``name`` at full width and depth; ``mods`` maps each kernel of
-    the model's path to its module, whose launch count is set to 0 just
-    before the run and read just after.  Returns those counts."""
-    import numpy as np
-    from repro_torch.configs import DecodeConfig, get_config
+def make_model(torch, name: str):
+    """Full-width, full-depth random weights of ``name`` on the card, from
+    the seed.  Returns ``(cfg, params)``."""
+    from repro_torch.configs import get_config
     from repro_torch.models import init_model
-    from repro_torch.serving import ServingEngine
     cfg = get_config(name)
     t0 = time.perf_counter()
     params = init_model(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                         device="cuda")
     torch.cuda.synchronize()
-    n_params = count_params(params)
     log(f"serving: {name} full width and depth ({cfg.num_layers} layers, "
         f"d={cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv, "
         f"d_ff={cfg.d_ff}, V={cfg.vocab_size}, window "
         f"{cfg.sliding_window}, {cfg.arch_type}, {cfg.dtype}); "
-        f"{n_params} parameters made in "
+        f"{count_params(params)} parameters made in "
         f"{time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    return cfg, params
+
+
+def serving_phase(torch, cfg, params, mods: dict, policy: str = "none"):
+    """Serve ``REQUESTS`` on ``params`` under ``policy``: one main path.
+    ``mods`` maps each kernel of the path to its module, whose launch
+    count is set to 0 just before the run and read just after.  Returns
+    those counts."""
+    import numpy as np
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.serving import ServingEngine
+    name = f"{cfg.name}" + ("" if policy == "none" else f"-{policy}")
     dcfg = DecodeConfig(gen_length=GEN, block_size=BLOCK, steps=GEN,
-                        strategy="fdm", k=K, k1=K)
+                        strategy="fdm", k=K, k1=K, cache_policy=policy)
     batches = []
     engine = ServingEngine(params, cfg, dcfg, max_batch=MAX_BATCH,
                            seed=SEED, on_block_committed=lambda reqs, blk, *_:
@@ -472,14 +525,25 @@ def serving_phase(torch, name: str, mods: dict):
                                  f"evenly")
         if steps != GEN:                      # every strategy here: 1/step
             raise AssertionError(f"batch {members}: {steps} steps")
-        want = {"fdm": GEN * (1 + K), "probability": GEN}.get(strat)
-        if want is not None and batch_fwd != want:
-            raise AssertionError(f"batch {members} ({strat}): "
-                                 f"{batch_fwd} forward-equivalents, "
-                                 f"want {want}")
+        # forwards per step: fdm 1+K, probability 1, fdm_a between; a
+        # cached step costs window/total of a forward, and each of the
+        # GEN/BLOCK cache captures one
+        total = len(reqs[0].result) + reqs[0].pad_cols
+        scale = {"none": 1.0, "prefix": GEN / total,
+                 "dual": BLOCK / total}[policy]
+        refreshes = 0 if policy == "none" else GEN // BLOCK
+        lo, hi = (refreshes + steps * n * scale for n in (1, 1 + K))
+        want = {"fdm": hi, "probability": lo}.get(strat)
+        # exact but for the order of the float sum (per step, as the
+        # reference's host driver adds them)
+        if want is not None and abs(batch_fwd - want) > 1e-9 * want:
+            raise AssertionError(f"batch {members} ({strat}, {policy}): "
+                                 f"{batch_fwd} forward-equivalents, want "
+                                 f"{want}")
         if strat == "fdm_a":
-            if not GEN <= batch_fwd <= GEN * (1 + K):
-                raise AssertionError(f"fdm_a batch {members}: {batch_fwd}")
+            if not lo - 1e-9 <= batch_fwd <= hi + 1e-9:
+                raise AssertionError(f"fdm_a batch {members} ({policy}): "
+                                     f"{batch_fwd} not in [{lo}, {hi}]")
             for r in reqs:
                 if abs(sum(r.stats.phase_counts.values()) - steps) > 1e-9:
                     raise AssertionError(f"fdm_a request {r.rid}: phase "
@@ -488,54 +552,173 @@ def serving_phase(torch, name: str, mods: dict):
             f"forward_equivalents {batch_fwd}")
     summary = engine.summary()
     log(f"serving {name} summary: " + json.dumps(summary))
-    log(f"serving {name} decode tokens/s: {summary['decode_tps']}")
+    log(f"serving {name} decode tokens/s: {summary['decode_tps']}; latency "
+        f"mean {summary['mean_latency_s']:.3f} s p95 "
+        f"{summary['p95_latency_s']:.3f} s; forward-equivalents per "
+        f"request {summary['forward_equivalents'] / len(rids)}; launches "
+        f"{launches}")
+    return launches
 
-    # forwards at the scoring and the K-candidate batch: the span on the
-    # card's clock against the host's time to enqueue it, median (and
-    # range) of FORWARD_REPS forwards, each started on an idle card
-    from repro_torch.models import forward
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    for b in (MAX_BATCH, K * MAX_BATCH):
-        tokens = torch.randint(0, cfg.vocab_size - 1, (b, CANVAS),
-                               generator=gen, device="cuda")
-        forward(params, tokens, cfg)
-        torch.cuda.synchronize()
-        card, host = [], []
-        for _ in range(FORWARD_REPS):
+
+def card_vs_host(torch, calls: dict) -> None:
+    """Each call of ``calls`` (label -> fn) on the card's clock against the
+    host's time to enqueue it: median (and range) of FORWARD_REPS rounds,
+    each round calling every fn once, each call started on an idle card
+    (interleaved, so a drift in the host's speed reaches every label
+    alike)."""
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    card = {label: [] for label in calls}
+    host = {label: [] for label in calls}
+    for _ in range(FORWARD_REPS):
+        for label, fn in calls.items():
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             start.record()
-            forward(params, tokens, cfg)
+            fn()
             end.record()
-            host.append(1e3 * (time.perf_counter() - t0))
+            host[label].append(1e3 * (time.perf_counter() - t0))
             torch.cuda.synchronize()
-            card.append(start.elapsed_time(end))
-        log(f"forward {name} B={b} L={CANVAS}: "
-            f"{statistics.median(card):.3f} ms on the card's clock "
-            f"[{min(card):.3f}, {max(card):.3f}], "
-            f"{statistics.median(host):.3f} ms to enqueue on the host "
-            f"[{min(host):.3f}, {max(host):.3f}] (median [range] of "
-            f"{FORWARD_REPS})")
+            card[label].append(start.elapsed_time(end))
+    for label in calls:
+        c, h = card[label], host[label]
+        log(f"forward {label}: {statistics.median(c):.3f} ms on the card's "
+            f"clock [{min(c):.3f}, {max(c):.3f}], "
+            f"{statistics.median(h):.3f} ms to enqueue on the host "
+            f"[{min(h):.3f}, {max(h):.3f}] (median [range] of "
+            f"{FORWARD_REPS}, interleaved)")
 
-    # where the host's time goes in one forward (cProfile adds its own
-    # per-call cost, so only the shares are meaningful)
+
+def host_profile(torch, label: str, fn, top: int = 10) -> None:
+    """Where the host's time goes in one call of ``fn``: cProfile's own
+    time per function (cProfile adds its own per-call cost, so only the
+    shares are meaningful)."""
     import cProfile
     import pstats
     prof = cProfile.Profile()
     prof.enable()
-    forward(params, tokens, cfg)
+    fn()
     prof.disable()
     torch.cuda.synchronize()
     rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])
     total = sum(v[2] for _, v in rows)
-    log(f"host profile of one {name} forward B={K * MAX_BATCH}: "
-        f"{1e3 * total:.2f} ms "
-        f"of own time in {sum(v[1] for _, v in rows)} calls; top 10:")
-    for (path, line, fn), (_, calls, own, _, _) in rows[:10]:
-        log(f"  {1e3 * own:8.2f} ms {calls:6d} calls  {fn} "
+    log(f"host profile of one {label}: {1e3 * total:.2f} ms of own time in "
+        f"{sum(v[1] for _, v in rows)} calls; top {top}:")
+    for (path, line, name), (_, calls, own, _, _) in rows[:top]:
+        log(f"  {1e3 * own:8.2f} ms {calls:6d} calls  {name} "
             f"({os.path.basename(path)}:{line})")
-    return launches
+
+
+def device_profile(torch, label: str, fn, reps: int = 2,
+                   top: int = 6) -> None:
+    """The card's kernels in ``reps`` calls of ``fn`` after warm-up, from
+    ``torch.profiler`` (device activity only: host events would slow the
+    trace's processing by seconds): per call the synchronised wall time,
+    the summed kernel time, the kernel count, the share of the wall the
+    card was busy, and the ``top`` kernels by device time."""
+    from collections import defaultdict
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = defaultdict(lambda: [0, 0.0])
+    busy, end = 0.0, float("-inf")
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+        if e.time_range.end > end:
+            busy += e.time_range.end - max(e.time_range.start, end)
+            end = e.time_range.end
+    summed = sum(t for _, t in by_name.values())
+    log(f"device profile {label}: wall {wall_us / reps / 1e3:.3f} ms per "
+        f"call (profiled); kernels {summed / reps / 1e3:.3f} ms per call "
+        f"({len(kernels) // reps} kernels), busy share of the wall "
+        f"{busy / wall_us:.3f}")
+    for name, (n, t) in sorted(by_name.items(),
+                               key=lambda kv: -kv[1][1])[:top]:
+        log(f"  {t / reps / 1e3:8.3f} ms {n // reps:5d}x  {name[:100]}")
+
+
+def forward_phase(torch, cfg, params) -> None:
+    """Forwards at the scoring and the K-candidate batch on the card's
+    clock against host enqueue time, then where the host's time goes in
+    one forward."""
+    from repro_torch.models import forward
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    calls = {}
+    for b in (MAX_BATCH, K * MAX_BATCH):
+        tokens = torch.randint(0, cfg.vocab_size - 1, (b, CANVAS),
+                               generator=gen, device="cuda")
+        calls[f"{cfg.name} B={b} L={CANVAS}"] = \
+            lambda t=tokens: forward(params, t, cfg)
+    card_vs_host(torch, calls)
+    host_profile(torch, f"{cfg.name} forward B={K * MAX_BATCH}",
+                 lambda: forward(params, tokens, cfg))
+
+
+def kv_ab_phase(torch, cfg, params) -> None:
+    """One B=2 request at the reference's ``BENCH_kv_cache.json`` geometry
+    under each cache policy, through ``Decoder.generate``: seconds and
+    forward-equivalents (exactly 128, 68 and 20 required).  Then on the
+    last canvas: one full forward, one window forward per cached policy
+    and one cache capture, on the card's clock against host enqueue time,
+    by their kernels on the card (``torch.profiler``), and where the
+    host's time goes in each forward (cProfile)."""
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder
+    from repro_torch.models import capture_cache, forward, forward_cached
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size - 1, (2, KV_PROMPT),
+                           generator=gen, device="cuda")
+    total = KV_PROMPT + KV_GEN
+    for policy in POLICIES:
+        dcfg = DecodeConfig(gen_length=KV_GEN, block_size=KV_BLOCK,
+                            steps=KV_GEN, strategy="probability",
+                            cache_policy=policy)
+        t0 = time.perf_counter()
+        out, st = Decoder(params, cfg, dcfg).generate(None, prompt)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"kv a/b {cfg.name} {policy}: prompt {KV_PROMPT} gen {KV_GEN} "
+            f"block {KV_BLOCK} B=2 probability: {secs:.3f} s, steps "
+            f"{st.steps}, forward_equivalents {st.forward_equivalents}, "
+            f"tokens/s {st.tps:.2f}")
+        if st.forward_equivalents != KV_FWD[policy] or st.steps != KV_GEN:
+            raise AssertionError(f"kv a/b {policy}: {st.steps} steps, "
+                                 f"{st.forward_equivalents} forward-"
+                                 f"equivalents, want {KV_GEN} and "
+                                 f"{KV_FWD[policy]}")
+        if (out[:, KV_PROMPT:] == cfg.mask_token_id).any():
+            raise AssertionError(f"kv a/b {policy}: masked token left")
+    canvas = out
+    state = capture_cache(params, canvas, cfg)
+    lo = KV_PROMPT + KV_BLOCK
+    calls = {
+        f"{cfg.name} full B=2 L={total}":
+            lambda: forward(params, canvas, cfg),
+        f"{cfg.name} prefix window B=2 W={KV_GEN} of {total}":
+            lambda: forward_cached(params, canvas[:, KV_PROMPT:], KV_PROMPT,
+                                   state, cfg),
+        f"{cfg.name} dual window B=2 W={KV_BLOCK} of {total}":
+            lambda: forward_cached(params, canvas[:, lo:lo + KV_BLOCK], lo,
+                                   state, cfg)}
+    card_vs_host(torch, calls)
+    calls[f"{cfg.name} cache capture B=2 L={total}"] = \
+        lambda: capture_cache(params, canvas, cfg)
+    for label, fn in calls.items():
+        device_profile(torch, label, fn)
+    for label, fn in list(calls.items())[:3]:
+        host_profile(torch, label, fn)
 
 
 def main() -> None:
@@ -604,18 +787,20 @@ def main() -> None:
             conf_entry = r
     conf_entry["max_abs_err"] = max(conf_errs)
     attn_errs = []
-    for b, lq, lk, h, g, d, w in ATTN_SHAPES:
-        r = check_attention(fa_mod, torch, b, lq, lk, h, g, d, w)
+    attn_runs = [(shape, "bfloat16") for shape in ATTN_SHAPES] + \
+        [(shape, "float32") for shape in ATTN_F32]
+    for (b, lq, lk, h, g, d, w, qo), dt in attn_runs:
+        r = check_attention(fa_mod, torch, b, lq, lk, h, g, d, w, qo, dt)
         attn_errs.append(r["max_abs_err"])
         log(f"attention B={b} Lq={lq} Lk={lk} H={h} G={g} d={d} window={w} "
-            f"bf16: max_abs_err {r['max_abs_err']} kernel "
+            f"q_offset={qo} {dt}: max_abs_err {r['max_abs_err']} kernel "
             f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa "
             f"{r['library_ms']:.4f} ms (kernel/sdpa "
             f"{r['ms'] / r['library_ms']:.3f}); on the device alone kernel "
             f"{r['device_ms']:.4f} ms sdpa {r['library_device_ms']:.4f} ms "
             f"(kernel/sdpa {r['device_ms'] / r['library_device_ms']:.3f}); "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-        if (b, lq, g, w) == (MAX_BATCH, CANVAS, 32, 0):
+        if ((b, lq, lk, h, g, d, w, qo), dt) == attn_runs[0]:
             attn_entry = r
     attn_entry["max_abs_err"] = max(attn_errs)
     scan_errs = []
@@ -633,24 +818,40 @@ def main() -> None:
     scan_entry["max_abs_err"] = max(scan_errs)
 
     # 4. end-to-end agreement with the CPU reference on small configs
-    reference_phase(torch, "llada-8b")
-    reference_phase(torch, "hymba-1.5b")
-
-    # 5. the main paths, one model at a time (each frees its weights)
     t0 = time.perf_counter()
-    llada = serving_phase(torch, "llada-8b", {"confidence": conf_mod,
-                                              "flash_attention": fa_mod})
+    reference_phase(torch, "llada-8b",
+                    REFERENCE_CASES + CACHED_REFERENCE_CASES)
+    reference_phase(torch, "hymba-1.5b", REFERENCE_CASES)
+    log(f"reference phase: {time.perf_counter() - t0:.1f} s")
+
+    # 5. the main paths, one model at a time (each frees its weights); 6.
+    # the KV A/B on LLaDA's weights
+    t0 = time.perf_counter()
+    cfg, params = make_model(torch, "llada-8b")
+    llada = {}
+    for policy in POLICIES:
+        llada[policy] = serving_phase(
+            torch, cfg, params, {"confidence": conf_mod,
+                                 "flash_attention": fa_mod}, policy)
+    forward_phase(torch, cfg, params)
     log(f"serving phase llada-8b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kv_ab_phase(torch, cfg, params)
+    log(f"kv a/b phase llada-8b: {time.perf_counter() - t0:.1f} s")
+    del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    hymba = serving_phase(torch, "hymba-1.5b", {
+    cfg, params = make_model(torch, "hymba-1.5b")
+    hymba = serving_phase(torch, cfg, params, {
         "confidence": conf_mod, "flash_attention": fa_mod,
         "selective_scan": scan_mod})
+    forward_phase(torch, cfg, params)
     log(f"serving phase hymba-1.5b: {time.perf_counter() - t0:.1f} s")
 
     def launches(kernel):
-        by_path = {"llada-8b": llada.get(kernel, 0),
-                   "hymba-1.5b": hymba[kernel]}
+        by_path = {"llada-8b" + ("" if p == "none" else f"-{p}"):
+                   llada[p].get(kernel, 0) for p in POLICIES}
+        by_path["hymba-1.5b"] = hymba[kernel]
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 

@@ -8,13 +8,19 @@ per-block step budgets and commit widths follow the reference's
 ``_geometry`` exactly, so tokens, ``steps`` and ``forward_equivalents``
 match the reference decode for every strategy that draws no randomness.
 
-Not ported yet (each raises ``NotImplementedError``): ``cache_policy``
-other than ``none`` (ROADMAP.md queue 1 item 6; a hybrid or SSM config
-gets the reference's ``ValueError`` first, since it can never serve
-one), ``trace=True`` and the strategies ``wino_r``/``extrapolate``
-(item 7).  ``fused_loop`` and
-``fused_blocks`` select among the reference's three drivers, which decode
-identically; the port has one eager driver and ignores them.
+``dcfg.cache_policy`` selects the execution mode (DESIGN.md "The KV
+cache"): ``none`` re-forwards the whole canvas every step; ``prefix`` and
+``dual`` score a live window against the fixed-shape block cache
+(``models.model.capture_cache``/``forward_cached``), which the prefill
+captures and, under ``cache_refresh="block"``, every later block
+boundary refreshes.  The cached path needs a ``Decoder`` built from
+params; a hybrid or SSM config gets the reference's ``ValueError``.
+
+Not ported yet (each raises ``NotImplementedError``): ``trace=True`` and
+the strategies ``wino_r``/``extrapolate`` (ROADMAP.md queue 1 item 7).
+``fused_loop`` and ``fused_blocks`` select among the reference's three
+drivers, which decode identically; the port has one eager driver and
+ignores them.
 """
 from __future__ import annotations
 
@@ -26,10 +32,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import DecodeConfig, ModelConfig
-from repro_torch.core.loop import run_block
+from repro_torch.core.loop import run_block, run_cached_block
 from repro_torch.core.masking import fully_masked
 from repro_torch.core.strategies import Strategy, resolve_strategy
 from repro_torch.device import resolve_device
+from repro_torch.models.model import (DecodeState, capture_cache, forward,
+                                      forward_cached)
 
 
 @dataclass
@@ -99,10 +107,6 @@ def check_supported(cfg: ModelConfig, dcfg: DecodeConfig) -> None:
     the reference does), then ``NotImplementedError`` for decode options
     not ported yet."""
     validate_cache_policy(cfg, dcfg)
-    if dcfg.cache_policy != "none":
-        raise NotImplementedError(
-            f"cache_policy={dcfg.cache_policy!r} is not ported yet: "
-            f"ROADMAP.md queue 1 item 6 (the cached path)")
     if dcfg.trace:
         raise NotImplementedError(
             "trace=True (step telemetry) is not ported yet: ROADMAP.md "
@@ -124,9 +128,11 @@ class Decoder:
     """Block orchestration for any registered ``Strategy``.
 
     ``model`` is the port's params dict (see ``models.model``) or a
-    callable ``tokens (B', L) -> logits (B', L, V)``.  ``device`` is where
-    the canvas lives (default ``"cuda"``; raises without a card unless the
-    caller asks for ``"cpu"``).
+    callable ``tokens (B', L) -> logits (B', L, V)`` (uncached decoding
+    only).  ``device`` is where the canvas lives (default ``"cuda"``;
+    raises without a card unless the caller asks for ``"cpu"``).
+    ``on_cache_refresh(block_index, t_start_s, t_end_s)``, when set, fires
+    around each cache capture of the cached path.
     """
 
     def __init__(self, model, cfg: ModelConfig, dcfg: DecodeConfig,
@@ -137,10 +143,11 @@ class Decoder:
         check_supported(cfg, dcfg)
         check_kernel_flag(dcfg, self.device)
         if callable(model):
-            self._model_fn = model
+            self._model_fn, self._params = model, None
         else:
-            from repro_torch.models.model import forward
-            self._model_fn = lambda t: forward(model, t, cfg)
+            self._model_fn, self._params = \
+                (lambda t: forward(model, t, cfg)), model
+        self.on_cache_refresh: Optional[Callable] = None
 
     # -- geometry ----------------------------------------------------------
     def _geometry(self) -> Tuple[int, int, int, np.ndarray]:
@@ -193,6 +200,11 @@ class Decoder:
         committed block; its return value is ``(tokens, stats)``."""
         strat = resolve_strategy(strategy or self.dcfg.strategy)
         geometry = self._geometry()       # geometry errors raise HERE
+        if self.dcfg.cache_policy != "none" and self._params is None:
+            raise ValueError(
+                "cache_policy != 'none' requires a Decoder built from "
+                "params (a bare model_fn cannot drive the cache capture "
+                "or the windowed forwards)")
         prompt = torch.as_tensor(prompt, device=self.device).long()
         return self._blocks_gen(strat, self._generator(rng), prompt,
                                 geometry)
@@ -203,9 +215,36 @@ class Decoder:
         return torch.Generator(device=self.device).manual_seed(
             0 if rng is None else int(rng))
 
+    def _refresh(self, canvas: torch.Tensor, blk: int) -> DecodeState:
+        """Capture the block cache from ``canvas``; timed for the
+        ``on_cache_refresh`` hook, which alone pays for a synchronise."""
+        hook = self.on_cache_refresh
+        if hook is None:
+            return capture_cache(self._params, canvas, self.cfg)
+        t0 = time.perf_counter()
+        state = capture_cache(self._params, canvas, self.cfg)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        hook(blk, t0, time.perf_counter())
+        return state
+
+    def _cached_fn(self, w: torch.Tensor, win_lo: int,
+                   tiles: Dict[int, DecodeState]) -> torch.Tensor:
+        """``cached_fn`` of ``run_cached_block``: the window's logits
+        against the cache.  ``tiles`` maps a replication count to the
+        cache tiled that many times candidate-major (``tiles[1]`` is the
+        capture); a foreseeing strategy's K-candidate batch gets its tiled
+        copy made once per capture, not once per forward."""
+        reps = w.shape[0] // tiles[1][0].k.shape[0]
+        if reps not in tiles:
+            tiles[reps] = _tile_state(tiles[1], reps)
+        return forward_cached(self._params, w, win_lo, tiles[reps],
+                              self.cfg)
+
     def _blocks_gen(self, strat: Strategy, gen: torch.Generator,
                     prompt: torch.Tensor, geometry):
         cfg, dcfg = self.cfg, self.dcfg
+        cached = dcfg.cache_policy != "none"
         b, lp = prompt.shape
         gen_len, bs, num_blocks, sched = geometry
         x = fully_masked(cfg, prompt, gen_len)
@@ -213,17 +252,41 @@ class Decoder:
         stats = SampleStats(tokens_generated=b * gen_len)
         pos = torch.arange(x.shape[1], device=self.device)
         t0 = time.perf_counter()
+        # cached: the prefill capture is block 0's refresh; later blocks
+        # refresh under cache_refresh="block".  Each capture is one
+        # forward, added after the steps' forwards, as the reference's
+        # host driver adds it.
+        tiles = {1: self._refresh(x, 0)} if cached else None
+        refresh_fwd = 1.0 if cached else 0.0
         for blk in range(num_blocks):
             lo, hi = lp + blk * bs, lp + (blk + 1) * bs
-            in_block = (pos >= lo) & (pos < hi)
-            x, carry, steps, fwd = run_block(
-                strat, self._model_fn, cfg, dcfg, sched[blk], x, gen,
-                in_block, carry)
+            if cached:
+                if blk > 0 and dcfg.cache_refresh == "block":
+                    tiles = {1: self._refresh(x, blk)}
+                    refresh_fwd += 1.0
+                x, carry, steps, stats.forward_equivalents = \
+                    run_cached_block(strat, self._cached_fn, cfg, dcfg,
+                                     sched[blk], x, gen, lo, tiles, carry,
+                                     stats.forward_equivalents)
+            else:
+                in_block = (pos >= lo) & (pos < hi)
+                x, carry, steps, stats.forward_equivalents = run_block(
+                    strat, self._model_fn, cfg, dcfg, sched[blk], x, gen,
+                    in_block, carry, stats.forward_equivalents)
             stats.steps += steps
-            stats.forward_equivalents += fwd
             yield BlockEvent(blk, lo, hi, x)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        stats.forward_equivalents += refresh_fwd
         stats.phase_counts = strat.phase_counts(carry)
         stats.wall_time = time.perf_counter() - t0
         return x, stats
+
+
+def _tile_state(state: DecodeState, reps: int) -> DecodeState:
+    """The cache replicated candidate-major along its batch axis (the
+    reference's ``jnp.tile``): rows b0, b1, …, b0, b1, …"""
+    if reps == 1:
+        return state
+    return [kv._replace(k=kv.k.repeat(reps, 1, 1, 1),
+                        v=kv.v.repeat(reps, 1, 1, 1)) for kv in state]

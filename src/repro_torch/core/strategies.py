@@ -64,6 +64,11 @@ class Strategy:
     """Base class for decoding strategies (see module docstring)."""
 
     name: str = ""
+    # True = the carry is ``(positional, global)``: ``positional`` a tuple
+    # of (B, L, ...) tensors column-aligned with the canvas, which the
+    # cached path slices with its live window (``core/loop.py:
+    # carry_window``).  No ported strategy has one yet.
+    positional_carry: bool = False
 
     def init_carry(self, cfg: ModelConfig, dcfg: DecodeConfig, device):
         return ()

@@ -4,8 +4,10 @@
 // src/repro/kernels/flash_attention.py: non-causal softmax(q k^T d^-1/2) v
 // with f32 online-softmax accumulators, an optional band |i - j| < window
 // (0 = full) that skips key tiles wholly outside it, and the ragged end of
-// Lk masked.  A query row with no key inside its band (only possible when
-// Lq > Lk) gets 0, as in the Pallas kernel.  Beyond the Pallas kernel it
+// Lk masked.  Query row i sits at position q_offset + i for the band (a
+// cached window's rows start at its offset in the canvas; 0 = the rows are
+// the whole sequence), key j at j.  A query row with no key inside its band
+// gets 0, as in the Pallas kernel.  Beyond the Pallas kernel it
 // groups GQA heads natively (kv head = h / (H / G)), so the caller does not
 // expand K/V.  Layout is the reference's: q (B, Lq, H, d), k/v (B, Lk, G, d),
 // out (B, Lq, H, d); f32 or bf16; d a multiple of 32 up to 256.
@@ -44,7 +46,9 @@
 // heads are not packed into one CTA (each query head re-reads its group's
 // K/V tiles, from L2): at the serving shapes the K/V bytes are a few MB
 // and the grid is already under a wave.  Not yet used: wgmma, TMA and
-// warp specialisation, a q offset for a cached window's band.
+// warp specialisation.  The q offset moves only the band arithmetic (the
+// live-tile interval, the edge test and the element mask); Q's tile loads
+// and the output stores keep local row indices.
 //
 // f32, the reference phase's path: the first kernel, plain f32 FMA from
 // shared memory (`flash_kernel<float, ...>`), kept exactly as it was.  The
@@ -105,7 +109,7 @@ template <typename T, int DPL>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int Lq, int Lk,
-             int H, int G, int window, float scale) {
+             int H, int G, int window, int q_offset, float scale) {
   constexpr int D = DPL * 32;
   constexpr int KS = D + 4;
   extern __shared__ float4 smem_raw[];
@@ -140,7 +144,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < Lk; k0 += kKT) {
     if (window > 0) {
       // closest approach of the two tiles decides whether any work exists
-      const int dist = max(q0 - (k0 + kKT - 1), k0 - (q0 + kQT - 1));
+      const int p0 = q_offset + q0;           // position of the tile's row 0
+      const int dist = max(p0 - (k0 + kKT - 1), k0 - (p0 + kQT - 1));
       if (dist >= window) continue;          // uniform across the CTA
     }
     __syncthreads();                          // previous tile consumed
@@ -172,7 +177,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int ja = k0 + lane, jb = k0 + lane + 32;
 #pragma unroll
     for (int r = 0; r < kRPW; ++r) {
-      const int i = q0 + warp * kRPW + r;
+      const int i = q_offset + q0 + warp * kRPW + r;   // position
       const bool va = ja < Lk && (window == 0 || abs(i - ja) < window);
       const bool vb = jb < Lk && (window == 0 || abs(i - jb) < window);
       const float sa = va ? s[r][0] * scale : kNeg;
@@ -227,7 +232,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DPL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Lq, int Lk, int H, int G, int window,
-                   float scale, cudaStream_t stream) {
+                   int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DPL * 32>();
   const cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -237,23 +242,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_kernel<T, DPL><<<grid, block, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Lq, Lk, H, G, window,
-      scale);
+      q_offset, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
                      void* o, int B, int Lq, int Lk, int H, int G,
-                     int window, float scale, cudaStream_t s) {
+                     int window, int q_offset, float scale, cudaStream_t s) {
+  auto go = [&](auto launcher) {
+    return launcher(q, k, v, o, B, Lq, Lk, H, G, window, q_offset, scale, s);
+  };
   switch (d / 32) {
-    case 1: return launch<T, 1>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
-    case 2: return launch<T, 2>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
-    case 3: return launch<T, 3>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
-    case 4: return launch<T, 4>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
-    case 5: return launch<T, 5>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
-    case 6: return launch<T, 6>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
-    case 7: return launch<T, 7>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
-    case 8: return launch<T, 8>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
+    case 1: return go(launch<T, 1>);
+    case 2: return go(launch<T, 2>);
+    case 3: return go(launch<T, 3>);
+    case 4: return go(launch<T, 4>);
+    case 5: return go(launch<T, 5>);
+    case 6: return go(launch<T, 6>);
+    case 7: return go(launch<T, 7>);
+    case 8: return go(launch<T, 8>);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -355,7 +363,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, int Lq,
-                int Lk, int H, int G, int window, float scale_log2) {
+                int Lk, int H, int G, int window, int q_offset,
+                float scale_log2) {
   constexpr int P = D + kPad;            // shared row pitch, elements
   constexpr int KD = D / 16;             // k-steps of Q K^T
   constexpr int ND = D / 8;              // 8-column tiles of O
@@ -378,12 +387,14 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // Live key tiles [lo, hi): a tile works iff the closest approach of the
   // two tiles is inside the band (an interval, since the distance is
-  // V-shaped in the tile index); uniform across the CTA.
+  // V-shaped in the tile index); uniform across the CTA.  The band sees
+  // the tile's rows at positions p0 .. p0 + 63.
+  const int p0 = q_offset + q0;
   int lo = 0, hi = (Lk + kKeys - 1) / kKeys;
   if (window > 0) {
     auto dist = [&](int t) {
       const int k0 = t * kKeys;
-      return max(q0 - (k0 + kKeys - 1), k0 - (q0 + kRows - 1));
+      return max(p0 - (k0 + kKeys - 1), k0 - (p0 + kRows - 1));
     };
     while (lo < hi && dist(lo) >= window) ++lo;
     while (hi > lo && dist(hi - 1) >= window) --hi;
@@ -462,14 +473,14 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = t * kKeys;
     const bool ragged = k0 + kKeys > Lk;
     const bool edge = window > 0 &&
-        max(q0 + kRows - 1 - k0, k0 + kKeys - 1 - q0) >= window;
+        max(p0 + kRows - 1 - k0, k0 + kKeys - 1 - p0) >= window;
     if (ragged || edge) {
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int j = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
-          const int i = i0 + (e >> 1) * 8;
+          const int i = q_offset + i0 + (e >> 1) * 8;   // position
           if (j >= Lk || (window > 0 && abs(i - j) >= window))
             s[n][e] = -INFINITY;
         }
@@ -549,7 +560,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Lq, int Lk, int H, int G, int window,
-                   float scale, cudaStream_t stream) {
+                   int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
   const cudaError_t err = cudaFuncSetAttribute(
       flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -559,26 +570,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_tc_kernel<D><<<grid, block, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), Lq, Lk, H, G,
-      window, scale * kLog2e);
+      window, q_offset, scale * kLog2e);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
                      void* o, int B, int Lq, int Lk, int H, int G, int window,
-                     float scale, cudaStream_t s) {
+                     int q_offset, float scale, cudaStream_t s) {
   // cp.async moves 16-byte chunks: every base address must be aligned
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return cudaErrorInvalidValue;
+  auto go = [&](auto launcher) {
+    return launcher(q, k, v, o, B, Lq, Lk, H, G, window, q_offset, scale, s);
+  };
   switch (d / 32) {
-    case 1: return launch<32>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
-    case 2: return launch<64>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
-    case 3: return launch<96>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
-    case 4: return launch<128>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
-    case 5: return launch<160>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
-    case 6: return launch<192>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
-    case 7: return launch<224>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
-    case 8: return launch<256>(q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
+    case 1: return go(launch<32>);
+    case 2: return go(launch<64>);
+    case 3: return go(launch<96>);
+    case 4: return go(launch<128>);
+    case 5: return go(launch<160>);
+    case 6: return go(launch<192>);
+    case 7: return go(launch<224>);
+    case 8: return go(launch<256>);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -588,22 +602,26 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core
-// kernel; q, k, v and o 16-byte aligned).  Returns cudaGetLastError() after
+// kernel; q, k, v and o 16-byte aligned).  q_offset >= 0 is the position of
+// query row 0 for the band.  Returns cudaGetLastError() after
 // the launch (0 = launched).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int Lq,
                                      int Lk, int H, int G, int d, int window,
-                                     float scale, int dtype, void* stream) {
+                                     int q_offset, float scale, int dtype,
+                                     void* stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0 || H <= 0 || G <= 0 || H % G != 0 ||
-      d % 32 != 0 || d < 32 || d > 256 || window < 0) {
+      d % 32 != 0 || d < 32 || d > 256 || window < 0 || q_offset < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch<float>(d, q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
+    err = dispatch<float>(d, q, k, v, o, B, Lq, Lk, H, G, window, q_offset,
+                          scale, s);
   } else if (dtype == 1) {
-    err = tc::dispatch(d, q, k, v, o, B, Lq, Lk, H, G, window, scale, s);
+    err = tc::dispatch(d, q, k, v, o, B, Lq, Lk, H, G, window, q_offset,
+                       scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,10 +1,12 @@
 """Bidirectional flash attention: wrapper, plain version and launch count.
 
-``flash_attention(q, k, v, window=0)`` takes the reference's layout — q
-``(B, Lq, H, d)``, k/v ``(B, Lk, G, d)`` with G dividing H (query head h
-reads kv head ``h // (H // G)``) — and returns ``(B, Lq, H, d)`` in q's
-dtype: ``softmax(q kᵀ d^-½) v``, optionally restricted to the band
-``|i − j| < window``.  On a CUDA tensor it launches the hand-written kernel
+``flash_attention(q, k, v, window=0, q_offset=0)`` takes the reference's
+layout — q ``(B, Lq, H, d)``, k/v ``(B, Lk, G, d)`` with G dividing H
+(query head h reads kv head ``h // (H // G)``) — and returns
+``(B, Lq, H, d)`` in q's dtype: ``softmax(q kᵀ d^-½) v``, optionally
+restricted to the band ``|(q_offset + i) − j| < window``: query row i sits
+at position ``q_offset + i`` (a cached window's rows start at their offset
+in the canvas).  On a CUDA tensor it launches the hand-written kernel
 in ``csrc/flash_attention.cu`` or raises; on a CPU tensor it runs
 ``attention_ref``, the plain version.  There is no fallback between them.
 In bf16 the kernel runs on the tensor cores and copies 16-byte chunks, so
@@ -24,12 +26,12 @@ launches = 0          # kernel launches by this wrapper (not the plain path)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p] + [ctypes.c_int] * 7 + [
+             ctypes.c_void_p] + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  window: int = 0) -> torch.Tensor:
+                  window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """The plain version (mirrors the reference's ``kernels/ref.py``
     ``attention_ref``, plus GQA grouping): f32 scores and softmax, f32 PV,
     cast to q's dtype."""
@@ -40,7 +42,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = v.float().repeat_interleave(rep, dim=2)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (d ** -0.5)
     if window:
-        qi = torch.arange(lq, device=q.device)[:, None]
+        qi = q_offset + torch.arange(lq, device=q.device)[:, None]
         ki = torch.arange(lk, device=q.device)[None, :]
         band = (qi - ki).abs() < window
         scores = torch.where(band, scores, torch.full_like(scores, -1e30))
@@ -48,7 +50,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", w, vf).to(q.dtype)
 
 
-def _check(q, k, v, window):
+def _check(q, k, v, window, q_offset):
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k and v must share a device")
     if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
@@ -66,17 +68,19 @@ def _check(q, k, v, window):
                          f"multiple of 32 in [32, 256]")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, q_offset: int = 0) -> torch.Tensor:
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, window)
+        return attention_ref(q, k, v, window, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check(q, k, v, window)
+    _check(q, k, v, window, q_offset)
     b, lq, h, d = q.shape
     lk, g = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -86,7 +90,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, lq, lk, h, g, d, int(window), float(d ** -0.5),
+                 b, lq, lk, h, g, d, int(window), int(q_offset),
+                 float(d ** -0.5),
                  _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "

@@ -1,13 +1,16 @@
 """Bidirectional GQA/MHA attention of the port (reference:
 ``src/repro/models/attention.py``).
 
-The full-sequence path only: q/k/v projections, standard RoPE, and the
-attention itself through ``kernels.flash_attention`` (the hand-written
-kernel on a card, its plain version on the CPU) with GQA heads grouped
-inside the kernel.  MLA, q/k norm and the KV-cache entry points raise
-``NotImplementedError``: they arrive with later slices (ROADMAP.md).
+q/k/v projections, standard RoPE, and the attention itself through
+``kernels.flash_attention`` (the hand-written kernel on a card, its plain
+version on the CPU) with GQA heads grouped inside the kernel: the
+full-sequence path and the fixed-shape block cache's capture and cached
+window.  MLA and q/k norm raise ``NotImplementedError``: they arrive with
+a later slice (ROADMAP.md queue 1 item 9).
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -70,16 +73,61 @@ def attention_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
     return gqa_forward(p, x, positions, cfg)
 
 
-def _not_ported(name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} (the KV-cache path) is not ported yet: ROADMAP.md "
-            f"queue 1 item 6")
-    fn.__name__ = name
-    return fn
+# --------------------------------------------------------------------------
+# fixed-shape block cache (cache_policy = prefix | dual)
+# --------------------------------------------------------------------------
+#
+# The cache covers ALL ``total`` positions of the canvas.  A live window
+# writes its fresh K/V into a copy at its offset and attends over every
+# key: cached context outside the window, fresh inside it.  The copy is a
+# fresh contiguous allocation, so the bf16 kernel's 16-byte alignment
+# holds; the kernel is never handed a slice of the cache.
+
+class KVCache(NamedTuple):
+    """One layer's K and V, each (B, total, G, hd) in the compute dtype."""
+    k: torch.Tensor
+    v: torch.Tensor
 
 
-gqa_capture = _not_ported("gqa_capture")
-gqa_cached = _not_ported("gqa_cached")
-attention_capture = _not_ported("attention_capture")
-attention_cached = _not_ported("attention_cached")
+def gqa_capture(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+    """Full attention that also returns the K/V it computed: the prefill
+    and refresh op of the block cache."""
+    q, k, v = _project_qkv(p, x, positions, cfg)
+    out = self_attention(q, k, v, window=cfg.sliding_window)
+    return (out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype),
+            KVCache(k, v))
+
+
+def _scatter(full: torch.Tensor, new: torch.Tensor,
+             start: int) -> torch.Tensor:
+    """A copy of ``full`` with ``new`` written at ``start`` along axis 1
+    (both in the compute dtype: the cache holds what the capture made)."""
+    return torch.cat([full[:, :start], new, full[:, start + new.shape[1]:]],
+                     dim=1)
+
+
+def gqa_cached(p: Params, x: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig, cache: KVCache,
+               win_start: int) -> torch.Tensor:
+    """A W-row live window attends over the full fixed-length cache with
+    its own fresh K/V written in at ``win_start``.  Read-only with respect
+    to the cache (refreshes go through ``gqa_capture``)."""
+    q, k_new, v_new = _project_qkv(p, x, positions, cfg)
+    k = _scatter(cache.k, k_new, win_start)
+    v = _scatter(cache.v, v_new, win_start)
+    out = flash_attention(q, k, v, cfg.sliding_window, q_offset=win_start)
+    return out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
+
+
+def attention_capture(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                      cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+    _check_supported(cfg)
+    return gqa_capture(p, x, positions, cfg)
+
+
+def attention_cached(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                     cfg: ModelConfig, cache: KVCache,
+                     win_start: int) -> torch.Tensor:
+    _check_supported(cfg)
+    return gqa_cached(p, x, positions, cfg, cache, win_start)

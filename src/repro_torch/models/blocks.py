@@ -3,17 +3,24 @@
 * dense:           norm → attention → norm → SwiGLU;
 * hybrid (Hymba):  norm → [attention ∥ Mamba], fused mean → norm → SwiGLU;
 
-with residuals.  The other families (MoE, SSM/xLSTM, encoder-decoder,
+with residuals.  The dense block also has the fixed-shape block cache's
+two entry points (``block_capture``, ``block_cached``); a hybrid config
+never reaches them, since the decoder refuses its cache policies first.
+The other families (MoE, SSM/xLSTM, encoder-decoder,
 VLM) raise ``NotImplementedError`` until their slice (ROADMAP.md queue 1
 item 9).
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.attention import attention_forward, init_attention
+from repro_torch.models.attention import (KVCache, attention_cached,
+                                          attention_capture,
+                                          attention_forward, init_attention)
 from repro_torch.models.layers import (Params, apply_mlp, apply_norm,
                                        init_mlp, init_norm)
 
@@ -59,5 +66,41 @@ def block_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
                        + ssm_out * p["mix_ssm"].to(x.dtype))
     else:
         x = x + attn_out
+    h = apply_norm(p["norm2"], x, cfg)
+    return x + apply_mlp(p["mlp"], h, cfg)
+
+
+# --------------------------------------------------------------------------
+# fixed-shape block cache (cache_policy = prefix | dual; dense blocks)
+# --------------------------------------------------------------------------
+
+def _check_dense(cfg: ModelConfig) -> None:
+    if cfg.arch_type != "dense":
+        raise ValueError(
+            f"{cfg.name!r} (arch_type={cfg.arch_type!r}): the block cache "
+            f"needs an attention-only block")
+
+
+def block_capture(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig, idx: int
+                  ) -> Tuple[torch.Tensor, KVCache]:
+    """The full-sequence block that also returns this layer's K/V cache
+    (prefill and block-boundary refresh)."""
+    _check_dense(cfg)
+    h = apply_norm(p["norm1"], x, cfg)
+    attn_out, kv = attention_capture(p["attn"], h, positions, cfg)
+    x = x + attn_out
+    h = apply_norm(p["norm2"], x, cfg)
+    return x + apply_mlp(p["mlp"], h, cfg), kv
+
+
+def block_cached(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ModelConfig, idx: int, cache: KVCache,
+                 win_start: int) -> torch.Tensor:
+    """A W-row live window (B, W, d) against this layer's full-length
+    cache; read-only with respect to the cache."""
+    _check_dense(cfg)
+    h = apply_norm(p["norm1"], x, cfg)
+    x = x + attention_cached(p["attn"], h, positions, cfg, cache, win_start)
     h = apply_norm(p["norm2"], x, cfg)
     return x + apply_mlp(p["mlp"], h, cfg)

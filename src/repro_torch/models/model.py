@@ -5,16 +5,21 @@ Parameters are a plain dict of tensors, held per layer: ``{"embed":
 the reference's tree with its stacked layer axis unstacked into a list
 (``repro_torch.convert`` bridges the two).  PyTorch runs eagerly, so the
 layers are a Python loop.
+
+The fixed-shape block cache (DESIGN.md "The KV cache"): ``capture_cache``
+runs one full pass over the canvas and keeps every layer's K/V,
+``forward_cached`` scores a live window against it.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blocks_lib
+from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (Params, apply_norm, compute_dtype,
                                        embed_tokens, init_embed, init_norm,
                                        lm_head)
@@ -54,5 +59,42 @@ def forward(params: Params, tokens: torch.Tensor,
     positions = make_positions(cfg, b, l, device=tokens.device)
     for i, p in enumerate(params["blocks"]):
         x = blocks_lib.block_forward(p, x, positions, cfg, i)
+    x = apply_norm(params["norm_f"], x, cfg)
+    return lm_head(params["embed"], x, cfg)
+
+
+# the block cache's state: one KVCache per layer, each covering the whole
+# canvas (B, total, G, hd)
+DecodeState = List[KVCache]
+
+
+def capture_cache(params: Params, tokens: torch.Tensor,
+                  cfg: ModelConfig) -> DecodeState:
+    """One full bidirectional pass over the canvas (B, total) keeping every
+    layer's K/V: the prefill and block-boundary refresh of the block
+    cache.  No LM head: refresh logits are never used (the next window
+    forward scores the live rows anyway)."""
+    b, l = tokens.shape
+    x = embed_tokens(params["embed"], tokens, cfg)
+    positions = make_positions(cfg, b, l, device=tokens.device)
+    state: DecodeState = []
+    for i, p in enumerate(params["blocks"]):
+        x, kv = blocks_lib.block_capture(p, x, positions, cfg, i)
+        state.append(kv)
+    return state
+
+
+def forward_cached(params: Params, tokens: torch.Tensor, win_start: int,
+                   state: DecodeState, cfg: ModelConfig) -> torch.Tensor:
+    """Score a W-row live window (B, W) at ``win_start`` against the cache
+    from ``capture_cache``.  Read-only with respect to the cache: each
+    layer writes its fresh window K/V into a copy and attends over all
+    ``total`` keys.  Returns logits (B, W, V) float32."""
+    b, w = tokens.shape
+    x = embed_tokens(params["embed"], tokens, cfg)
+    positions = make_positions(cfg, b, w, offset=win_start,
+                               device=tokens.device)
+    for i, (p, kv) in enumerate(zip(params["blocks"], state)):
+        x = blocks_lib.block_cached(p, x, positions, cfg, i, kv, win_start)
     x = apply_norm(params["norm_f"], x, cfg)
     return lm_head(params["embed"], x, cfg)

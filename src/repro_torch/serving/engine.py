@@ -8,8 +8,11 @@ a batch are left-padded with the mask token (pad columns sit outside
 every decode block, so they are never committed, and are sliced off the
 results), and a short batch is filled to ``max_batch`` rows with copies
 of its last prompt.  Per-request ``strategy``/``steps``/``gen_length``/
-``block_size`` overrides are validated at ``submit`` and become part of
-the batch key.  Every committed block passes the output validator.
+``block_size``/``cache_policy`` overrides are validated at ``submit`` and
+become part of the batch key, so requests under different cache policies
+never share a batch.  Every committed block passes the output validator;
+``on_cache_refresh(requests, block_index, t_start_s, t_end_s)``, when
+set, observes each KV-cache capture of a cached batch.
 
 The async scheduler, router, HTTP server, supervisor and fault injector
 are ROADMAP.md queue 1 item 8.
@@ -92,6 +95,7 @@ class ServingEngine:
         self.max_batch = max_batch
         self.length_bucket = max(length_bucket, 1)
         self.on_block_committed = on_block_committed
+        self.on_cache_refresh: Optional[Callable] = None
         self.queue: Deque[Request] = deque()
         self.done: Dict[int, Request] = {}
         self._next_id = 0
@@ -198,6 +202,10 @@ class ServingEngine:
         passes ``validate_block_tokens``; ``on_block_committed(requests,
         block_index, lo, hi, x)`` observes it.  Returns finished rids."""
         dec = Decoder(self.params, self.cfg, batch.dcfg, device=self.device)
+        if self.on_cache_refresh is not None:
+            dec.on_cache_refresh = (
+                lambda blk, t0, t1, _reqs=batch.requests:
+                self.on_cache_refresh(_reqs, blk, t0, t1))
         blocks = dec.generate_blocks(batch.rng, batch.prompts)
         while True:
             try:

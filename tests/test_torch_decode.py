@@ -161,19 +161,34 @@ def test_random_strategy_commits_n_argmax_tokens_in_block(weights):
 
 
 @pytest.mark.parametrize("over,exc", [
-    (dict(cache_policy="prefix"), NotImplementedError),
-    (dict(cache_policy="dual"), NotImplementedError),
+    (dict(cache_policy="prefix"), ValueError),
+    (dict(cache_policy="dual"), ValueError),
     (dict(trace=True), NotImplementedError),
 ])
 def test_unported_decode_options_raise(over, exc):
-    with pytest.raises(exc, match="not ported yet"):
-        Decoder(lambda t: t, CFG, DecodeConfig(**BASE, **over), device="cpu")
+    """``trace`` is not ported yet; a cache policy is, but a ``Decoder``
+    built from a bare callable cannot drive it: the reference's
+    ``ValueError`` at ``generate``, as ``repro``'s ``_check_cached``."""
+    if exc is NotImplementedError:
+        with pytest.raises(exc, match="not ported yet"):
+            Decoder(lambda t: t, CFG, DecodeConfig(**BASE, **over),
+                    device="cpu")
+        return
+    kw = dict(BASE, **over)
+    jdec = JaxDecoder(lambda t: t, JCFG, JaxDecodeConfig(**kw))
+    with pytest.raises(exc) as want:
+        jdec.generate(jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32))
+    dec = Decoder(lambda t: t, CFG, DecodeConfig(**kw), device="cpu")
+    with pytest.raises(exc) as got:
+        dec.generate(None, np.zeros((1, 4), np.int32))
+    assert str(got.value) == str(want.value)
+    assert "requires a Decoder built from params" in str(got.value)
 
 
 @pytest.mark.parametrize("policy", ["prefix", "dual"])
 def test_cache_policy_on_hybrid_raises_value_error(policy):
     """A recurrent-state model can never serve a block cache: ValueError
-    with the reference's reason, before the not-ported check."""
+    with the reference's reason, at construction."""
     from repro.core.decoder import validate_cache_policy as jax_validate
     kw = dict(BASE, cache_policy=policy)
     with pytest.raises(ValueError) as want:

@@ -156,6 +156,39 @@ def test_flash_bf16_tensor_core_edges(cuda, b, lq, lk, h, g, d, w):
                                rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("b,lq,lk,h,g,d,w,q_offset", [
+    (2, 64, 2048, 25, 5, 64, 1024, 1024),   # whole key tiles skipped
+    (2, 32, 128, 32, 32, 128, 32, 64),      # a dual window under a band
+    (1, 70, 300, 4, 2, 64, 17, 100),        # ragged rows, band mid-tile
+    (1, 64, 200, 4, 4, 32, 40, 136),        # window at the canvas's end
+    (2, 64, 128, 8, 8, 128, 0, 64),         # no band: the offset is inert
+    (4, 64, 128, 32, 32, 128, 0, 64),       # the prefix K-candidate batch
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_q_offset_matches_plain(cuda, b, lq, lk, h, g, d, w,
+                                             q_offset, dtype):
+    """The band of a cached window: query row i at position q_offset + i,
+    in both kernels."""
+    gen = torch.Generator(device=cuda).manual_seed(lq + lk + q_offset)
+    q = torch.randn(b, lq, h, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, lk, g, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, lk, g, d, generator=gen, device=cuda).to(dtype)
+    before = fa_mod.launches
+    got = fa_mod.flash_attention(q, k, v, w, q_offset)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == before + 1
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(
+        got.float(), fa_mod.attention_ref(q, k, v, w, q_offset).float(),
+        rtol=tol, atol=tol)
+
+
+def test_flash_refuses_negative_q_offset(cuda):
+    q, k, v = _bf16_qkv(cuda, 1, 64, 64, 2, 2, 64, seed=6)
+    with pytest.raises(ValueError, match="q_offset"):
+        fa_mod.flash_attention(q, k, v, 8, -1)
+
+
 def test_flash_bf16_refuses_misaligned_storage(cuda):
     """The tensor-core kernel copies 16-byte chunks: a contiguous bf16
     view that starts off a 16-byte boundary is refused, not misread."""
@@ -247,4 +280,38 @@ def test_reduced_forward_on_card_matches_cpu(cuda, name):
     assert fa_mod.launches == before[0] + cfg.num_layers
     assert scan_mod.launches == before[1] + (
         cfg.num_layers if cfg.arch_type == "hybrid" else 0)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("win_start,width", [(16, 32), (16, 8), (40, 8)])
+def test_reduced_forward_cached_on_card_matches_cpu(cuda, win_start, width):
+    """The block cache through the kernels (f32): capture on a stale
+    canvas, then a live window's logits, against the plain versions on
+    the CPU from the same weights: equal argmaxes, logits within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import capture_cache, forward_cached, init_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llada-8b").reduced()
+    params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    canvas = torch.randint(0, cfg.vocab_size, (2, 48),
+                           generator=torch.Generator().manual_seed(2))
+    stale = canvas.clone()
+    stale[:, 16:] = cfg.mask_token_id
+    window = canvas[:, win_start:win_start + width]
+    want = forward_cached(params, window, win_start,
+                          capture_cache(params, stale, cfg), cfg)
+
+    def to_cuda(tree):
+        if isinstance(tree, dict):
+            return {k: to_cuda(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_cuda(v) for v in tree]
+        return tree.to(cuda)
+    gp = to_cuda(params)
+    before = fa_mod.launches
+    state = capture_cache(gp, stale.to(cuda), cfg)
+    got = forward_cached(gp, window.to(cuda), win_start, state, cfg)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == before + 2 * cfg.num_layers
+    assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -95,8 +95,6 @@ def test_submit_validates_at_the_boundary(weights):
     with pytest.raises(ValueError, match="positive"):
         engine.submit(prompt, gen_length=-8)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        engine.submit(prompt, cache_policy="prefix")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
         engine.submit(prompt, trace=True)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         engine.submit(prompt, strategy="wino_r")
@@ -105,6 +103,9 @@ def test_submit_validates_at_the_boundary(weights):
     with pytest.raises(ValueError, match="1-d"):
         engine.submit(np.zeros((2, 3), np.int32))
     assert engine.queue_depth == 0
+    engine.submit(prompt, cache_policy="prefix")       # ported: it queues
+    assert engine.queue_depth == 1
+    assert engine.queue[0].dcfg.cache_policy == "prefix"
 
 
 def test_output_validator():
