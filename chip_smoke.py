@@ -23,28 +23,46 @@ Phases, in order; any failure raises and the script exits non-zero:
              and d=128, nor in the selective scan's two passes at N=16;
 4. reference — decodes reduced LLaDA and Hymba configs on the card
              (kernels) and on the CPU (plain versions) from the same
-             weights and requires identical tokens, steps and
-             forward-equivalents; LLaDA also under the cache policies
-             ``prefix``, ``dual`` and ``prefix`` without refreshes;
+             weights, on the card by the eager, the per-block graph and
+             the whole-request graph driver, and requires identical
+             tokens, steps, forward-equivalents and phase counts; LLaDA
+             under every cache policy (``none``, ``prefix``, ``dual``,
+             ``prefix`` without refreshes), Hymba under ``none``;
 5. serving — full-width, full-depth LLaDA-8B, then Hymba-1.5B (random
-             bf16 weights from a seed; LLaDA's are freed first) behind
-             ``ServingEngine``: mixed prompt lengths, strategies fdm, fdm_a
-             and probability; checks results and stats, and that every
-             kernel of the model's path was launched in its run (for
+             bf16 weights from a seed; LLaDA's weights and graphs are
+             freed first) behind ``ServingEngine`` on the graph drivers
+             (the default): mixed prompt lengths, strategies fdm, fdm_a
+             and probability; one warm pass captures each batch key's
+             graphs (its cost printed apart), then the measured pass;
+             checks results and stats, and that every kernel of the
+             model's path ran in the measured pass, by executed launches
+             (each graph's recorded launches times its replays; for
              Hymba, one selective scan per flash-attention call).  LLaDA
              serves the same requests on the same weights under the cache
              policies ``none``, ``prefix`` and ``dual``, one path each,
              with each batch's forward-equivalents held to its strategy's
-             count (fdm, probability) or range (fdm_a);
+             count (fdm, probability) or range (fdm_a); then serves
+             3·max_runners requests of distinct prompt lengths under
+             ``dual`` (a batch key each) and requires the runner cache to
+             stay at max_runners runs and the card's allocated and
+             reserved memory to stop growing once it is full;
 6. KV A/B  — (between LLaDA's serving and Hymba's) one B=2 request at the
              reference's ``BENCH_kv_cache.json`` geometry (prompt 128,
              gen 128, block 32, probability) on full-width LLaDA-8B under
-             each policy: seconds, and forward-equivalents of exactly 128,
-             68 and 20; one full, one ``prefix`` and one ``dual`` window
-             forward on the card's clock against host enqueue time
-             (interleaved), each with a capture by its kernels on the card
-             (``torch.profiler``), and the forwards by where the host's
-             time goes (cProfile).
+             each policy, by the eager and the graph driver interleaved:
+             seconds, tokens/s, steps/s, capture seconds, graph count and
+             pool bytes, and forward-equivalents of exactly 128, 68 and
+             20; one graph-driven request under sync debug mode "error"
+             and one under ``torch.profiler`` (busy share, device
+             activities per step, idle gaps between them, executed
+             launches against the trace's);
+             then one full, one ``prefix`` and one ``dual`` window forward
+             on the card's clock against host enqueue time (interleaved),
+             each with a capture by its kernels on the card, and the
+             forwards by where the host's time goes (cProfile); then the
+             strategy A/B: eb and an always-accelerating FDM-A at the same
+             geometry under ``none``, eager against graph, with the
+             graph's executed step replays beside the logical steps.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -74,9 +92,17 @@ REQUESTS = [(64, "fdm"), (60, "fdm"), (48, "fdm_a"), (48, "fdm_a"),
             (64, "probability"), (41, "probability")]
 FORWARD_REPS = 5
 POLICIES = ("none", "prefix", "dual")
+PROFILE_MARGIN_S = 0.5           # idle time on each side of a profiled request
 # the KV A/B phase: the reference's BENCH_kv_cache.json geometry and counts
 KV_PROMPT, KV_GEN, KV_BLOCK = 128, 128, 32
 KV_FWD = {"none": 128.0, "prefix": 68.0, "dual": 20.0}
+# the strategy A/B at the KV A/B geometry under ``none``: eb (on random
+# weights one token per step, its schedule) and FDM-A with η₁ = η₂ = 0
+# (acceleration in every step: n_max tokens per step, so a block ends far
+# inside its step budget, and the K-candidate search that the eager driver
+# skips on the host runs masked in every replay of the graph driver)
+STRATEGY_AB = {"eb": dict(strategy="eb"),
+               "fdm_a-accel": dict(strategy="fdm_a", eta1=0.0, eta2=0.0)}
 # confidence shapes of the kernel phase, (rows, V, dtype): LLaDA-8B's
 # K-candidate and scoring batches in f32 and bf16, and Hymba-1.5B's
 # K-candidate and scoring batches (V = 32001: rows off 16-byte boundaries),
@@ -391,21 +417,31 @@ def _to_cuda(tree):
     return tree.cuda()
 
 
-# the reference phase's decodes: every config uncached, and LLaDA under
-# each cache policy
+# the reference phase's decodes: every strategy case under every policy
+# (LLaDA; Hymba under ``none`` only), each by the three drivers; the FDM-A
+# phases case lowers the thresholds so that all four phases occur and the
+# K-candidate search is skipped in some steps (random weights otherwise
+# keep FDM-A in exploration)
+FDM_A_PHASES = dict(strategy="fdm_a", eta1=0.025, eta2=0.02, gamma1=0.0,
+                    n_max=4)
 REFERENCE_CASES = [dict(strategy="fdm", gamma=0.0), dict(strategy="fdm_a"),
-                   dict(strategy="probability"), dict(strategy="eb")]
-CACHED_REFERENCE_CASES = [
-    dict(strategy=s, cache_policy=p, cache_refresh=r, **g)
-    for p, r in (("prefix", "block"), ("dual", "block"), ("prefix", "off"))
-    for s, g in (("fdm", dict(gamma=0.0)), ("fdm_a", {}),
-                 ("probability", {}))]
+                   FDM_A_PHASES, dict(strategy="probability"),
+                   dict(strategy="eb")]
+REFERENCE_POLICIES = {"none": {}, "prefix": dict(cache_policy="prefix"),
+                      "dual": dict(cache_policy="dual"),
+                      "prefix-off": dict(cache_policy="prefix",
+                                         cache_refresh="off")}
+DRIVERS = {"eager": dict(fused_loop=False), "block": dict(fused_blocks=False),
+           "request": {}}
 
 
-def reference_phase(torch, name: str, cases):
+def reference_phase(torch, name: str, policies):
     """The port on the card (kernels, f32) against the port on the CPU
-    (plain versions) on a reduced config: same weights, same prompts,
-    identical decodes required, forward-equivalents exactly equal."""
+    (plain versions) on a reduced config: same weights, same prompts.  On
+    the card each case runs under the eager, the per-block graph and the
+    whole-request graph driver; all four decodes must give identical
+    tokens, steps, forward-equivalents and phase counts."""
+    import dataclasses
     from repro_torch.configs import DecodeConfig, get_config
     from repro_torch.core import Decoder
     from repro_torch.models import init_model
@@ -415,21 +451,64 @@ def reference_phase(torch, name: str, cases):
     gpu_params = _to_cuda(cpu_params)
     gen = torch.Generator().manual_seed(SEED)
     prompt = torch.randint(0, cfg.vocab_size - 1, (2, 16), generator=gen)
-    for kw in cases:
-        dcfg = DecodeConfig(gen_length=32, block_size=16, steps=32, **kw)
-        x_cpu, s_cpu = Decoder(cpu_params, cfg, dcfg,
-                               device="cpu").generate(None, prompt)
-        x_gpu, s_gpu = Decoder(gpu_params, cfg, dcfg,
-                               device="cuda").generate(None, prompt)
-        same = torch.equal(x_cpu, x_gpu.cpu())
-        log(f"reference {name} {kw}: tokens equal={same} steps "
-            f"{s_cpu.steps}/"
-            f"{s_gpu.steps} forward_equivalents {s_cpu.forward_equivalents}"
-            f"/{s_gpu.forward_equivalents}")
-        if not same or s_cpu.steps != s_gpu.steps or \
-                s_cpu.forward_equivalents != s_gpu.forward_equivalents:
-            raise AssertionError(f"card decode of {name} differs from "
-                                 f"the CPU reference for {kw}")
+    for policy in policies:
+        for kw in REFERENCE_CASES:
+            dcfg = DecodeConfig(gen_length=32, block_size=16, steps=32,
+                                **REFERENCE_POLICIES[policy], **kw)
+            x_cpu, s_cpu = Decoder(cpu_params, cfg, dcfg,
+                                   device="cpu").generate(None, prompt)
+            want = (x_cpu, s_cpu.steps, s_cpu.forward_equivalents,
+                    s_cpu.phase_counts)
+            for driver, over in DRIVERS.items():
+                x, st = Decoder(gpu_params, cfg, dataclasses.replace(
+                    dcfg, **over), device="cuda").generate(None, prompt)
+                got = (x.cpu(), st.steps, st.forward_equivalents,
+                       st.phase_counts)
+                same = torch.equal(got[0], want[0]) and got[1:] == want[1:]
+                log(f"reference {name} {policy} {kw} {driver}: tokens and "
+                    f"stats equal={same} steps {s_cpu.steps}/{st.steps} "
+                    f"forward_equivalents {s_cpu.forward_equivalents}/"
+                    f"{st.forward_equivalents} phases {st.phase_counts}")
+                if not same:
+                    raise AssertionError(f"card decode of {name} ({driver}"
+                                         f" driver) differs from the CPU "
+                                         f"reference for {policy} {kw}")
+            if kw is FDM_A_PHASES and not all(s_cpu.phase_counts.values()):
+                raise AssertionError(f"{name} {policy}: the FDM-A phases "
+                                     f"case missed a phase: "
+                                     f"{s_cpu.phase_counts}")
+
+
+def graph_stats(torch, runs) -> dict:
+    """The graphs of ``runs`` (``GraphRun``s): count, captures, capture
+    seconds and their memory pools' reserved bytes (from the allocator's
+    snapshot)."""
+    pools = {tuple(r.graphs.pool) for r in runs}
+    segments = torch.cuda.memory._snapshot()["segments"]
+    pool_bytes = sum(seg["total_size"] for seg in segments
+                     if tuple(seg.get("segment_pool_id") or ()) in pools)
+    return {"graphs": sum(len(r.graphs) for r in runs),
+            "captures": sum(r.graphs.captures for r in runs),
+            "capture_s": sum(r.graphs.capture_seconds for r in runs),
+            "pool_bytes": pool_bytes}
+
+
+def executed_launches(runs, mods: dict) -> dict:
+    """Kernel launches executed since the counts were reset: every
+    graph's recorded launches times its replays, plus the wrappers' own
+    counts (launches made outside any graph)."""
+    from collections import Counter
+    total = Counter({k: mod.launches for k, mod in mods.items()})
+    for run in runs:
+        total.update(run.graphs.executed_launches())
+    return {k: total[k] for k in mods}
+
+
+def reset_launches(runs, mods: dict) -> None:
+    for mod in mods.values():
+        mod.launches = 0
+    for run in runs:
+        run.graphs.reset_counts()
 
 
 def count_params(tree) -> int:
@@ -462,37 +541,49 @@ def make_model(torch, name: str):
     return cfg, params
 
 
-def serving_phase(torch, cfg, params, mods: dict, policy: str = "none"):
-    """Serve ``REQUESTS`` on ``params`` under ``policy``: one main path.
-    ``mods`` maps each kernel of the path to its module, whose launch
-    count is set to 0 just before the run and read just after.  Returns
-    those counts."""
+def serving_phase(torch, cfg, params, mods: dict, scope,
+                  policy: str = "none"):
+    """Serve ``REQUESTS`` on ``params`` under ``policy`` through the graph
+    drivers (the default): one warm pass that builds and captures every
+    batch key's graphs, then the main path's run.  ``mods`` maps each
+    kernel of the path to its module; launch counts (the wrappers' and the
+    graphs' executed launches in ``scope``'s runs) are set to 0 just
+    before the run and read just after.  Returns those counts."""
     import numpy as np
     from repro_torch.configs import DecodeConfig
     from repro_torch.serving import ServingEngine
     name = f"{cfg.name}" + ("" if policy == "none" else f"-{policy}")
     dcfg = DecodeConfig(gen_length=GEN, block_size=BLOCK, steps=GEN,
                         strategy="fdm", k=K, k1=K, cache_policy=policy)
-    batches = []
-    engine = ServingEngine(params, cfg, dcfg, max_batch=MAX_BATCH,
-                           seed=SEED, on_block_committed=lambda reqs, blk, *_:
-                           batches.append([r.rid for r in reqs])
-                           if blk == 0 else None)
-    rs = np.random.default_rng(SEED)
-    rids = {}
-    for lp, strat in REQUESTS:
-        prompt = rs.integers(0, cfg.vocab_size - 1, lp).astype(np.int64)
-        rids[engine.submit(prompt, strategy=strat)] = (lp, strat)
 
-    for mod in mods.values():
-        mod.launches = 0
-    t0 = time.perf_counter()
-    engine.run_until_idle()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: mod.launches for k, mod in mods.items()}
+    def serve():
+        batches = []
+        engine = ServingEngine(params, cfg, dcfg, max_batch=MAX_BATCH,
+                               seed=SEED, on_block_committed=lambda reqs,
+                               blk, *_: batches.append([r.rid for r in reqs])
+                               if blk == 0 else None)
+        rs = np.random.default_rng(SEED)
+        rids = {}
+        for lp, strat in REQUESTS:
+            prompt = rs.integers(0, cfg.vocab_size - 1, lp).astype(np.int64)
+            rids[engine.submit(prompt, strategy=strat)] = (lp, strat)
+        t0 = time.perf_counter()
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        return engine, rids, batches, time.perf_counter() - t0
+
+    before = graph_stats(torch, scope.values())
+    _, _, _, warm = serve()
+    after = graph_stats(torch, scope.values())
+    log(f"serving {name} warm pass (builds and captures each batch key's "
+        f"graphs): {warm:.2f} s; {after['captures'] - before['captures']} "
+        f"captures in {after['capture_s'] - before['capture_s']:.3f} s; "
+        f"graphs {after['graphs']}, pool bytes {after['pool_bytes']}")
+    reset_launches(scope.values(), mods)
+    engine, rids, batches, wall = serve()
+    launches = executed_launches(scope.values(), mods)
     log(f"serving {name}: {len(rids)} requests in {len(batches)} batches, "
-        f"{wall:.2f} s; kernel launches {launches}")
+        f"{wall:.2f} s; executed kernel launches {launches}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel was not launched on the {name} "
                              f"serving path: {launches}")
@@ -666,40 +757,162 @@ def forward_phase(torch, cfg, params) -> None:
                  lambda: forward(params, tokens, cfg))
 
 
-def kv_ab_phase(torch, cfg, params) -> None:
+def graph_profile(torch, label: str, fn, run, mods) -> None:
+    """One call of ``fn`` (a graph-driven request) under ``torch.profiler``
+    (device activity only): wall, kernel time, kernel count per step, the
+    share of the wall the card was busy, and the hand-written kernels'
+    launches in the trace against the ones ``run``'s graphs count."""
+    from collections import Counter
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = {"confidence": "confidence_kernel", "selective_scan": "true>",
+             "flash_attention": "flash_"}
+    reset_launches([run], mods)
+    # the trace can lose device activities at the edges of the profiler's
+    # window (one H100 run's trace of a 128-step request lacked the last
+    # 2.6 steps' kernels, which had run): the window opens and closes
+    # PROFILE_MARGIN_S away from the work, and the log gives how far the
+    # first and last activities lie from the host's clock readings
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        host0 = time.time_ns()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+        host1 = time.time_ns()
+        time.sleep(PROFILE_MARGIN_S)
+    t1 = time.perf_counter()
+    spans, seen = [], Counter()
+    first, last = float("inf"), float("-inf")
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        spans.append((e.start_ns() / 1e3, e.duration_ns() / 1e3))
+        first = min(first, e.start_ns())
+        last = max(last, e.start_ns() + e.duration_ns())
+        for k, pat in names.items():
+            if pat in e.name() and (k != "selective_scan"
+                                    or "sscan_chunk_kernel" in e.name()):
+                seen[k] += 1
+    busy, end, gaps = 0.0, float("-inf"), []
+    for start, dur in sorted(spans):
+        if start > end > float("-inf"):
+            gaps.append(start - end)
+        if start + dur > end:
+            busy += start + dur - max(start, end)
+            end = start + dur
+    long_gaps = [g for g in gaps if g > 1000]
+    counted = executed_launches([run], mods)
+    steps = run.graphs.replays() - run.graphs.replays(("refresh",))
+    log(f"device profile {label}: wall {wall_us / 1e3:.3f} ms (profiled); "
+        f"kernels {sum(d for _, d in spans) / 1e3:.3f} ms, {len(spans)} "
+        f"device activities in {steps} step replays "
+        f"({len(spans) / max(steps, 1):.1f} per step, refreshes "
+        f"included), busy share of the wall {busy / wall_us:.3f}; idle "
+        f"between activities {sum(gaps) / 1e3:.1f} ms in {len(gaps)} gaps, "
+        f"{len(long_gaps)} of them over 1 ms ({sum(long_gaps) / 1e3:.1f} "
+        f"ms, largest {max(gaps, default=0) / 1e3:.2f} ms); "
+        f"hand-written kernels in the trace {dict(seen)}, counted by the "
+        f"graphs {counted}; trace read in {time.perf_counter() - t1:.1f} s")
+    edges = (f"first activity {(first - host0) / 1e6:+.3f} ms from the "
+             f"host's start, last one ends {(last - host1) / 1e6:+.3f} ms "
+             f"from the host's end (of a {PROFILE_MARGIN_S} s margin)")
+    log(f"device profile {label}: {edges}")
+    if spans and any(seen[k] != counted[k] for k in counted):
+        raise AssertionError(f"{label}: executed launches counted by the "
+                             f"graphs {counted} differ from the trace's "
+                             f"{dict(seen)}; {edges}")
+
+
+def kv_ab_phase(torch, cfg, params, mods: dict) -> None:
     """One B=2 request at the reference's ``BENCH_kv_cache.json`` geometry
-    under each cache policy, through ``Decoder.generate``: seconds and
-    forward-equivalents (exactly 128, 68 and 20 required).  Then on the
-    last canvas: one full forward, one window forward per cached policy
-    and one cache capture, on the card's clock against host enqueue time,
-    by their kernels on the card (``torch.profiler``), and where the
-    host's time goes in each forward (cProfile)."""
+    under each cache policy, by the eager and the graph driver
+    interleaved (eager, graph, graph, eager, after one cold graph decode
+    that captures): seconds, tokens/s and steps/s of each, capture
+    seconds, graph count and pool bytes, forward-equivalents of exactly
+    128, 68 and 20 under both drivers; one graph-driven request under
+    ``torch.cuda.set_sync_debug_mode("error")`` and one under
+    ``torch.profiler``.  Then on the last canvas: one full forward, one
+    window forward per cached policy and one cache capture, on the card's
+    clock against host enqueue time, by their kernels on the card, and
+    where the host's time goes in each forward (cProfile)."""
+    import dataclasses
     from repro_torch.configs import DecodeConfig
-    from repro_torch.core import Decoder
+    from repro_torch.core import Decoder, decode_cache_scope
     from repro_torch.models import capture_cache, forward, forward_cached
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     prompt = torch.randint(0, cfg.vocab_size - 1, (2, KV_PROMPT),
                            generator=gen, device="cuda")
     total = KV_PROMPT + KV_GEN
+    tps = {}
     for policy in POLICIES:
         dcfg = DecodeConfig(gen_length=KV_GEN, block_size=KV_BLOCK,
                             steps=KV_GEN, strategy="probability",
                             cache_policy=policy)
-        t0 = time.perf_counter()
-        out, st = Decoder(params, cfg, dcfg).generate(None, prompt)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        log(f"kv a/b {cfg.name} {policy}: prompt {KV_PROMPT} gen {KV_GEN} "
-            f"block {KV_BLOCK} B=2 probability: {secs:.3f} s, steps "
-            f"{st.steps}, forward_equivalents {st.forward_equivalents}, "
-            f"tokens/s {st.tps:.2f}")
-        if st.forward_equivalents != KV_FWD[policy] or st.steps != KV_GEN:
-            raise AssertionError(f"kv a/b {policy}: {st.steps} steps, "
-                                 f"{st.forward_equivalents} forward-"
-                                 f"equivalents, want {KV_GEN} and "
-                                 f"{KV_FWD[policy]}")
-        if (out[:, KV_PROMPT:] == cfg.mask_token_id).any():
-            raise AssertionError(f"kv a/b {policy}: masked token left")
+        with decode_cache_scope() as scope:
+            decs = {"eager": Decoder(params, cfg, dataclasses.replace(
+                dcfg, fused_loop=False)), "graph": Decoder(params, cfg,
+                                                           dcfg)}
+            t0 = time.perf_counter()
+            decs["graph"].generate(None, prompt)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            (run,) = scope.values()
+            gs = graph_stats(torch, [run])
+            secs = {"eager": [], "graph": []}
+            outs = {}
+            for driver in ("eager", "graph", "graph", "eager"):
+                t0 = time.perf_counter()
+                out, st = decs[driver].generate(None, prompt)
+                torch.cuda.synchronize()
+                secs[driver].append(time.perf_counter() - t0)
+                outs[driver] = out
+                if st.forward_equivalents != KV_FWD[policy] or \
+                        st.steps != KV_GEN:
+                    raise AssertionError(
+                        f"kv a/b {policy} {driver}: {st.steps} steps, "
+                        f"{st.forward_equivalents} forward-equivalents, "
+                        f"want {KV_GEN} and {KV_FWD[policy]}")
+                if (out[:, KV_PROMPT:] == cfg.mask_token_id).any():
+                    raise AssertionError(f"kv a/b {policy} {driver}: "
+                                         f"masked token left")
+            for driver, ss in secs.items():
+                med = statistics.median(ss)
+                tps[policy, driver] = 2 * KV_GEN / med
+                log(f"kv a/b {cfg.name} {policy} {driver}: prompt "
+                    f"{KV_PROMPT} gen {KV_GEN} block {KV_BLOCK} B=2 "
+                    f"probability: {med:.3f} s (runs "
+                    f"{', '.join(f'{x:.3f}' for x in ss)}), tokens/s "
+                    f"{2 * KV_GEN / med:.2f}, steps/s {KV_GEN / med:.2f}, "
+                    f"forward_equivalents {KV_FWD[policy]}")
+            log(f"kv a/b {cfg.name} {policy} graph driver: cold decode "
+                f"{cold:.3f} s of which {gs['capture_s']:.3f} s in "
+                f"{gs['captures']} captures; graphs {gs['graphs']}, pool "
+                f"bytes {gs['pool_bytes']}; graph tokens equal eager's: "
+                f"{torch.equal(outs['graph'], outs['eager'])}")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                _, st = decs["graph"].generate(None, prompt)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            log(f"kv a/b {policy}: a whole-request graph decode made no "
+                f"implicit sync (sync debug mode 'error'; its waits are "
+                f"event waits on the block's masked count, polled two steps "
+                f"behind the card, and the final readback)")
+            graph_profile(torch, f"{cfg.name} graph-driven request "
+                          f"{policy} B=2 gen {KV_GEN}",
+                          lambda: decs["graph"].generate(None, prompt),
+                          run, mods)
+    for driver in ("eager", "graph"):
+        log(f"kv a/b {driver} driver tokens/s against none: prefix "
+            f"{tps['prefix', driver] / tps['none', driver]:.3f}x, dual "
+            f"{tps['dual', driver] / tps['none', driver]:.3f}x")
+    for policy in POLICIES:
+        log(f"kv a/b {policy}: graph driver at "
+            f"{tps[policy, 'graph'] / tps[policy, 'eager']:.3f}x the "
+            f"eager driver's tokens/s")
     canvas = out
     state = capture_cache(params, canvas, cfg)
     lo = KV_PROMPT + KV_BLOCK
@@ -719,6 +932,113 @@ def kv_ab_phase(torch, cfg, params) -> None:
         device_profile(torch, label, fn)
     for label, fn in list(calls.items())[:3]:
         host_profile(torch, label, fn)
+
+
+def memory_phase(torch, cfg, params) -> None:
+    """Serving traffic of many prompt lengths on one set of weights:
+    3·max_runners requests under ``dual``, each of a length of its own (so
+    a batch key, a run and graphs of its own), one batch at a time through
+    ``ServingEngine``.  The runner cache must hold at most max_runners
+    runs, and the card's memory must stop growing once the cache is full:
+    the allocated and the reserved bytes' growth over the last third stay
+    within 10% + 256 MiB of their peak over the first two thirds."""
+    import numpy as np
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import decode_cache_scope
+    from repro_torch.serving import ServingEngine
+    dcfg = DecodeConfig(gen_length=GEN, block_size=BLOCK, steps=8,
+                        strategy="probability", cache_policy="dual")
+    with decode_cache_scope() as scope:
+        cap = scope.max_runners
+        engine = ServingEngine(params, cfg, dcfg, max_batch=MAX_BATCH,
+                               seed=SEED)
+        rs = np.random.default_rng(SEED + 2)
+        lens = rs.choice(np.arange(16, 129), size=3 * cap, replace=False)
+        torch.cuda.synchronize()
+        base = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+        growth = []
+        t0 = time.perf_counter()
+        for lp in lens:
+            engine.submit(rs.integers(0, cfg.vocab_size - 1, int(lp)))
+            engine.step()
+            torch.cuda.synchronize()
+            growth.append((torch.cuda.memory_allocated() - base[0],
+                           torch.cuda.memory_reserved() - base[1]))
+        info = scope.info()
+        pool_bytes = graph_stats(torch, scope.values())["pool_bytes"]
+    log(f"memory llada-8b dual: {len(lens)} prompt lengths in "
+        f"{time.perf_counter() - t0:.1f} s; runner cache {info}; graph pool "
+        f"bytes {pool_bytes}; growth (allocated, reserved) MiB after each "
+        f"batch: {[(a >> 20, r >> 20) for a, r in growth]}")
+    if info.runners > cap or info.misses != len(lens):
+        raise AssertionError(f"memory phase: runner cache {info}, want at "
+                             f"most {cap} runners and {len(lens)} misses")
+    for i, what in enumerate(("allocated", "reserved")):
+        fill = max(g[i] for g in growth[:2 * cap])
+        late = max(g[i] for g in growth[2 * cap:])
+        if late > 1.1 * max(fill, 0) + 256 * 2**20:
+            raise AssertionError(f"memory phase: {what} bytes still grow "
+                                 f"with new prompt lengths: peak {late} "
+                                 f"after the cache filled, {fill} before")
+
+
+def strategy_ab_phase(torch, cfg, params) -> None:
+    """``STRATEGY_AB`` at the KV A/B geometry under ``none``: one B=2
+    request by the eager and the graph driver interleaved (eager, graph,
+    graph, eager, after one cold graph decode): seconds and tokens/s of
+    each, steps, forward-equivalents and phase counts (equal under both
+    drivers, as are the tokens), and the graph driver's executed step
+    replays per request (a replay past a block's end changes nothing and
+    costs a full step, the masked search included)."""
+    import dataclasses
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder, decode_cache_scope
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size - 1, (2, KV_PROMPT),
+                           generator=gen, device="cuda")
+    for label, kw in STRATEGY_AB.items():
+        dcfg = DecodeConfig(gen_length=KV_GEN, block_size=KV_BLOCK,
+                            steps=KV_GEN, **kw)
+        with decode_cache_scope() as scope:
+            decs = {"eager": Decoder(params, cfg, dataclasses.replace(
+                dcfg, fused_loop=False)), "graph": Decoder(params, cfg,
+                                                           dcfg)}
+            decs["graph"].generate(None, prompt)
+            (run,) = scope.values()
+            run.graphs.reset_counts()
+            secs = {"eager": [], "graph": []}
+            outs = {}
+            for driver in ("eager", "graph", "graph", "eager"):
+                t0 = time.perf_counter()
+                out, st = decs[driver].generate(None, prompt)
+                torch.cuda.synchronize()
+                secs[driver].append(time.perf_counter() - t0)
+                got = (st.steps, st.forward_equivalents, st.phase_counts)
+                if driver in outs and (not torch.equal(out, outs[driver][0])
+                                       or got != outs[driver][1]):
+                    raise AssertionError(f"strategy a/b {label}: two "
+                                         f"{driver} decodes differ")
+                outs[driver] = (out, got)
+            replays = run.graphs.replays() / 2
+        if not torch.equal(outs["graph"][0], outs["eager"][0]) or \
+                outs["graph"][1] != outs["eager"][1]:
+            raise AssertionError(f"strategy a/b {label}: graph decode "
+                                 f"{outs['graph'][1]} differs from eager "
+                                 f"{outs['eager'][1]}")
+        steps, fwd, phases = outs["eager"][1]
+        med = {d: statistics.median(ss) for d, ss in secs.items()}
+        for driver, ss in secs.items():
+            log(f"strategy a/b {cfg.name} {label} {driver}: prompt "
+                f"{KV_PROMPT} gen {KV_GEN} block {KV_BLOCK} B=2 none: "
+                f"{med[driver]:.3f} s (runs "
+                f"{', '.join(f'{x:.3f}' for x in ss)}), tokens/s "
+                f"{2 * KV_GEN / med[driver]:.2f}")
+        log(f"strategy a/b {cfg.name} {label}: steps {steps}, "
+            f"forward_equivalents {fwd}, phases {phases}; graph driver "
+            f"{replays:.0f} step replays per request ({replays - steps:.0f} "
+            f"past a block's end), graph at "
+            f"{med['eager'] / med['graph']:.3f}x the eager driver's "
+            f"tokens/s")
 
 
 def main() -> None:
@@ -819,32 +1139,38 @@ def main() -> None:
 
     # 4. end-to-end agreement with the CPU reference on small configs
     t0 = time.perf_counter()
-    reference_phase(torch, "llada-8b",
-                    REFERENCE_CASES + CACHED_REFERENCE_CASES)
-    reference_phase(torch, "hymba-1.5b", REFERENCE_CASES)
+    reference_phase(torch, "llada-8b", REFERENCE_POLICIES)
+    reference_phase(torch, "hymba-1.5b", ["none"])
     log(f"reference phase: {time.perf_counter() - t0:.1f} s")
 
-    # 5. the main paths, one model at a time (each frees its weights); 6.
-    # the KV A/B on LLaDA's weights
+    # 5. the main paths, one model at a time (each frees its weights and
+    # its graphs); 6. the KV A/B on LLaDA's weights
+    from repro_torch.core import clear_decode_cache, decode_cache_scope
     t0 = time.perf_counter()
     cfg, params = make_model(torch, "llada-8b")
+    mods = {"confidence": conf_mod, "flash_attention": fa_mod}
     llada = {}
-    for policy in POLICIES:
-        llada[policy] = serving_phase(
-            torch, cfg, params, {"confidence": conf_mod,
-                                 "flash_attention": fa_mod}, policy)
+    for policy in POLICIES:              # a runner cache for each path
+        with decode_cache_scope() as scope:
+            llada[policy] = serving_phase(torch, cfg, params, mods, scope,
+                                          policy)
+    del scope
+    memory_phase(torch, cfg, params)
     forward_phase(torch, cfg, params)
     log(f"serving phase llada-8b: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    kv_ab_phase(torch, cfg, params)
+    kv_ab_phase(torch, cfg, params, mods)
+    strategy_ab_phase(torch, cfg, params)
     log(f"kv a/b phase llada-8b: {time.perf_counter() - t0:.1f} s")
+    clear_decode_cache()
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cfg, params = make_model(torch, "hymba-1.5b")
-    hymba = serving_phase(torch, cfg, params, {
-        "confidence": conf_mod, "flash_attention": fa_mod,
-        "selective_scan": scan_mod})
+    with decode_cache_scope() as scope:
+        hymba = serving_phase(torch, cfg, params, {
+            "confidence": conf_mod, "flash_attention": fa_mod,
+            "selective_scan": scan_mod}, scope)
     forward_phase(torch, cfg, params)
     log(f"serving phase hymba-1.5b: {time.perf_counter() - t0:.1f} s")
 

@@ -6,12 +6,17 @@
                 Margin/Entropy + EB + WINO baselines
   fdm         — Algorithm 1 (FDM)
   fdm_a       — Algorithm 2 (FDM-A)
-  loop        — the eager block driver
-  decoder     — ``Decoder`` and ``SampleStats``
+  graphs      — ``run_masked`` and the CUDA-graph set of a decode runner
+  loop        — the eager and the graph block drivers
+  decoder     — ``Decoder``, ``SampleStats`` and the runner cache
 """
 from repro_torch.core.confidence import (Scores, global_confidence,
                                          local_confidence, score_logits)
-from repro_torch.core.decoder import (BlockEvent, Decoder, SampleStats,
+from repro_torch.core.decoder import (BlockEvent, CacheInfo, Decoder,
+                                      RunnerCache, SampleStats,
+                                      clear_decode_cache, decode_cache_info,
+                                      decode_cache_scope,
+                                      reset_decode_cache_stats,
                                       validate_cache_policy)
 from repro_torch.core.fdm import fdm_select, fdm_step
 from repro_torch.core.fdm_a import FDMAStrategy, fdm_a_plan
@@ -21,6 +26,8 @@ from repro_torch.core.strategies import (Strategy, commit_topn, rank_desc,
 __all__ = [
     "Scores", "score_logits", "local_confidence", "global_confidence",
     "Decoder", "SampleStats", "BlockEvent", "validate_cache_policy",
+    "RunnerCache", "CacheInfo", "decode_cache_info", "clear_decode_cache",
+    "reset_decode_cache_stats", "decode_cache_scope",
     "fdm_select", "fdm_step", "FDMAStrategy", "fdm_a_plan",
     "Strategy", "commit_topn", "rank_desc", "register_strategy",
     "resolve_strategy",

@@ -1,5 +1,5 @@
-"""The decoding API of the port: ``Decoder`` and ``SampleStats``
-(reference: ``src/repro/core/decoder.py``).
+"""The decoding API of the port: ``Decoder``, ``SampleStats`` and the
+runner cache (reference: ``src/repro/core/decoder.py``).
 
 ``Decoder(params_or_model_fn, cfg, dcfg, device="cuda")`` owns the
 semi-AR block loop: ``generate`` decodes ``gen_length`` tokens after a
@@ -16,15 +16,43 @@ captures and, under ``cache_refresh="block"``, every later block
 boundary refreshes.  The cached path needs a ``Decoder`` built from
 params; a hybrid or SSM config gets the reference's ``ValueError``.
 
+``fused_loop`` and ``fused_blocks`` pick the driver as the reference's
+do (``core/loop.py``), and all three decode identically:
+
+* ``fused_loop ∧ fused_blocks`` (default): ``generate`` runs the whole
+  request on the graph drivers with no per-block event (a canvas copy per
+  block only for an ``on_block_committed`` callback), and reads its
+  stats back once at the end;
+* ``fused_loop ∧ ¬fused_blocks``, and every ``generate_blocks`` call: the
+  same graph drivers, yielding a ``BlockEvent`` after each block;
+* ``¬fused_loop``: the eager ``run_block``/``run_cached_block``, one host
+  check per step, the parity oracle.
+
+The card's PyTorch has no conditional-node capture, so the whole-request
+and the per-block drivers are one block loop (``_graph_blocks_gen``):
+each block's steps run until the host, polling the block's masked count
+two steps behind the card, sees it done (``loop.graph_block``).  A step's
+work is paid on every replay, the branches its strategy skips on the host
+included (FDM-A's K-candidate search); ``forward_equivalents`` counts the
+forwards a step needs, as the eager driver does, not the ones the card
+ran.  The graph drivers' static buffers and captured CUDA graphs live in
+a ``GraphRun`` per strategy × configs × batch × prompt length, kept in
+the process-wide ``RunnerCache``: keyed weakly on the identity of every
+params tensor (or of the model_fn), so every ``Decoder`` on the same
+weights shares them (``ServingEngine`` builds one per batch) and they go
+when the weights go; at most ``max_runners`` runs per weights, least
+recently used dropped first.
+
 Not ported yet (each raises ``NotImplementedError``): ``trace=True`` and
 the strategies ``wino_r``/``extrapolate`` (ROADMAP.md queue 1 item 7).
-``fused_loop`` and ``fused_blocks`` select among the reference's three
-drivers, which decode identically; the port has one eager driver and
-ignores them.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import time
+import weakref
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -32,7 +60,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import DecodeConfig, ModelConfig
-from repro_torch.core.loop import run_block, run_cached_block
+from repro_torch.core.graphs import CapturePool
+from repro_torch.core.loop import (GraphRun, graph_block,
+                                   graph_cached_block, run_block,
+                                   run_cached_block, warm_run)
 from repro_torch.core.masking import fully_masked
 from repro_torch.core.strategies import Strategy, resolve_strategy
 from repro_torch.device import resolve_device
@@ -74,11 +105,181 @@ class SampleStats:
 
 
 class BlockEvent(NamedTuple):
-    """One committed semi-AR block; ``x`` is the live (B, L) canvas."""
+    """One committed semi-AR block; ``x`` is the (B, L) canvas as it stood
+    after the block, a tensor of its own that later blocks never write."""
     block: int
     lo: int
     hi: int
     x: Any
+
+
+class CacheInfo(NamedTuple):
+    entries: int     # distinct params/model_fn identities alive
+    runners: int     # GraphRuns across all entries
+    hits: int        # runner lookups served without building
+    misses: int      # runner builds
+    captures: int    # CUDA-graph captures (the reference counts traces)
+
+
+def _param_leaves(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [leaf for sub in items for leaf in _param_leaves(sub)]
+
+
+class RunnerCache:
+    """Weak, identity-keyed cache of the graph drivers' ``GraphRun``s (the
+    reference's ``RunnerCache``).
+
+    Key = the identity of every params tensor, or of the model_fn;
+    ``weakref.finalize`` anchors on every keying object evict the whole
+    entry as soon as any of them is collected (first finalizer wins): the
+    key is a tuple of ``id()``s, unique only while the objects live, so a
+    dead non-first tensor must evict too, or a recycled id could alias a
+    stale entry.  A ``GraphRun`` never holds the weights (a decode passes
+    them in), so eviction really fires; its graphs read the weights'
+    memory, which lives exactly as long as the entry.
+
+    Within an entry, each decode key (strategy, configs, batch, prompt
+    length, device) has a list of runs: a decode takes one no other decode
+    holds, or a new one (interleaved decodes of one key).  An entry keeps
+    at most ``max_runners`` runs, least recently used key first out: a run
+    holds its shape's static buffers (on the cached path the K/V cache and
+    its K-candidate tiles) and its graphs, and serving brings a new key
+    with every new longest prompt in a batch.  A run dropped while a
+    decode holds it stays that decode's until it ends.  All runs of the
+    cache capture into one ``CapturePool`` per device, so the graph memory
+    is the largest step's temporaries, not their sum.
+    """
+
+    def __init__(self, max_runners: int = 8):
+        if max_runners < 1:
+            raise ValueError(f"max_runners={max_runners} must be >= 1")
+        self.max_runners = max_runners
+        self._entries: Dict[tuple, "OrderedDict[tuple, list]"] = {}
+        self._finalizers: Dict[tuple, list] = {}
+        # weak: a pool goes when the last run capturing into it does
+        self._pools: Dict[str, weakref.ref] = {}
+        self.hits = 0
+        self.misses = 0
+        self.captures = 0
+
+    @staticmethod
+    def key_for(model) -> Tuple[tuple, tuple]:
+        """(cache key, weakref anchors) for a params tree or a callable."""
+        if callable(model):
+            return ("fn", id(model)), (model,)
+        leaves = _param_leaves(model)
+        if not leaves:
+            raise ValueError("params tree has no tensors")
+        return ("params", tuple(map(id, leaves))), tuple(leaves)
+
+    def get(self, key: tuple, anchors: tuple, subkey: tuple,
+            builder: Callable[[], GraphRun]) -> GraphRun:
+        """A run of ``subkey`` in the entry of ``key`` that no decode
+        holds; ``builder()`` makes one on a miss."""
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._entries[key] = OrderedDict()
+            self._finalizers[key] = [
+                weakref.finalize(a, self._evict, key) for a in anchors]
+        if subkey in entry:
+            entry.move_to_end(subkey)
+            for run in entry[subkey]:
+                if not run.held():
+                    self.hits += 1
+                    return run
+        self.misses += 1
+        # make room first: the new run's buffers may reuse what goes
+        while sum(map(len, entry.values())) >= self.max_runners:
+            oldest = next(iter(entry))
+            entry[oldest].pop(0)
+            if not entry[oldest]:
+                del entry[oldest]
+        run = builder()
+        entry.setdefault(subkey, []).append(run)
+        return run
+
+    def capture_pool(self, device: torch.device) -> Optional[CapturePool]:
+        """The ``CapturePool`` the cache's runs on ``device`` share (None
+        off CUDA)."""
+        if device.type != "cuda":
+            return None
+        ref = self._pools.get(str(device))
+        pool = ref() if ref is not None else None
+        if pool is None:
+            pool = CapturePool(device)
+            self._pools[str(device)] = weakref.ref(pool)
+        return pool
+
+    def _evict(self, key: tuple) -> None:
+        self._entries.pop(key, None)
+        # detach the survivors: a stale one firing later could evict a NEW
+        # entry that reused the (recycled-id) key tuple
+        for fin in self._finalizers.pop(key, ()):
+            fin.detach()
+
+    def note_capture(self) -> None:
+        self.captures += 1
+
+    def values(self) -> list:
+        """Every cached runner."""
+        return [run for entry in self._entries.values()
+                for runs in entry.values() for run in runs]
+
+    def info(self) -> CacheInfo:
+        return CacheInfo(entries=len(self._entries),
+                         runners=len(self.values()),
+                         hits=self.hits, misses=self.misses,
+                         captures=self.captures)
+
+    def reset_stats(self) -> None:
+        """Zero the counters without dropping any runner."""
+        self.hits = self.misses = self.captures = 0
+
+    def clear(self) -> None:
+        for fins in list(self._finalizers.values()):
+            for fin in fins:
+                fin.detach()
+        self._entries.clear()
+        self._finalizers.clear()
+        self._pools.clear()
+        self.reset_stats()
+
+
+_GLOBAL_CACHE = RunnerCache()
+
+
+def decode_cache_info() -> CacheInfo:
+    """Counters of the process-wide runner cache."""
+    return _GLOBAL_CACHE.info()
+
+
+def clear_decode_cache() -> None:
+    """Drop every cached runner (its buffers and graphs with it)."""
+    _GLOBAL_CACHE.clear()
+
+
+def reset_decode_cache_stats() -> None:
+    """Zero the process-wide cache's hit/miss/capture counters, keeping
+    its runners: capture-count checks call this (or use
+    ``decode_cache_scope``) first, so they count their own work."""
+    _GLOBAL_CACHE.reset_stats()
+
+
+@contextlib.contextmanager
+def decode_cache_scope(cache: Optional[RunnerCache] = None):
+    """Swap a fresh (or the given) ``RunnerCache`` in as the process-wide
+    cache for the ``with`` block; Decoders made inside it (the ones
+    ``ServingEngine`` builds too) resolve against it.  Yields it."""
+    global _GLOBAL_CACHE
+    prev = _GLOBAL_CACHE
+    _GLOBAL_CACHE = cache if cache is not None else RunnerCache()
+    try:
+        yield _GLOBAL_CACHE
+    finally:
+        _GLOBAL_CACHE = prev
 
 
 def validate_cache_policy(cfg: ModelConfig, dcfg: DecodeConfig) -> None:
@@ -132,21 +333,25 @@ class Decoder:
     only).  ``device`` is where the canvas lives (default ``"cuda"``;
     raises without a card unless the caller asks for ``"cpu"``).
     ``on_cache_refresh(block_index, t_start_s, t_end_s)``, when set, fires
-    around each cache capture of the cached path.
+    around each cache capture of the cached path (and pays a synchronise
+    for its times).  ``cache`` is the ``RunnerCache`` to resolve against
+    (the process-wide one by default).
     """
 
     def __init__(self, model, cfg: ModelConfig, dcfg: DecodeConfig,
-                 device="cuda"):
+                 device="cuda", *, cache: Optional[RunnerCache] = None):
         self.cfg = cfg
         self.dcfg = dcfg
         self.device = resolve_device(device)
         check_supported(cfg, dcfg)
         check_kernel_flag(dcfg, self.device)
+        self._cache = _GLOBAL_CACHE if cache is None else cache
         if callable(model):
             self._model_fn, self._params = model, None
         else:
             self._model_fn, self._params = \
                 (lambda t: forward(model, t, cfg)), model
+        self._key, self._anchor = RunnerCache.key_for(model)
         self.on_cache_refresh: Optional[Callable] = None
 
     # -- geometry ----------------------------------------------------------
@@ -185,8 +390,18 @@ class Decoder:
         ``rng``: a ``torch.Generator`` on the device, an int seed, or
         ``None`` (seed 0) — only the ``random`` strategy draws from it.
         ``on_block_committed(block_index, lo, hi, x)`` fires after each
-        committed block."""
-        blocks = self.generate_blocks(rng, prompt, strategy)
+        committed block (``x`` a device tensor of its own; on the graph
+        drivers the copy may still be queued on the card, so the callback
+        should not sync if it wants none)."""
+        strat = resolve_strategy(strategy or self.dcfg.strategy)
+        gen, prompt, geometry = self._inputs(rng, prompt)
+        if self.dcfg.fused_loop:
+            blocks = self._graph_blocks_gen(
+                strat, gen, prompt, geometry,
+                events=(on_block_committed is not None
+                        or not self.dcfg.fused_blocks))
+        else:
+            blocks = self._blocks_gen(strat, gen, prompt, geometry)
         while True:
             try:
                 ev = next(blocks)
@@ -197,17 +412,26 @@ class Decoder:
 
     def generate_blocks(self, rng, prompt, strategy=None):
         """A generator of ``BlockEvent(block, lo, hi, x)``, one per
-        committed block; its return value is ``(tokens, stats)``."""
+        committed block; its return value is ``(tokens, stats)``.  Runs
+        the per-block graph driver, or the eager one under
+        ``fused_loop=False``."""
         strat = resolve_strategy(strategy or self.dcfg.strategy)
-        geometry = self._geometry()       # geometry errors raise HERE
+        gen, prompt, geometry = self._inputs(rng, prompt)
+        if self.dcfg.fused_loop:
+            return self._graph_blocks_gen(strat, gen, prompt, geometry)
+        return self._blocks_gen(strat, gen, prompt, geometry)
+
+    def _inputs(self, rng, prompt):
+        """(generator, prompt tensor, geometry); geometry and cache-policy
+        errors raise here, before any decoding."""
+        geometry = self._geometry()
         if self.dcfg.cache_policy != "none" and self._params is None:
             raise ValueError(
                 "cache_policy != 'none' requires a Decoder built from "
                 "params (a bare model_fn cannot drive the cache capture "
                 "or the windowed forwards)")
         prompt = torch.as_tensor(prompt, device=self.device).long()
-        return self._blocks_gen(strat, self._generator(rng), prompt,
-                                geometry)
+        return self._generator(rng), prompt, geometry
 
     def _generator(self, rng) -> torch.Generator:
         if isinstance(rng, torch.Generator):
@@ -215,32 +439,133 @@ class Decoder:
         return torch.Generator(device=self.device).manual_seed(
             0 if rng is None else int(rng))
 
-    def _refresh(self, canvas: torch.Tensor, blk: int) -> DecodeState:
-        """Capture the block cache from ``canvas``; timed for the
-        ``on_cache_refresh`` hook, which alone pays for a synchronise."""
+    def _timed_refresh(self, blk: int, fn: Callable[[], Any]) -> Any:
+        """Run the cache capture ``fn``; with an ``on_cache_refresh`` hook,
+        synchronise and report its times (only hooked runs pay that)."""
         hook = self.on_cache_refresh
-        if hook is None:
-            return capture_cache(self._params, canvas, self.cfg)
         t0 = time.perf_counter()
-        state = capture_cache(self._params, canvas, self.cfg)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        hook(blk, t0, time.perf_counter())
-        return state
+        out = fn()
+        if hook is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            hook(blk, t0, time.perf_counter())
+        return out
 
     def _cached_fn(self, w: torch.Tensor, win_lo: int,
                    tiles: Dict[int, DecodeState]) -> torch.Tensor:
-        """``cached_fn`` of ``run_cached_block``: the window's logits
+        """``cached_fn`` of the cached drivers: the window's logits
         against the cache.  ``tiles`` maps a replication count to the
         cache tiled that many times candidate-major (``tiles[1]`` is the
         capture); a foreseeing strategy's K-candidate batch gets its tiled
-        copy made once per capture, not once per forward."""
+        copy made once, not once per forward."""
         reps = w.shape[0] // tiles[1][0].k.shape[0]
         if reps not in tiles:
             tiles[reps] = _tile_state(tiles[1], reps)
         return forward_cached(self._params, w, win_lo, tiles[reps],
                               self.cfg)
 
+    # -- the graph drivers -------------------------------------------------
+    def _graph_run(self, strat: Strategy, batch: int, prompt_len: int,
+                   sched: np.ndarray) -> GraphRun:
+        """A ``GraphRun`` of this decode's key that no other decode holds,
+        from the cache; built on a miss (the cached path captures its
+        first cache into it)."""
+        cfg, dcfg, cache = self.cfg, self.dcfg, self._cache
+        # the per-block and whole-request drivers share runs and graphs
+        subkey = ("graph", strat, cfg, dataclasses.replace(
+            dcfg, fused_blocks=True), batch, prompt_len, str(self.device))
+
+        def build():
+            run = GraphRun(strat, cfg, dcfg, batch, prompt_len, sched,
+                           self.device, cache.note_capture,
+                           cache.capture_pool(self.device))
+            if dcfg.cache_policy != "none":
+                run.tiles[1] = capture_cache(self._params, run.x, cfg)
+            return run
+
+        return cache.get(self._key, self._anchor, subkey, build)
+
+    def _refresh_body(self, run: GraphRun) -> Callable[[], None]:
+        """The cache capture of ``run``'s canvas, written into its static
+        cache and tiles: the body of its refresh graph."""
+        params, cfg = self._params, self.cfg
+        return lambda: _refresh_into(run.tiles,
+                                     capture_cache(params, run.x, cfg))
+
+    def _graph_refresh(self, run: GraphRun) -> Callable[[int], None]:
+        """``refresh(blk)`` of the cached graph drivers: replay the refresh
+        graph."""
+        body = self._refresh_body(run)
+        return lambda blk: self._timed_refresh(
+            blk, lambda: run.graphs.run(("refresh",), body))
+
+    def _graph_start(self, strat: Strategy, gen: torch.Generator,
+                     prompt: torch.Tensor, geometry):
+        """Take a free run of this key, warm it on first use, and reset it
+        for ``prompt``.  Returns ``(run, lease, t0)``: the decode holds
+        the run while it keeps the lease."""
+        b, lp = prompt.shape
+        run = self._graph_run(strat, b, lp, geometry[3])
+        lease = run.take()
+        if self.dcfg.cache_policy != "none":
+            lo0 = run.win_los[0]
+            warm_run(strat, lambda w: self._cached_fn(w, lo0, run.tiles),
+                     self.cfg, self.dcfg, run, self._refresh_body(run))
+        else:
+            warm_run(strat, self._model_fn, self.cfg, self.dcfg, run)
+        t0 = time.perf_counter()
+        run.start(prompt, strat.init_carry(self.cfg, self.dcfg, self.device),
+                  gen)
+        return run, lease, t0
+
+    def _graph_blocks_gen(self, strat: Strategy, gen: torch.Generator,
+                          prompt: torch.Tensor, geometry,
+                          events: bool = True):
+        """The graph drivers' block loop, the cache's prefill and
+        refreshes included; with ``events`` it yields a ``BlockEvent``
+        (a device copy of the canvas) after each block."""
+        cfg, dcfg = self.cfg, self.dcfg
+        cached = dcfg.cache_policy != "none"
+        # the lease holds the run until the decode returns, or until its
+        # generator is dropped
+        run, lease, t0 = self._graph_start(strat, gen, prompt, geometry)
+        lp, bs = prompt.shape[1], geometry[1]
+        refresh = self._graph_refresh(run) if cached else None
+        refreshes = 0
+        for blk in range(geometry[2]):
+            if cached:
+                if blk == 0 or dcfg.cache_refresh == "block":
+                    refresh(blk)
+                    refreshes += 1
+                graph_cached_block(strat, self._cached_fn, cfg, dcfg, run,
+                                   blk)
+            else:
+                graph_block(strat, self._model_fn, cfg, dcfg, run, blk)
+            if events:
+                yield BlockEvent(blk, lp + blk * bs, lp + (blk + 1) * bs,
+                                 run.x.clone())
+        return self._graph_finish(run, strat, gen, geometry, t0,
+                                  refreshes)
+
+    def _graph_finish(self, run: GraphRun, strat: Strategy,
+                      gen: torch.Generator, geometry, t0: float,
+                      refreshes: int) -> Tuple[torch.Tensor, SampleStats]:
+        """The decode's one readback: tokens stay on the device; steps,
+        forward-equivalents and the carry come back together.  The
+        caller's generator takes the run's generator's state, as if it
+        had drawn the decode's numbers itself.  Frees the run."""
+        out = run.x.clone()
+        steps, fwd, carry = run.read_back()
+        gen.set_state(run.generator.get_state())
+        run.release()
+        stats = SampleStats(tokens_generated=out.shape[0] * geometry[0],
+                            steps=steps,
+                            forward_equivalents=fwd + float(refreshes),
+                            phase_counts=strat.phase_counts(carry))
+        stats.wall_time = time.perf_counter() - t0
+        return out, stats
+
+    # -- the eager driver --------------------------------------------------
     def _blocks_gen(self, strat: Strategy, gen: torch.Generator,
                     prompt: torch.Tensor, geometry):
         cfg, dcfg = self.cfg, self.dcfg
@@ -252,17 +577,21 @@ class Decoder:
         stats = SampleStats(tokens_generated=b * gen_len)
         pos = torch.arange(x.shape[1], device=self.device)
         t0 = time.perf_counter()
+
+        def refresh(canvas, blk):
+            return {1: self._timed_refresh(
+                blk, lambda: capture_cache(self._params, canvas, cfg))}
         # cached: the prefill capture is block 0's refresh; later blocks
         # refresh under cache_refresh="block".  Each capture is one
         # forward, added after the steps' forwards, as the reference's
         # host driver adds it.
-        tiles = {1: self._refresh(x, 0)} if cached else None
+        tiles = refresh(x, 0) if cached else None
         refresh_fwd = 1.0 if cached else 0.0
         for blk in range(num_blocks):
             lo, hi = lp + blk * bs, lp + (blk + 1) * bs
             if cached:
                 if blk > 0 and dcfg.cache_refresh == "block":
-                    tiles = {1: self._refresh(x, blk)}
+                    tiles = refresh(x, blk)
                     refresh_fwd += 1.0
                 x, carry, steps, stats.forward_equivalents = \
                     run_cached_block(strat, self._cached_fn, cfg, dcfg,
@@ -281,6 +610,20 @@ class Decoder:
         stats.phase_counts = strat.phase_counts(carry)
         stats.wall_time = time.perf_counter() - t0
         return x, stats
+
+    # -- introspection -----------------------------------------------------
+    def cache_info(self) -> CacheInfo:
+        """Counters of the runner cache this Decoder resolves against."""
+        return self._cache.info()
+
+
+def _refresh_into(tiles: Dict[int, DecodeState], state: DecodeState) -> None:
+    """Write a fresh capture into the static cache ``tiles[1]`` and every
+    tiled copy of it, in place: the step graphs read these buffers."""
+    for reps, tiled in tiles.items():
+        for dst, src in zip(tiled, state):
+            for d, s in ((dst.k, src.k), (dst.v, src.v)):
+                d.view(reps, *s.shape).copy_(s.expand(reps, *s.shape))
 
 
 def _tile_state(state: DecodeState, reps: int) -> DecodeState:

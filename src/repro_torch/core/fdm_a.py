@@ -6,8 +6,11 @@ masked positions: exploration (nothing above η₁: one token, full FDM
 search), acceleration (≥ N above η₁: commit min(NUM, N) locally),
 balance (qualified and borderline coexist: search over γ=η₂ survivors),
 or local-only (qualified, no borderline).  The K-candidate forward runs
-once for the batch when any example searches and is skipped entirely —
-one host check — when none does.
+once for the batch when any example searches and is skipped entirely when
+none does: one host check in ``step``.  ``device_step``, the graph
+drivers' form, cannot branch on the host: on the card it runs the search
+every step and keeps its result only where any example searches (the
+reference's ``lax.cond`` as a select, ``graphs.run_masked``).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 from repro_torch.configs.base import DecodeConfig, ModelConfig
 from repro_torch.core.confidence import score_logits
 from repro_torch.core.fdm import fdm_select
+from repro_torch.core.graphs import run_masked
 from repro_torch.core.strategies import (ModelFn, Strategy, commit_topn,
                                          register_strategy)
 
@@ -59,13 +63,19 @@ class FDMAStrategy(Strategy):
     def phase_counts(self, carry) -> Dict[str, int]:
         return {k: int(v) for k, v in zip(PHASES, carry.tolist())}
 
-    def step(self, rng, carry, x, active, model_fn: ModelFn,
-             cfg: ModelConfig, dcfg: DecodeConfig, n) -> Tuple:
+    def _plan(self, carry, x, active, model_fn: ModelFn,
+              dcfg: DecodeConfig):
         logits = model_fn(x)
         s, nn, gamma, need_search, phases = fdm_a_plan(logits, active, dcfg)
         carry = carry + torch.stack([p.sum() for p in phases]).to(
             torch.int32)
         x_local = commit_topn(x, s.max_prob, s.argmax, active, nn)
+        return logits, nn, gamma, need_search, carry, x_local
+
+    def step(self, rng, carry, x, active, model_fn: ModelFn,
+             cfg: ModelConfig, dcfg: DecodeConfig, n) -> Tuple:
+        logits, nn, gamma, need_search, carry, x_local = self._plan(
+            carry, x, active, model_fn, dcfg)
         # early-out: skip the K-forward entirely if nobody searches
         if not bool(need_search.any()):
             return x_local, carry, 1
@@ -73,6 +83,24 @@ class FDMAStrategy(Strategy):
                                      k=dcfg.k1, gamma=gamma, n=nn)
         new_x = torch.where(need_search[:, None], x_search, x_local)
         return new_x, carry, 1 + extra
+
+    def device_step(self, rng, carry, x, active, model_fn: ModelFn,
+                    cfg: ModelConfig, dcfg: DecodeConfig, n) -> Tuple:
+        """``step`` without the host check: the K-candidate search's
+        canvas and its count (1 + K₁, else 1) are kept where
+        ``any(need_search)`` (``run_masked``)."""
+        logits, nn, gamma, need_search, carry, x_local = self._plan(
+            carry, x, active, model_fn, dcfg)
+        fwd = torch.ones((), dtype=torch.float32, device=x.device)
+
+        def search():
+            x_search, extra = fdm_select(x, logits, active, model_fn, cfg,
+                                         k=dcfg.k1, gamma=gamma, n=nn)
+            return (torch.where(need_search[:, None], x_search, x_local),
+                    torch.full_like(fwd, 1 + extra))
+
+        run_masked(need_search.any(), search, (x_local, fwd))
+        return x_local, carry, fwd
 
 
 FDM_A = FDMAStrategy()

@@ -3,23 +3,29 @@ and the heuristic, EB and WINO baselines (reference:
 ``src/repro/core/strategies.py``).
 
 The protocol keeps the part of the reference's that the ported
-strategies use:
+strategies and the drivers use:
 
   * ``init_carry(cfg, dcfg, device) -> carry`` — per-decode state
     (``()`` for the stateless builtins; FDM-A counts its phases in a
     tensor);
+  * ``begin_block(carry, x, in_block) -> carry`` — fired by every driver
+    before a block's first step; identity by default;
   * ``step(rng, carry, x, active, model_fn, cfg, dcfg, n)
-    -> (new_x, new_carry, forwards)`` — one denoising step; ``rng`` is a
-    ``torch.Generator`` on the canvas's device, ``n`` the nominal commit
-    width (an int);
+    -> (new_x, new_carry, forwards)`` — one denoising step of the eager
+    driver; ``rng`` is a ``torch.Generator`` on the canvas's device, ``n``
+    the nominal commit width (an int); it may branch on the host;
+  * ``device_step(...)`` — the same step for the graph drivers (the
+    reference's ``fused_step``): ``n`` is a 0-dim int32 tensor on the
+    device and the forward count comes back as a 0-dim f32 tensor there;
+    no host sync, no host branch on data (FDM-A's search skip is a
+    device-side select, ``graphs.run_masked``);
   * ``phase_counts(carry)`` — host-side counters read from the final
-    carry into ``SampleStats``.
+    carry into ``SampleStats``;
+  * ``positional_carry`` — whether the cached path slices the carry with
+    its window.
 
-The reference's trace-safe ``fused_step`` has no counterpart yet: the port
-drives every strategy from one eager loop (the CUDA-graph driver is
-ROADMAP.md queue 1 item 5); the block-entry hook and carry statistics
-come with the carry-ful strategies (item 7).  The registry is the port's
-own; the reference's registry is never touched.
+The registry is the port's own; the reference's registry is never
+touched.
 """
 from __future__ import annotations
 
@@ -50,13 +56,14 @@ def commit_topn(x: torch.Tensor, conf: torch.Tensor, cand: torch.Tensor,
                 n: Union[int, torch.Tensor]) -> torch.Tensor:
     """Commit cand tokens at the top-n eligible positions per example.
 
-    conf (B,L) ranking score; eligible (B,L) bool; n (B,) or an int.
+    conf (B,L) ranking score; eligible (B,L) bool; n (B,) or 0-dim on
+    the device, or an int.
     """
     c = torch.where(eligible, conf, torch.full_like(conf, NEG))
     ranks = rank_desc(c)
     n_arr = n if isinstance(n, torch.Tensor) else \
         torch.full((x.shape[0],), n, device=x.device)
-    commit = eligible & (ranks < n_arr[:, None])
+    commit = eligible & (ranks < n_arr.reshape(-1, 1))
     return torch.where(commit, cand.to(x.dtype), x)
 
 
@@ -73,12 +80,32 @@ class Strategy:
     def init_carry(self, cfg: ModelConfig, dcfg: DecodeConfig, device):
         return ()
 
+    def begin_block(self, carry, x, in_block):
+        """Block-entry hook, fired by every driver before a block's first
+        step; ``in_block`` is the (L,) bool column mask of the new block
+        over ``x``'s columns.  Identity by default."""
+        return carry
+
     def phase_counts(self, carry) -> Dict[str, int]:
         return {}
 
     def step(self, rng, carry, x, active, model_fn: ModelFn,
              cfg: ModelConfig, dcfg: DecodeConfig, n) -> Tuple:
         raise NotImplementedError
+
+    def device_step(self, rng, carry, x, active, model_fn: ModelFn,
+                    cfg: ModelConfig, dcfg: DecodeConfig,
+                    n: torch.Tensor) -> Tuple:
+        """The graph drivers' step (the reference's ``fused_step``): ``n``
+        a 0-dim int32 tensor, the forward count a 0-dim f32 tensor, both
+        on ``x``'s device.  By default ``step`` with its count moved to
+        the device, which suits a step that never syncs."""
+        new_x, new_carry, fwd = self.step(rng, carry, x, active, model_fn,
+                                          cfg, dcfg, n)
+        if not isinstance(fwd, torch.Tensor):
+            # a fill, not a host-to-device copy (which would sync)
+            fwd = torch.full((), float(fwd), device=x.device)
+        return new_x, new_carry, fwd.to(torch.float32)
 
     def __repr__(self):
         return f"<{type(self).__name__} {self.name!r}>"

@@ -9,6 +9,7 @@
 
 A wrapper given a CUDA tensor launches its kernel (built from ``csrc/`` at
 the first call, see ``_build``) or raises; given a CPU tensor it runs the
-plain PyTorch version.  Each wrapper counts its launches in its module's
-``launches``.
+plain PyTorch version.  Each wrapper counts its calls that launched the
+kernel in its module's ``launches`` (a launch recorded into a CUDA graph
+counts once, at capture).
 """

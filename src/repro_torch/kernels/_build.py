@@ -12,6 +12,11 @@ source is rebuilt and a stale library is never loaded.  The first CUDA
 call builds every missing library, one ``nvcc`` per source, all started
 together.  Nothing here runs at import: the CPU tests import every module
 of the port on a machine with no ``nvcc``.  A missing toolchain raises.
+
+``function(name, symbol, argtypes)`` is what a wrapper calls per launch:
+the C function bound once (``argtypes``, ``restype``) when its library
+loads, then a dictionary read with no lock, so a wrapper called while a
+CUDA graph is capturing does nothing on the host but launch.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("confidence", "flash_attention", "selective_scan")
@@ -33,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[str, Callable] = {}
 # what the last build did: seconds spent and each source's ptxas report
 last_build: Dict[str, object] = {"seconds": 0.0, "ptxas": {}}
 
@@ -92,8 +98,22 @@ def build_all() -> Dict[str, Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(str(build_all()[name]))
         return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence) -> Callable:
+    """C function ``symbol`` of ``csrc/<name>.cu`` returning an int,
+    with its argument types bound once."""
+    fn = _FUNCS.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        _FUNCS[symbol] = fn
+    return fn

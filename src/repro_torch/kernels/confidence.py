@@ -18,7 +18,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0          # kernel launches by this wrapper (not the plain path)
+# wrapper calls that launched the kernel (never the plain path): eager
+# launches, and launches recorded into a CUDA graph while it was captured;
+# a graph's replays launch again without a call, so the graphs count
+# executed launches (core/graphs.py:GraphSet.executed_launches)
+launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -62,9 +66,7 @@ def confidence_fused(logits: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     maxp, margin, negent = (torch.empty(lead, dtype=torch.float32,
                                         device=logits.device)
                             for _ in range(3))
-    lib = _build.load("confidence")
-    fn = lib.repro_confidence
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _build.function("confidence", "repro_confidence", _ARGTYPES)
     with torch.cuda.device(logits.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(logits.data_ptr(), rows, vocab, _DTYPE_CODE[logits.dtype],

@@ -63,9 +63,29 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <atomic>
 #include <cmath>
 
 namespace {
+
+// A kernel's dynamic shared-memory limit is a per-device attribute: it is
+// set at a kernel's first launch on each device (`done` holds one bit per
+// device, one `done` per kernel), not on every launch, so a launch
+// recorded into a CUDA graph is a kernel node alone.
+template <typename Kernel>
+cudaError_t set_smem_once(Kernel kernel, size_t bytes,
+                          std::atomic<unsigned>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = 1u << (dev & 31);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
 
 constexpr int kQT = 64;                  // query rows per CTA
 constexpr int kKT = 64;                  // key rows per tile (2 per lane)
@@ -227,16 +247,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// The dynamic shared-memory limit is a per-device attribute: it is set on
-// every launch (a cheap call), so every device and every thread sees it.
 template <typename T, int DPL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Lq, int Lk, int H, int G, int window,
                    int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DPL * 32>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+  static std::atomic<unsigned> smem_set{0};
+  const cudaError_t err = set_smem_once(flash_kernel<T, DPL>, bytes,
+                                        smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + kQT - 1) / kQT, B * H), block(kThreads);
   flash_kernel<T, DPL><<<grid, block, bytes, stream>>>(
@@ -562,9 +580,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Lq, int Lk, int H, int G, int window,
                    int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+  static std::atomic<unsigned> smem_set{0};
+  const cudaError_t err = set_smem_once(flash_tc_kernel<D>, bytes, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + kRows - 1) / kRows, B * H), block(kThreads);
   flash_tc_kernel<D><<<grid, block, bytes, stream>>>(

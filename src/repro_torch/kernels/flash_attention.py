@@ -22,7 +22,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0          # kernel launches by this wrapper (not the plain path)
+# wrapper calls that launched the kernel (never the plain path): eager
+# launches, and launches recorded into a CUDA graph while it was captured;
+# a graph's replays launch again without a call, so the graphs count
+# executed launches (core/graphs.py:GraphSet.executed_launches)
+launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -84,9 +88,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, lq, h, d = q.shape
     lk, g = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    lib = _build.load("flash_attention")
-    fn = lib.repro_flash_attention
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _build.function("flash_attention", "repro_flash_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -25,7 +25,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0          # kernel launches by this wrapper (not the plain path)
+# wrapper calls that launched the kernel (never the plain path): eager
+# launches, and launches recorded into a CUDA graph while it was captured;
+# a graph's replays launch again without a call, so the graphs count
+# executed launches (core/graphs.py:GraphSet.executed_launches)
+launches = 0
 
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
@@ -109,9 +113,7 @@ def selective_scan(x: torch.Tensor, delta: torch.Tensor, b_sel: torch.Tensor,
     # pass 1's carries: h_end then P, each (B, nch - 1, N, di)
     ws = torch.empty(2 * bsz * (nch - 1) * n * di, dtype=torch.float32,
                      device=x.device)
-    lib = _build.load("selective_scan")
-    fn = lib.repro_selective_scan
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _build.function("selective_scan", "repro_selective_scan", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), delta.data_ptr(), b_sel.data_ptr(),

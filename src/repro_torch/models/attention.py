@@ -1,7 +1,8 @@
 """Bidirectional GQA/MHA attention of the port (reference:
 ``src/repro/models/attention.py``).
 
-q/k/v projections, standard RoPE, and the attention itself through
+q/k/v projections, standard RoPE (from tables the model builds once
+per forward), and the attention itself through
 ``kernels.flash_attention`` (the hand-written kernel on a card, its plain
 version on the CPU) with GQA heads grouped inside the kernel: the
 full-sequence path and the fixed-shape block cache's capture and cached
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import Params, apply_rope, dense_init
+from repro_torch.models.layers import Params, Rope, dense_init, rotate
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
@@ -48,29 +49,28 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            window)
 
 
-def _project_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig):
+def _project_qkv(p: Params, x: torch.Tensor, rope: Rope, cfg: ModelConfig):
     dt = x.dtype
     b, l, _ = x.shape
     hd, nq, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     q = (x @ p["wq"].to(dt)).reshape(b, l, nq, hd)
     k = (x @ p["wk"].to(dt)).reshape(b, l, nkv, hd)
     v = (x @ p["wv"].to(dt)).reshape(b, l, nkv, hd)
-    return apply_rope(q, positions, cfg), apply_rope(k, positions, cfg), v
+    return rotate(q, rope), rotate(k, rope), v
 
 
-def gqa_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
+def gqa_forward(p: Params, x: torch.Tensor, rope: Rope,
                 cfg: ModelConfig) -> torch.Tensor:
     """Full bidirectional attention over x (B, L, d)."""
-    q, k, v = _project_qkv(p, x, positions, cfg)
+    q, k, v = _project_qkv(p, x, rope, cfg)
     out = self_attention(q, k, v, window=cfg.sliding_window)
     return out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
 
 
-def attention_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
+def attention_forward(p: Params, x: torch.Tensor, rope: Rope,
                       cfg: ModelConfig) -> torch.Tensor:
     _check_supported(cfg)
-    return gqa_forward(p, x, positions, cfg)
+    return gqa_forward(p, x, rope, cfg)
 
 
 # --------------------------------------------------------------------------
@@ -89,11 +89,11 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def gqa_capture(p: Params, x: torch.Tensor, positions: torch.Tensor,
+def gqa_capture(p: Params, x: torch.Tensor, rope: Rope,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
     """Full attention that also returns the K/V it computed: the prefill
     and refresh op of the block cache."""
-    q, k, v = _project_qkv(p, x, positions, cfg)
+    q, k, v = _project_qkv(p, x, rope, cfg)
     out = self_attention(q, k, v, window=cfg.sliding_window)
     return (out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype),
             KVCache(k, v))
@@ -107,27 +107,27 @@ def _scatter(full: torch.Tensor, new: torch.Tensor,
                      dim=1)
 
 
-def gqa_cached(p: Params, x: torch.Tensor, positions: torch.Tensor,
+def gqa_cached(p: Params, x: torch.Tensor, rope: Rope,
                cfg: ModelConfig, cache: KVCache,
                win_start: int) -> torch.Tensor:
     """A W-row live window attends over the full fixed-length cache with
     its own fresh K/V written in at ``win_start``.  Read-only with respect
     to the cache (refreshes go through ``gqa_capture``)."""
-    q, k_new, v_new = _project_qkv(p, x, positions, cfg)
+    q, k_new, v_new = _project_qkv(p, x, rope, cfg)
     k = _scatter(cache.k, k_new, win_start)
     v = _scatter(cache.v, v_new, win_start)
     out = flash_attention(q, k, v, cfg.sliding_window, q_offset=win_start)
     return out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
 
 
-def attention_capture(p: Params, x: torch.Tensor, positions: torch.Tensor,
+def attention_capture(p: Params, x: torch.Tensor, rope: Rope,
                       cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
     _check_supported(cfg)
-    return gqa_capture(p, x, positions, cfg)
+    return gqa_capture(p, x, rope, cfg)
 
 
-def attention_cached(p: Params, x: torch.Tensor, positions: torch.Tensor,
+def attention_cached(p: Params, x: torch.Tensor, rope: Rope,
                      cfg: ModelConfig, cache: KVCache,
                      win_start: int) -> torch.Tensor:
     _check_supported(cfg)
-    return gqa_cached(p, x, positions, cfg, cache, win_start)
+    return gqa_cached(p, x, rope, cfg, cache, win_start)

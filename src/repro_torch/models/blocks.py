@@ -21,8 +21,8 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import (KVCache, attention_cached,
                                           attention_capture,
                                           attention_forward, init_attention)
-from repro_torch.models.layers import (Params, apply_mlp, apply_norm,
-                                       init_mlp, init_norm)
+from repro_torch.models.layers import (Params, Rope, apply_mlp, apply_norm,
+                                       init_mlp, init_norm, rope_tables)
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -54,12 +54,15 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, idx: int, device,
     return p
 
 
-def block_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                  cfg: ModelConfig, idx: int) -> torch.Tensor:
-    """x (B, L, d) -> x'.  (The reference also returns an MoE aux loss,
-    which is always zero for these blocks.)"""
+def block_forward(p: Params, x: torch.Tensor, rope, cfg: ModelConfig,
+                  idx: int) -> torch.Tensor:
+    """x (B, L, d) -> x'.  ``rope``: the forward's ``Rope`` tables, or the
+    (B, L) positions to build them from.  (The reference also returns an
+    MoE aux loss, which is always zero for these blocks.)"""
+    if isinstance(rope, torch.Tensor):
+        rope = rope_tables(rope, cfg.head_dim, cfg, x.dtype)
     h = apply_norm(p["norm1"], x, cfg)
-    attn_out = attention_forward(p["attn"], h, positions, cfg)
+    attn_out = attention_forward(p["attn"], h, rope, cfg)
     if cfg.arch_type == "hybrid":
         ssm_out = ssm_lib.mamba_forward(p["mamba"], h, cfg)
         x = x + 0.5 * (attn_out * p["mix_attn"].to(x.dtype)
@@ -81,26 +84,26 @@ def _check_dense(cfg: ModelConfig) -> None:
             f"needs an attention-only block")
 
 
-def block_capture(p: Params, x: torch.Tensor, positions: torch.Tensor,
+def block_capture(p: Params, x: torch.Tensor, rope: Rope,
                   cfg: ModelConfig, idx: int
                   ) -> Tuple[torch.Tensor, KVCache]:
     """The full-sequence block that also returns this layer's K/V cache
     (prefill and block-boundary refresh)."""
     _check_dense(cfg)
     h = apply_norm(p["norm1"], x, cfg)
-    attn_out, kv = attention_capture(p["attn"], h, positions, cfg)
+    attn_out, kv = attention_capture(p["attn"], h, rope, cfg)
     x = x + attn_out
     h = apply_norm(p["norm2"], x, cfg)
     return x + apply_mlp(p["mlp"], h, cfg), kv
 
 
-def block_cached(p: Params, x: torch.Tensor, positions: torch.Tensor,
+def block_cached(p: Params, x: torch.Tensor, rope: Rope,
                  cfg: ModelConfig, idx: int, cache: KVCache,
                  win_start: int) -> torch.Tensor:
     """A W-row live window (B, W, d) against this layer's full-length
     cache; read-only with respect to the cache."""
     _check_dense(cfg)
     h = apply_norm(p["norm1"], x, cfg)
-    x = x + attention_cached(p["attn"], h, positions, cfg, cache, win_start)
+    x = x + attention_cached(p["attn"], h, rope, cfg, cache, win_start)
     h = apply_norm(p["norm2"], x, cfg)
     return x + apply_mlp(p["mlp"], h, cfg)

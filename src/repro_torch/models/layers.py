@@ -11,7 +11,7 @@ rounding the result back to the compute dtype, as the reference's
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -82,21 +82,42 @@ def rope_frequencies(dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / torch.pow(float(theta), exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
-    """x (B, L, H, hd), positions (B, L).  'standard' RoPE only: cos/sin in
-    f32, cast to x's dtype, rotating split halves (not interleaved pairs)."""
+class Rope(NamedTuple):
+    """RoPE tables for a run of positions, each (B or 1, L, 1, hd/2)."""
+    cos: torch.Tensor
+    sin: torch.Tensor
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, cfg: ModelConfig,
+                dtype: torch.dtype) -> Rope:
+    """cos/sin of ``positions`` (B, L) in f32, cast to ``dtype``: built
+    once per forward and shared by every layer's q and k.  'standard'
+    RoPE only."""
     if cfg.rope != "standard":
         raise NotImplementedError(
             f"rope={cfg.rope!r}: only 'standard' RoPE is ported; the other "
             f"modes come with the other architectures (ROADMAP.md queue 1 "
             f"item 9)")
-    hd = x.shape[-1]
-    inv = rope_frequencies(hd, cfg.rope_theta, x.device)
+    inv = rope_frequencies(head_dim, cfg.rope_theta, positions.device)
     ang = positions.float()[..., None] * inv                   # (B, L, hd/2)
-    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
-    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    return Rope(torch.cos(ang)[:, :, None, :].to(dtype),
+                torch.sin(ang)[:, :, None, :].to(dtype))
+
+
+def rotate(x: torch.Tensor, rope: Rope) -> torch.Tensor:
+    """x (B, L, H, hd) rotated by the tables, split halves (not
+    interleaved pairs)."""
+    hd = x.shape[-1]
     x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([x1 * rope.cos - x2 * rope.sin,
+                      x2 * rope.cos + x1 * rope.sin], dim=-1)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """x (B, L, H, hd), positions (B, L): tables then rotation, for a
+    caller that has only positions (the model builds its tables once per
+    forward, ``rope_tables``)."""
+    return rotate(x, rope_tables(positions, x.shape[-1], cfg, x.dtype))
 
 
 # --------------------------------------------------------------------------

@@ -20,9 +20,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blocks_lib
 from repro_torch.models.attention import KVCache
-from repro_torch.models.layers import (Params, apply_norm, compute_dtype,
-                                       embed_tokens, init_embed, init_norm,
-                                       lm_head)
+from repro_torch.models.layers import (Params, Rope, apply_norm,
+                                       compute_dtype, embed_tokens,
+                                       init_embed, init_norm, lm_head,
+                                       rope_tables)
 
 
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -50,15 +51,23 @@ def make_positions(cfg: ModelConfig, batch: int, length: int,
     return pos[None].expand(batch, length)
 
 
+def forward_rope(cfg: ModelConfig, length: int, offset: int = 0,
+                 device="cuda") -> Rope:
+    """The RoPE tables of one forward over ``length`` positions from
+    ``offset``, (1, L, 1, hd/2) in the compute dtype: built once and
+    shared by every layer (they broadcast over the batch)."""
+    return rope_tables(make_positions(cfg, 1, length, offset, device),
+                       cfg.head_dim, cfg, compute_dtype(cfg))
+
+
 def forward(params: Params, tokens: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     """tokens (B, L) -> logits (B, L, V) float32.  Bidirectional: every
     position is scored."""
-    b, l = tokens.shape
     x = embed_tokens(params["embed"], tokens, cfg)
-    positions = make_positions(cfg, b, l, device=tokens.device)
+    rope = forward_rope(cfg, tokens.shape[1], device=tokens.device)
     for i, p in enumerate(params["blocks"]):
-        x = blocks_lib.block_forward(p, x, positions, cfg, i)
+        x = blocks_lib.block_forward(p, x, rope, cfg, i)
     x = apply_norm(params["norm_f"], x, cfg)
     return lm_head(params["embed"], x, cfg)
 
@@ -74,12 +83,11 @@ def capture_cache(params: Params, tokens: torch.Tensor,
     layer's K/V: the prefill and block-boundary refresh of the block
     cache.  No LM head: refresh logits are never used (the next window
     forward scores the live rows anyway)."""
-    b, l = tokens.shape
     x = embed_tokens(params["embed"], tokens, cfg)
-    positions = make_positions(cfg, b, l, device=tokens.device)
+    rope = forward_rope(cfg, tokens.shape[1], device=tokens.device)
     state: DecodeState = []
     for i, p in enumerate(params["blocks"]):
-        x, kv = blocks_lib.block_capture(p, x, positions, cfg, i)
+        x, kv = blocks_lib.block_capture(p, x, rope, cfg, i)
         state.append(kv)
     return state
 
@@ -90,11 +98,9 @@ def forward_cached(params: Params, tokens: torch.Tensor, win_start: int,
     from ``capture_cache``.  Read-only with respect to the cache: each
     layer writes its fresh window K/V into a copy and attends over all
     ``total`` keys.  Returns logits (B, W, V) float32."""
-    b, w = tokens.shape
     x = embed_tokens(params["embed"], tokens, cfg)
-    positions = make_positions(cfg, b, w, offset=win_start,
-                               device=tokens.device)
+    rope = forward_rope(cfg, tokens.shape[1], win_start, tokens.device)
     for i, (p, kv) in enumerate(zip(params["blocks"], state)):
-        x = blocks_lib.block_cached(p, x, positions, cfg, i, kv, win_start)
+        x = blocks_lib.block_cached(p, x, rope, cfg, i, kv, win_start)
     x = apply_norm(params["norm_f"], x, cfg)
     return lm_head(params["embed"], x, cfg)

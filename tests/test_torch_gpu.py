@@ -1,4 +1,5 @@
-"""The port's hand-written kernels against their plain versions, on the card.
+"""The port's hand-written kernels against their plain versions, and its
+CUDA-graph decode drivers against the eager one, on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA card.  The file
 imports nothing of JAX, so it runs on a machine that has only PyTorch:
@@ -315,3 +316,261 @@ def test_reduced_forward_cached_on_card_matches_cpu(cuda, win_start, width):
     assert fa_mod.launches == before + 2 * cfg.num_layers
     assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# the CUDA-graph drivers (core/graphs.py, core/loop.py)
+# --------------------------------------------------------------------------
+
+def _reduced(cuda, name="llada-8b"):
+    """A reduced config's seeded weights on the card (f32) and a prompt."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(name).reduced()
+    params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    prompt = torch.randint(0, cfg.vocab_size - 1, (2, 16), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    return cfg, params, prompt
+
+
+def _capture(fn):
+    """``fn`` captured into a graph on a side stream, after one warm-up."""
+    from repro_torch.core.graphs import GraphSet
+    graphs = GraphSet(torch.device("cuda"))
+    graphs.warm(fn)
+    return lambda: graphs.run("g", fn)
+
+
+def test_masked_body_writes_only_where_its_predicate_holds(cuda):
+    """``run_masked`` under capture: the body's values land on a replay
+    exactly when the predicate, read on the card at replay time, holds."""
+    from repro_torch.core.graphs import run_masked
+    pred = torch.zeros((), dtype=torch.bool, device=cuda)
+    out = (torch.zeros(4, device=cuda), torch.zeros((), dtype=torch.int32,
+                                                    device=cuda))
+    replay = _capture(lambda: run_masked(pred, lambda: (out[0] + 1,
+                                                        out[1] + 2), out))
+    for t in out:
+        t.zero_()
+    for p, want in ((False, 0), (True, 1), (True, 2), (False, 2)):
+        pred.fill_(p)
+        replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], torch.full_like(out[0], want))
+        assert int(out[1]) == 2 * want
+
+
+def test_kernels_in_a_graph_match_eager(cuda):
+    """All three hand-written kernels recorded into one graph (the
+    selective scan's second pass is a programmatic dependent launch) give
+    the eager call's results, and count as executed launches once per
+    replay."""
+    from repro_torch.core.graphs import GraphSet
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    logits = torch.randn(64, 1000, generator=gen, device=cuda)
+    q, k, v = (torch.randn(2, 48, 4, 64, generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    x = torch.randn(2, 300, 130, generator=gen, device=cuda)
+    delta = torch.nn.functional.softplus(x - 2)
+    bs, cs = (torch.randn(2, 300, 16, generator=gen, device=cuda)
+              for _ in range(2))
+    a_log = torch.log(torch.arange(1, 17, device=cuda,
+                                   dtype=torch.float32))[None].repeat(130, 1)
+    static = {name: torch.zeros(shape, device=cuda) for name, shape in (
+        ("conf", (64,)), ("attn", (2, 48, 4, 64)), ("scan", (2, 300, 130)))}
+
+    def body():
+        return {"conf": conf_mod.confidence_fused(logits)[1],
+                "attn": fa_mod.flash_attention(q, k, v, 0, 0).float(),
+                "scan": scan_mod.selective_scan(x, delta, bs, cs, a_log)}
+
+    def graph_body():
+        for key, val in body().items():
+            static[key].copy_(val)
+
+    graphs = GraphSet(cuda)
+    graphs.warm(graph_body)
+    for t in static.values():
+        t.zero_()
+    graphs.run("g", graph_body)
+    graphs.run("g", None)
+    want = body()
+    torch.cuda.synchronize()
+    for key in want:
+        assert torch.equal(static[key], want[key]), key
+    assert graphs.executed_launches() == {
+        "confidence": 2, "flash_attention": 2, "selective_scan": 2}
+    graphs.reset_counts()
+    assert not graphs.executed_launches()
+
+
+def test_registered_generator_draws_in_a_graph(cuda):
+    """The set's generator, registered with the graph: a replay draws from
+    its state and advances it; the same state draws the same numbers."""
+    from repro_torch.core.graphs import GraphSet
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    graphs = GraphSet(cuda, gen)
+    out = torch.zeros(1000, device=cuda)
+
+    def fn():
+        out.copy_(torch.rand(1000, generator=gen, device=cuda))
+    graphs.warm(fn)
+    gen.manual_seed(7)
+    state = gen.get_state()
+    draws = []
+    for _ in range(2):
+        graphs.run("g", fn)
+        draws.append(out.clone())
+    gen.set_state(state)
+    graphs.run("g", fn)
+    torch.cuda.synchronize()
+    assert not torch.equal(draws[0], draws[1])
+    assert torch.equal(out, draws[0])
+    assert 0.4 < float(out.mean()) < 0.6
+
+
+def test_copy_into_a_static_buffer_is_seen_by_the_next_replay(cuda):
+    """A cache refresh writes into the buffers a step graph reads, by
+    ``copy_``; the next replay sees the new contents."""
+    cache = torch.ones(8, device=cuda)
+    out = torch.zeros(8, device=cuda)
+    replay = _capture(lambda: out.copy_(cache * 2))
+    replay()
+    cache.copy_(torch.arange(8, device=cuda, dtype=torch.float32))
+    replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, 2 * torch.arange(8, device=cuda,
+                                             dtype=torch.float32))
+
+
+STRATS = [dict(strategy="probability"), dict(strategy="fdm", gamma=0.0),
+          dict(strategy="fdm_a", eta1=0.025, eta2=0.02, gamma1=0.0,
+               n_max=4), dict(strategy="eb")]
+
+
+@pytest.mark.parametrize("policy", ["none", "prefix", "dual"])
+@pytest.mark.parametrize("kw", STRATS, ids=lambda kw: kw["strategy"])
+def test_graph_drivers_match_the_eager_driver(cuda, kw, policy):
+    """A captured step equals the eager step: the whole-request and the
+    per-block graph drivers decode the eager driver's tokens, steps,
+    forward-equivalents and phase counts on the card."""
+    import dataclasses
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder
+    cfg, params, prompt = _reduced(cuda)
+    dcfg = DecodeConfig(gen_length=32, block_size=8, steps=32,
+                        cache_policy=policy, **kw)
+    runs = []
+    for over in (dict(fused_loop=False), dict(fused_blocks=False), {}):
+        dec = Decoder(params, cfg, dataclasses.replace(dcfg, **over),
+                      device=cuda)
+        for _ in range(2):               # the second reuses the graphs
+            runs.append(dec.generate(None, prompt))
+    for out, st in runs[1:]:
+        assert torch.equal(out, runs[0][0])
+        assert st.steps == runs[0][1].steps
+        assert st.forward_equivalents == runs[0][1].forward_equivalents
+        assert st.phase_counts == runs[0][1].phase_counts
+
+
+def test_hymba_graph_decode_matches_eager(cuda):
+    """Hymba's graph-driven decode (the selective scan inside the
+    captured steps) equals its eager decode on the card."""
+    import dataclasses
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder
+    cfg, params, prompt = _reduced(cuda, "hymba-1.5b")
+    dcfg = DecodeConfig(gen_length=32, block_size=8, steps=32,
+                        strategy="fdm", gamma=0.0)
+    want, ws = Decoder(params, cfg, dataclasses.replace(
+        dcfg, fused_loop=False), device=cuda).generate(None, prompt)
+    got, gs = Decoder(params, cfg, dcfg, device=cuda).generate(None, prompt)
+    assert torch.equal(got, want)
+    assert (gs.steps, gs.forward_equivalents) == (ws.steps,
+                                                  ws.forward_equivalents)
+
+
+def test_block_event_canvas_is_unchanged_by_later_replays(cuda):
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder
+    cfg, params, prompt = _reduced(cuda)
+    dcfg = DecodeConfig(gen_length=32, block_size=8, steps=32,
+                        strategy="probability", cache_policy="dual")
+    events = list(Decoder(params, cfg, dcfg, device=cuda)
+                  .generate_blocks(None, prompt))
+    assert len(events) == 4
+    for ev in events:
+        assert (ev.x[:, ev.hi:] == cfg.mask_token_id).all()
+        assert (ev.x[:, 16:ev.hi] != cfg.mask_token_id).all()
+
+
+@pytest.mark.parametrize("policy", ["none", "dual"])
+def test_whole_request_decode_does_not_sync(cuda, policy):
+    """After its graphs are captured, a whole-request decode makes no
+    implicit synchronising call: it waits on the card only through its
+    explicit reads (event waits on pinned copies: each block's masked
+    count, polled behind the card, and the final readback)."""
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder
+    cfg, params, prompt = _reduced(cuda)
+    dcfg = DecodeConfig(gen_length=32, block_size=8, steps=32,
+                        strategy="fdm_a", eta1=0.025, eta2=0.02,
+                        gamma1=0.0, n_max=4, cache_policy=policy)
+    dec = Decoder(params, cfg, dcfg, device=cuda)
+    want, _ = dec.generate(None, prompt)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, stats = dec.generate(gen, prompt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want) and stats.steps >= 4
+
+
+def test_graph_block_stops_one_replay_after_an_early_end(cuda):
+    """The host polls a block's masked count two steps behind the card: a
+    block that keeps to its step budget costs no replay past its end, one
+    that ends inside it (FDM-A accelerating in every step: n_max tokens a
+    step) costs one."""
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder, decode_cache_scope
+    cfg, params, prompt = _reduced(cuda)
+    for kw, extra in ((dict(strategy="probability"), 0),
+                      (dict(strategy="fdm_a", eta1=0.0, eta2=0.0,
+                            n_max=4), 1)):
+        dcfg = DecodeConfig(gen_length=32, block_size=8, steps=20, **kw)
+        with decode_cache_scope() as cache:
+            _, st = Decoder(params, cfg, dcfg, device=cuda).generate(
+                None, prompt)
+            (run,) = cache.values()
+            assert run.graphs.replays() == st.steps + 4 * extra, kw
+
+
+def test_interleaved_graph_decodes_share_one_pool(cuda):
+    """Two interleaved decodes of one key on the card: the second gets a
+    run of its own, captured into the same memory pool, and both decode
+    what the eager driver does."""
+    import dataclasses
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder, decode_cache_scope
+    cfg, params, prompt = _reduced(cuda)
+    dcfg = DecodeConfig(gen_length=32, block_size=8, steps=32,
+                        strategy="probability", cache_policy="dual")
+    want, _ = Decoder(params, cfg, dataclasses.replace(
+        dcfg, fused_loop=False), device=cuda).generate(None, prompt)
+    with decode_cache_scope() as cache:
+        dec = Decoder(params, cfg, dcfg, device=cuda)
+        first = dec.generate_blocks(None, prompt)
+        next(first)
+        got, _ = dec.generate(None, prompt)
+        with pytest.raises(StopIteration) as fin:
+            while True:
+                next(first)
+        runs = cache.values()
+    assert torch.equal(got, want)
+    assert torch.equal(fin.value.value[0], want)
+    assert len(runs) == 2 and runs[0].graphs.pool == runs[1].graphs.pool
