@@ -62,7 +62,23 @@ Phases, in order; any failure raises and the script exits non-zero:
              forwards by where the host's time goes (cProfile); then the
              strategy A/B: eb and an always-accelerating FDM-A at the same
              geometry under ``none``, eager against graph, with the
-             graph's executed step replays beside the logical steps.
+             graph's executed step replays beside the logical steps;
+7. flash gradient — dq, dk, dv through the flash kernel's
+             ``autograd.Function`` against autograd of the plain version
+             at four shapes (bf16 and f32, a GQA band at a q offset); the
+             confidence and scan kernels must raise under grad; the
+             backward's device ms at the full-width training shape;
+8. train step — one f32 step of the ``sum`` testbed on the card against
+             the same step on the CPU (loss, every gradient leaf, the
+             updated params);
+9. testbed — the testbed trained on the card (batch 64, up to 600 steps),
+             then decoded with fdm under each cache policy on the graph
+             drivers (EM, forward-equivalents, tokens equal to a CPU
+             decode of the same weights) and FDM-A graph against eager;
+10. training — full-width LLaDA-8B cut to 4 of its 32 layers trained a
+             few steps (B=2, L=512): ms/step, tokens/s, peak memory, the
+             initial NLL, exactly 2 flash launches per layer and step
+             (the path's launch count), and one step's device profile.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -409,12 +425,12 @@ def check_scan(scan_mod, torch, b, l, di, n, xdtype: str):
         design_floor_ms=1e3 * 2 * exps / SFU_OPS_PER_S)
 
 
-def _to_cuda(tree):
+def _to(tree, device="cuda"):
     if isinstance(tree, dict):
-        return {k: _to_cuda(v) for k, v in tree.items()}
+        return {k: _to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to_cuda(v) for v in tree]
-    return tree.cuda()
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 # the reference phase's decodes: every strategy case under every policy
@@ -448,7 +464,7 @@ def reference_phase(torch, name: str, policies):
     cfg = get_config(name).reduced()
     cpu_params = init_model(cfg, torch.Generator().manual_seed(SEED),
                             device="cpu")
-    gpu_params = _to_cuda(cpu_params)
+    gpu_params = _to(cpu_params)
     gen = torch.Generator().manual_seed(SEED)
     prompt = torch.randint(0, cfg.vocab_size - 1, (2, 16), generator=gen)
     for policy in policies:
@@ -703,12 +719,14 @@ def host_profile(torch, label: str, fn, top: int = 10) -> None:
 
 
 def device_profile(torch, label: str, fn, reps: int = 2,
-                   top: int = 6) -> None:
+                   top: int = 6, groups=None) -> None:
     """The card's kernels in ``reps`` calls of ``fn`` after warm-up, from
     ``torch.profiler`` (device activity only: host events would slow the
     trace's processing by seconds): per call the synchronised wall time,
     the summed kernel time, the kernel count, the share of the wall the
-    card was busy, and the ``top`` kernels by device time."""
+    card was busy, and the ``top`` kernels by device time; with
+    ``groups`` (label -> name substrings, first match wins) also the
+    device ms per call of each group and of the rest."""
     from collections import defaultdict
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -738,6 +756,17 @@ def device_profile(torch, label: str, fn, reps: int = 2,
     for name, (n, t) in sorted(by_name.items(),
                                key=lambda kv: -kv[1][1])[:top]:
         log(f"  {t / reps / 1e3:8.3f} ms {n // reps:5d}x  {name[:100]}")
+    if groups:
+        sums = defaultdict(lambda: [0, 0.0])
+        for name, (n, t) in by_name.items():
+            g = next((g for g, pats in groups.items()
+                      if any(p in name for p in pats)), "other")
+            sums[g][0] += n
+            sums[g][1] += t
+        log(f"device profile {label} by group (ms per call, kernels): " +
+            "; ".join(f"{g} {t / reps / 1e3:.3f} ({n // reps})"
+                      for g, (n, t) in sorted(sums.items(),
+                                              key=lambda kv: -kv[1][1])))
 
 
 def forward_phase(torch, cfg, params) -> None:
@@ -1041,6 +1070,397 @@ def strategy_ab_phase(torch, cfg, params) -> None:
             f"tokens/s")
 
 
+# --------------------------------------------------------------------------
+# training (phases 7-10)
+# --------------------------------------------------------------------------
+
+# the sum testbed: LLaDA's family at benchmarks/common.py's overrides, f32,
+# batch 64, up to 600 steps (fewer if the loop would pass TESTBED_BUDGET_S)
+TESTBED = dict(num_layers=4, d_model=256, num_heads=4, num_kv_heads=4,
+               d_ff=1024)
+TESTBED_BATCH, TESTBED_STEPS, TESTBED_BUDGET_S = 64, 600, 60.0
+# the reference's own numbers at this task (BENCH_kv_cache.json: its
+# trained weights, probability, prompt 128 / gen 128 for the
+# forward-equivalents): context for the card's EM, not a gate
+REF_KV_EM = {"none": 0.8125, "prefix": 0.875, "dual": 0.875}
+# full-width LLaDA-8B training: depth cut 32 -> 4 (f32 masters, gradients
+# and AdamW moments cost 16 B a parameter: 128 GB for all 8.0 B, the card
+# has 80), B=2, L=512 with the second half of each row maskable
+FULL_TRAIN_LAYERS, FULL_TRAIN_B, FULL_TRAIN_L, FULL_TRAIN_STEPS = 4, 2, 512, 4
+# flash-gradient shapes, (B, Lq, Lk, H, G, d, window, q_offset, dtype):
+# LLaDA-8B's heads in bf16, the f32 testbed's, a GQA band at a q offset
+FLASH_GRAD_SHAPES = ((2, 128, 128, 32, 32, 128, 0, 0, "bfloat16"),
+                     (TESTBED_BATCH, 11, 11, 4, 4, 64, 0, 0, "float32"),
+                     (2, 64, 256, 32, 8, 128, 32, 64, "bfloat16"),
+                     (2, 64, 256, 32, 8, 128, 32, 64, "float32"))
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def flash_grad_phase(torch, fa_mod, conf_mod, scan_mod) -> dict:
+    """dq, dk, dv through the flash kernel's ``autograd.Function`` against
+    autograd of the plain version on the card, at ``FLASH_GRAD_SHAPES``
+    (max abs error within 1e-4 of the largest gradient in f32, 2e-2 in
+    bf16); the other two kernels must raise under grad.  Then, at the
+    full-width training shape (B=2, L=512, LLaDA-8B's heads, bf16): the
+    backward's device ms (``attention_backward``), the kernel's forward,
+    the plain version's forward + backward and SDPA's (a yardstick),
+    and the backward's bound.  Returns those numbers."""
+    import torch.nn.functional as F
+    for b, lq, lk, h, g, d, w, qo, dt in FLASH_GRAD_SHAPES:
+        q, k, v, _, _ = attn_inputs(torch, b, lq, lk, h, g, d, w, qo, dt)
+        dout = torch.randn_like(q)
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        got = torch.autograd.grad(fa_mod.flash_attention(*ins, w, qo), ins,
+                                  dout)
+        ref_ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(fa_mod.attention_ref(*ref_ins, w, qo),
+                                   ref_ins, dout)
+        errs = [_rel_err(a, b_) for a, b_ in zip(got, want)]
+        tol = 2e-2 if dt == "bfloat16" else 1e-4
+        log(f"flash gradient B={b} Lq={lq} Lk={lk} H={h} G={g} d={d} "
+            f"window={w} q_offset={qo} {dt}: dq/dk/dv max abs error over "
+            f"max |g| {errs} (tolerance {tol})")
+        if max(errs) > tol or any(a.dtype != q.dtype for a in got):
+            raise AssertionError(f"flash gradient off at "
+                                 f"{(b, lq, lk, h, g, d, w, qo, dt)}: "
+                                 f"{errs}")
+    for name, call in (
+            ("confidence_fused", lambda: conf_mod.confidence_fused(
+                torch.randn(4, 1000, device="cuda", requires_grad=True))),
+            ("selective_scan", lambda: scan_mod.selective_scan(
+                *[t.requires_grad_(True) if i == 0 else t for i, t in
+                  enumerate(scan_inputs(torch, 1, 16, 32, 4,
+                                        "float32"))]))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            log(f"{name} under grad on the card raises: {e}")
+        else:
+            raise AssertionError(f"{name} returned a result without a "
+                                 f"gradient path under grad")
+    b, l, h, d = FULL_TRAIN_B, FULL_TRAIN_L, 32, 128
+    q, k, v, _, _ = attn_inputs(torch, b, l, l, h, h, d, 0)
+    dout = torch.randn_like(q)
+    out = fa_mod.flash_attention(q, k, v)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    plain_ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+    def plain():
+        return torch.autograd.grad(fa_mod.attention_ref(*plain_ins), plain_ins,
+                                   dout)
+
+    def sdpa():
+        return torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt),
+                                   (qt, kt, vt), dout.transpose(1, 2))
+    r = dict(backward_device_ms=device_ms(lambda: fa_mod.attention_backward(
+        q, k, v, out, dout), reps=3, inner=5),
+        forward_device_ms=device_ms(lambda: fa_mod.flash_attention(q, k, v)),
+        plain_ms=time_ms(plain, reps=3, inner=3),
+        library_ms=time_ms(sdpa, reps=3, inner=3))
+    # the backward's least time: q, k, v, o, dO read and dq, dk, dv written
+    # once (bf16); its recomputed QKᵀ and four more L×L×d products in f32
+    nbytes = 8 * q.numel() * q.element_size()
+    ops = 5 * 2 * b * h * l * l * d
+    r["bound_ms"] = 1e3 * max(nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S)
+    log(f"flash backward at the full-width training shape (B={b}, L={l}, "
+        f"H={h}, d={d}, bf16): attention_backward on the device alone "
+        f"{r['backward_device_ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
+        f"operations: f32); the kernel's forward "
+        f"{r['forward_device_ms']:.4f} ms; the plain version's forward + "
+        f"backward {r['plain_ms']:.4f} ms, SDPA's {r['library_ms']:.4f} ms "
+        f"(call to call)")
+    return r
+
+
+def _testbed(torch):
+    """The sum testbed's config and dataset."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import CharTokenizer, TaskDataset
+    cfg = get_config("llada-8b").reduced(**TESTBED)
+    return cfg, TaskDataset("sum", CharTokenizer(cfg.vocab_size))
+
+
+def train_step_phase(torch) -> None:
+    """One f32 train step of the testbed on the card against the same
+    step on the CPU: same params, batch and corruption.  Loss within rel
+    1e-5, every gradient leaf's max abs error within 1e-4 of its max |g|,
+    and the updated params within two f32 spacings plus 1e-2 of the
+    step's learning rate wherever the gradient lies above that tolerance
+    (the first update is lr·ĝ/(|ĝ| + eps) with ĝ the clipped gradient,
+    so a gradient within the tolerance of zero may step either way, and
+    one near eps moves its step by up to ~1e-3·lr per 1e-6 of gradient
+    noise)."""
+    import numpy as np
+    from repro_torch.configs import TrainConfig
+    from repro_torch.convert import to_flat
+    from repro_torch.models import init_model
+    from repro_torch.training import adamw_init, make_train_step
+    from repro_torch.training.trainer import corrupt, masters, to_device_batch
+    cfg, ds = _testbed(torch)
+    tcfg = TrainConfig(batch_size=TESTBED_BATCH, seq_len=ds.seq_len,
+                       steps=TESTBED_STEPS)
+    batch = to_device_batch(next(ds.batches(TESTBED_BATCH)), "cpu")
+    corruption = corrupt(torch.Generator().manual_seed(SEED),
+                         batch["tokens"], batch["maskable"], cfg)
+    init = init_model(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    step = make_train_step(cfg, tcfg)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = masters(_to(init) if dev == "cuda" else init)
+        on_dev = ({k: v.to(dev) for k, v in batch.items()},
+                  tuple(c.to(dev) for c in corruption))
+        grads, met = step.grads(params, *on_dev)
+        g = {k: v.copy() for k, v in to_flat(grads).items()}
+        params, _, _ = step.apply(params, adamw_init(params), *on_dev)
+        out[dev] = float(met["loss"]), g, to_flat(params)
+    before = to_flat(init)
+    lr = step.sched(1)
+    (cpu_loss, cpu_g, cpu_p), (gpu_loss, gpu_g, gpu_p) = out["cpu"], \
+        out["cuda"]
+    g_err = {k: float(np.abs(gpu_g[k] - v).max() / np.abs(v).max())
+             for k, v in cpu_g.items()}
+    p_err, bad = {}, []
+    for k, g in cpu_g.items():
+        sure = np.abs(g) > 1e-4 * np.abs(g).max()
+        off = np.abs((gpu_p[k] - before[k]) - (cpu_p[k] - before[k]))
+        off = (off - 2 * np.spacing(np.abs(before[k])))[sure]
+        p_err[k] = float(off.max() / lr) if off.size else 0.0
+        if p_err[k] > 1e-2:
+            bad.append(k)
+    log(f"train step card vs cpu (testbed f32, B={TESTBED_BATCH}, "
+        f"L={ds.seq_len}): loss {gpu_loss} / {cpu_loss}; gradient max abs "
+        f"error over max |g|, worst leaf {max(g_err.values()):.3e} "
+        f"({max(g_err, key=g_err.get)}); updated params beyond two f32 "
+        f"spacings, in units of lr = {lr:.3e}: worst leaf "
+        f"{max(p_err.values()):.3e} ({max(p_err, key=p_err.get)}); off "
+        f"the rule in {bad or 'no'} leaves")
+    if abs(gpu_loss - cpu_loss) > 1e-5 * abs(cpu_loss) or \
+            max(g_err.values()) > 1e-4 or bad:
+        raise AssertionError("the card's train step differs from the CPU's")
+
+
+def testbed_phase(torch) -> None:
+    """The sum testbed trained on the card (``train``, f32, batch 64, up to
+    600 steps), then decoded on these weights: ``fdm`` on
+    ``eval_batch(64)`` under ``none``, ``prefix`` and ``dual`` on the
+    graph drivers, tokens equal to a CPU decode of the same weights, EM
+    and forward-equivalents; then FDM-A's strategy A/B (graph against
+    eager, phase counts and step replays)."""
+    import dataclasses
+    from repro_torch.configs import DecodeConfig, TrainConfig
+    from repro_torch.core import Decoder, decode_cache_scope
+    from repro_torch.training import train
+    cfg, ds = _testbed(torch)
+    probe = TrainConfig(batch_size=TESTBED_BATCH, seq_len=ds.seq_len,
+                        steps=20, log_every=10)
+    _, hist = train(cfg, probe, ds.batches(TESTBED_BATCH), log=None)
+    per_step = (hist["seconds"][-1] - hist["seconds"][1]) / 10
+    steps = min(TESTBED_STEPS, int(TESTBED_BUDGET_S / per_step))
+    tcfg = TrainConfig(batch_size=TESTBED_BATCH, seq_len=ds.seq_len,
+                       steps=steps, log_every=max(steps // 5, 1))
+    t0 = time.perf_counter()
+    params, hist = train(cfg, tcfg, ds.batches(TESTBED_BATCH), log=None)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    log(f"testbed training on the card ({cfg.name}, {steps} of "
+        f"{TESTBED_STEPS} steps, batch {TESTBED_BATCH}, L={ds.seq_len}, "
+        f"f32): loss at steps {hist['step']}: "
+        f"{[round(x, 4) for x in hist['loss']]}, masked-acc "
+        f"{[round(x, 3) for x in hist['acc']]}; {total:.2f} s, "
+        f"{1e3 * total / steps:.2f} ms/step")
+    if not hist["loss"][-1] < 0.7 * hist["loss"][0]:
+        raise AssertionError(f"testbed training did not lower the loss: "
+                             f"{hist['loss']}")
+    cpu_params = _to(params, "cpu")
+    batch = ds.eval_batch(64)
+    prompt = torch.from_numpy(ds.prompts_only(batch)).long()
+    gen = ds.seq_len - prompt.shape[1]
+    block = gen if gen <= 16 else max(gen // 2, 1)   # evaluate_strategy's
+    for policy in POLICIES:
+        dcfg = DecodeConfig(gen_length=gen, block_size=block, steps=gen,
+                            strategy="fdm", k=2, cache_policy=policy)
+        with decode_cache_scope():
+            t0 = time.perf_counter()
+            out, st = Decoder(params, cfg, dcfg).generate(None, prompt.cuda())
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        want, wst = Decoder(cpu_params, cfg, dcfg, device="cpu").generate(
+            None, prompt)
+        same = torch.equal(out.cpu(), want) and \
+            (st.steps, st.forward_equivalents, st.phase_counts) == \
+            (wst.steps, wst.forward_equivalents, wst.phase_counts)
+        em = ds.exact_match(out.cpu().numpy(), batch)
+        log(f"testbed decode fdm {policy} (graph driver, 64 prompts, gen "
+            f"{gen}, block {block}): EM {em}, steps {st.steps}, "
+            f"forward_equivalents {st.forward_equivalents}, {secs:.3f} s "
+            f"(cold); card tokens equal the CPU's: {same}; the reference's "
+            f"BENCH_kv_cache.json (other weights, probability, for context "
+            f"only): EM {REF_KV_EM[policy]}, forward-equivalents "
+            f"{KV_FWD[policy]} at prompt {KV_PROMPT} gen {KV_GEN}")
+        if not same:
+            raise AssertionError(f"testbed fdm {policy}: the card's decode "
+                                 f"differs from the CPU's")
+    dcfg = DecodeConfig(gen_length=gen, block_size=block, steps=gen,
+                        strategy="fdm_a", k1=2)
+    with decode_cache_scope() as scope:
+        decs = {"eager": Decoder(params, cfg, dataclasses.replace(
+            dcfg, fused_loop=False)), "graph": Decoder(params, cfg, dcfg)}
+        decs["graph"].generate(None, prompt.cuda())
+        (run,) = scope.values()
+        run.graphs.reset_counts()
+        secs, outs = {"eager": [], "graph": []}, {}
+        for driver in ("eager", "graph", "graph", "eager"):
+            t0 = time.perf_counter()
+            out, st = decs[driver].generate(None, prompt.cuda())
+            torch.cuda.synchronize()
+            secs[driver].append(time.perf_counter() - t0)
+            outs[driver] = (out, (st.steps, st.forward_equivalents,
+                                  st.phase_counts))
+        replays = run.graphs.replays() / 2
+    same = torch.equal(outs["graph"][0], outs["eager"][0]) and \
+        outs["graph"][1] == outs["eager"][1]
+    med = {d: statistics.median(x) for d, x in secs.items()}
+    steps_, fwd, phases = outs["eager"][1]
+    log(f"testbed strategy a/b fdm_a (trained weights, 64 prompts, gen "
+        f"{gen}): steps {steps_}, forward_equivalents {fwd}, phases "
+        f"{phases}; eager {med['eager']:.4f} s, graph {med['graph']:.4f} s "
+        f"({replays:.0f} step replays per request), graph at "
+        f"{med['eager'] / med['graph']:.3f}x the eager driver's tokens/s; "
+        f"EM {ds.exact_match(outs['graph'][0].cpu().numpy(), batch)}; "
+        f"graph equals eager: {same}")
+    if not same:
+        raise AssertionError("testbed fdm_a: graph decode differs from eager")
+
+
+
+def full_train_phase(torch, fa_mod) -> dict:
+    """Full-width LLaDA-8B (4 of its 32 layers, bf16 compute, f32 masters,
+    ``remat="block"``) trained for ``FULL_TRAIN_STEPS`` steps through
+    ``train`` on seeded random tokens.  The flash launch count is set to
+    0 just before and read just after: exactly 2 × layers per step (the
+    forward and the checkpoint's recomputation; the backward launches
+    none).  Prints ms/step, tokens/s, peak memory and the first loss
+    (≈ ln V at random init).  Returns the path's launches."""
+    import dataclasses
+    import math
+    import numpy as np
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.training import train
+    cfg = dataclasses.replace(get_config("llada-8b"),
+                              num_layers=FULL_TRAIN_LAYERS)
+    rs = np.random.default_rng(SEED)
+
+    def batches():
+        maskable = np.zeros((FULL_TRAIN_B, FULL_TRAIN_L), bool)
+        maskable[:, FULL_TRAIN_L // 2:] = True
+        while True:
+            yield {"tokens": rs.integers(0, cfg.vocab_size - 1,
+                                         (FULL_TRAIN_B, FULL_TRAIN_L)),
+                   "maskable": maskable}
+    tcfg = TrainConfig(batch_size=FULL_TRAIN_B, seq_len=FULL_TRAIN_L,
+                       steps=FULL_TRAIN_STEPS, log_every=1, seed=SEED)
+    # the first step's loss carries the 1/t weight (1/mean t over the
+    # batch's masked positions), so the initial weights' plain masked NLL
+    # is read apart, from the same seeded init: ≈ ln V + ½ (unit-RMS
+    # hidden states against a head of std d^-½ give logits of variance 1)
+    nll = initial_nll(torch, cfg, next(batches()))
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_mod.launches = 0
+    t0 = time.perf_counter()
+    params, hist = train(cfg, tcfg, batches(), log=None)
+    launches = {"flash_attention": fa_mod.launches}
+    total = time.perf_counter() - t0
+    n = count_params(params)
+    step_s = [float(x) for x in np.diff(hist["seconds"])]   # steps 2..
+    ms = 1e3 * statistics.median(step_s)
+    log(f"full-width training {cfg.name} ({cfg.num_layers} of 32 layers, "
+        f"d={cfg.d_model}, {cfg.num_heads} heads, d_ff={cfg.d_ff}, "
+        f"V={cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}; {n} "
+        f"parameters, f32 masters; B={FULL_TRAIN_B}, L={FULL_TRAIN_L}): "
+        f"{FULL_TRAIN_STEPS} steps in {total:.2f} s with init; losses "
+        f"{[round(x, 4) for x in hist['loss']]} (ln V = "
+        f"{math.log(cfg.vocab_size):.4f}); step ms "
+        f"{[round(1e3 * x, 2) for x in step_s]}, median {ms:.2f} ms, tokens/s "
+        f"{FULL_TRAIN_B * FULL_TRAIN_L / (ms / 1e3):.1f}; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB; flash "
+        f"launches {launches['flash_attention']} "
+        f"({launches['flash_attention'] / FULL_TRAIN_STEPS:.0f} per step); "
+        f"{nvidia_smi()}")
+    log(f"full-width training: initial masked NLL {nll:.4f} (ln V + 1/2 = "
+        f"{math.log(cfg.vocab_size) + 0.5:.4f}); first weighted loss "
+        f"{hist['loss'][0]:.4f}")
+    train_step_profile(torch, cfg, tcfg, params, next(batches()))
+    want = 2 * cfg.num_layers * FULL_TRAIN_STEPS
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"full-width training: {launches} flash "
+                             f"launches, want {want}")
+    if not all(math.isfinite(x) for x in hist["loss"]) or \
+            abs(nll - math.log(cfg.vocab_size) - 0.5) > 0.5:
+        raise AssertionError(f"full-width training: initial NLL {nll}, "
+                             f"losses {hist['loss']}")
+    return launches
+
+
+# kernel groups of a training step's device profile (first match wins)
+TRAIN_GROUPS = {"GEMMs (cuBLAS)": ("gemm", "xmma", "nvjet", "cutlass"),
+                "foreach (AdamW moments, clip scale)":
+                    ("multi_tensor_apply",),
+                "flash forward (hand-written)": ("flash_",),
+                "softmax": ("softmax",),
+                "reductions": ("reduce_kernel",),
+                "index, gather, scatter": ("index", "gather", "scatter"),
+                "elementwise": ("elementwise",)}
+
+
+def train_step_profile(torch, cfg, tcfg, params, batch) -> None:
+    """Where a full-width training step's device time goes: the trained
+    params as masters with fresh AdamW state, two profiled steps after
+    two warm ones, kernels grouped by ``TRAIN_GROUPS``."""
+    from repro_torch.training import adamw_init, make_train_step
+    from repro_torch.training.trainer import masters, to_device_batch
+    state = {"p": masters(params)}
+    state["opt"] = adamw_init(state["p"])
+    step = make_train_step(cfg, tcfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = to_device_batch(batch, "cuda")
+
+    def one():
+        state["p"], state["opt"], _ = step(state["p"], state["opt"], gen,
+                                           batch)
+    device_profile(torch, f"{cfg.name} ({cfg.num_layers} layers) training "
+                   f"step B={FULL_TRAIN_B} L={FULL_TRAIN_L}", one, top=10,
+                   groups=TRAIN_GROUPS)
+
+
+def initial_nll(torch, cfg, batch) -> float:
+    """The mean NLL over ``batch``'s maskable positions, all masked, of
+    the weights ``train`` starts from (``init_model`` on the card from
+    ``SEED``, f32), under ``no_grad``."""
+    from repro_torch.core.loss import masked_cross_entropy
+    from repro_torch.models import forward, init_model
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda", dtype=torch.float32)
+    tokens = torch.from_numpy(batch["tokens"]).cuda()
+    masked = torch.from_numpy(batch["maskable"]).cuda()
+    with torch.no_grad():
+        logits = forward(params, torch.where(masked, cfg.mask_token_id,
+                                             tokens), cfg)
+        loss, _ = masked_cross_entropy(logits, tokens, masked,
+                                       torch.ones(len(tokens),
+                                                  device="cuda"))
+    return float(loss)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1173,11 +1593,31 @@ def main() -> None:
             "selective_scan": scan_mod}, scope)
     forward_phase(torch, cfg, params)
     log(f"serving phase hymba-1.5b: {time.perf_counter() - t0:.1f} s")
+    clear_decode_cache()
+    del params
+    torch.cuda.empty_cache()
+
+    # 7.-10. training: the flash gradient, one step against the CPU, the
+    # testbed trained and decoded, full-width LLaDA-8B's steps
+    t0 = time.perf_counter()
+    flash_grad = flash_grad_phase(torch, fa_mod, conf_mod, scan_mod)
+    log(f"flash gradient phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_step_phase(torch)
+    log(f"train step phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    testbed_phase(torch)
+    clear_decode_cache()
+    log(f"testbed phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    training = full_train_phase(torch, fa_mod)
+    log(f"full-width training phase: {time.perf_counter() - t0:.1f} s")
 
     def launches(kernel):
         by_path = {"llada-8b" + ("" if p == "none" else f"-{p}"):
                    llada[p].get(kernel, 0) for p in POLICIES}
         by_path["hymba-1.5b"] = hymba[kernel]
+        by_path["llada-8b-train"] = training.get(kernel, 0)
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -1200,7 +1640,8 @@ def main() -> None:
          "bound_by": attn_entry["bound_by"],
          "library_ms": attn_entry["library_ms"],
          "device_ms": attn_entry["device_ms"],
-         "library_device_ms": attn_entry["library_device_ms"]},
+         "library_device_ms": attn_entry["library_device_ms"],
+         "backward": flash_grad},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
          "replaces": "src/repro/kernels/selective_scan.py:67",

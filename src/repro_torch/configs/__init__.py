@@ -10,7 +10,7 @@ from typing import Dict, List
 
 from repro_torch.configs.base import (DecodeConfig, EncDecConfig,
                                       ExecutionConfig, MLAConfig, ModelConfig,
-                                      MoEConfig, SSMConfig,
+                                      MoEConfig, SSMConfig, TrainConfig,
                                       default_block_size)
 
 _MODULES: Dict[str, str] = {
@@ -34,6 +34,6 @@ def list_configs() -> List[str]:
 
 __all__ = [
     "ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig", "EncDecConfig",
-    "DecodeConfig", "ExecutionConfig", "default_block_size",
+    "DecodeConfig", "ExecutionConfig", "TrainConfig", "default_block_size",
     "get_config", "list_configs",
 ]

@@ -1,10 +1,10 @@
 """Config dataclasses for the PyTorch port.
 
 A field-for-field copy of the reference package's ``configs/base.py``
-(model and decode configs), kept here so the port imports nothing of the
-reference.  Configs are frozen dataclasses, so they hash and can key the
-serving engine's batch buckets.  The serving-stack and training configs
-arrive with the slices that port those layers.
+(model, decode and training configs), kept here so the port imports
+nothing of the reference.  Configs are frozen dataclasses, so they hash
+and can key the serving engine's batch buckets.  The serving-stack
+configs arrive with the slice that ports that layer.
 """
 from __future__ import annotations
 
@@ -85,7 +85,8 @@ class ModelConfig:
     mask_token_id: int = -1           # -1 -> vocab_size - 1 (reserved)
     max_seq_len: int = 4096
     dtype: str = "bfloat16"
-    remat: str = "none"               # kept for field parity; unused here
+    remat: str = "none"               # none | block: checkpoint each
+                                      # block when training (model.forward)
     unroll: bool = False              # kept for field parity; unused here
 
     def __post_init__(self):
@@ -254,3 +255,18 @@ def default_block_size(gen_length: int) -> int:
     """Largest block ≤ gen_length/2 that divides gen_length; 1 for primes."""
     return next((b for b in range(gen_length // 2, 1, -1)
                  if gen_length % b == 0), 1)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 32
+    seq_len: int = 64
+    steps: int = 300
+    lr: float = 3e-4
+    warmup: int = 20
+    weight_decay: float = 0.01
+    clip_norm: float = 1.0
+    seed: int = 0
+    log_every: int = 50
+    eval_every: int = 100
+    ckpt_dir: str = ""

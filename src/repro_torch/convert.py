@@ -12,7 +12,7 @@ stacks every layer is one group.
   paths, list indices as numbers).
 * ``to_flat(params)`` — the port's params -> that flat ``{path: array}``
   form with the layer axis restacked, so a round trip can be checked leaf
-  by leaf.
+  by leaf; ``from_flat`` is its inverse.
 """
 from __future__ import annotations
 
@@ -95,6 +95,12 @@ def _nest(flat: Dict[str, np.ndarray]) -> dict:
     return lists(root)
 
 
+def from_flat(flat: Dict[str, np.ndarray], device="cuda",
+              dtype: Optional[torch.dtype] = None) -> dict:
+    """``{reference path: array}`` (``to_flat``'s form) -> port params."""
+    return from_jax_params(_nest(flat), device=device, dtype=dtype)
+
+
 def from_npz(path: str, device="cuda",
              dtype: Optional[torch.dtype] = None) -> dict:
     """Reference ``.npz`` checkpoint -> port params on ``device``."""
@@ -103,7 +109,7 @@ def from_npz(path: str, device="cuda",
                 if k.startswith("params/")}
     if not flat:
         raise ValueError(f"{path}: no 'params/' entries")
-    return from_jax_params(_nest(flat), device=device, dtype=dtype)
+    return from_flat(flat, device=device, dtype=dtype)
 
 
 def to_flat(params: dict) -> Dict[str, np.ndarray]:

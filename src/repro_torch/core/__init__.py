@@ -1,6 +1,7 @@
 """Foreseeing decoding for masked-diffusion LMs, in PyTorch.
 
-  masking     — inference start states
+  masking     — the training corruption and inference start states
+  loss        — the masked-diffusion objective (Eq. 4) and accuracy
   confidence  — C_local metrics + the C_global (foreseeing) estimator
   strategies  — the Strategy protocol + registry; Random/Probability/
                 Margin/Entropy + EB + WINO baselines

@@ -17,6 +17,10 @@ of the port on a machine with no ``nvcc``.  A missing toolchain raises.
 the C function bound once (``argtypes``, ``restype``) when its library
 loads, then a dictionary read with no lock, so a wrapper called while a
 CUDA graph is capturing does nothing on the host but launch.
+
+``refuse_grad(name, *inputs)`` guards a kernel that has no backward: its
+ctypes call leaves no autograd node, so it raises where autograd would
+need one.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("confidence", "flash_attention", "selective_scan")
@@ -117,3 +123,14 @@ def function(name: str, symbol: str, argtypes: Sequence) -> Callable:
         fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
         _FUNCS[symbol] = fn
     return fn
+
+
+def refuse_grad(name: str, *inputs: torch.Tensor) -> None:
+    """Raise rather than return a kernel's result without a gradient path
+    where autograd would need one (the CPU paths differentiate; ROADMAP.md
+    queue 3 item 2)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward and an input "
+            f"requires grad; call it under torch.no_grad(), or on the CPU "
+            f"(ROADMAP.md queue 3 item 2)")

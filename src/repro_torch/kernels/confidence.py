@@ -7,7 +7,8 @@ tensor it launches the hand-written kernel in ``csrc/confidence.cu`` once
 (one CTA per row, one pass over the vocab: the row's head up to its first
 16-byte boundary, then 16-byte vector loads, four in flight per thread,
 then the tail) or raises; on a CPU tensor it runs ``confidence_ref``, the
-plain version.  There is no fallback from one to the other.
+plain version.  There is no fallback from one to the other.  The kernel
+has no backward, so on a card it raises under grad (``_build.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ def confidence_fused(logits: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     if logits.device.type != "cuda":
         raise ValueError(f"confidence_fused: unsupported device "
                          f"{logits.device}")
+    _build.refuse_grad("confidence_fused", logits)
     if logits.dtype not in _DTYPE_CODE:
         raise ValueError(f"confidence_fused: dtype {logits.dtype} not "
                          f"supported (float32 or bfloat16)")

@@ -13,6 +13,13 @@ In bf16 the kernel runs on the tensor cores and copies 16-byte chunks, so
 a bf16 tensor whose storage starts off a 16-byte boundary (a view at an
 odd element offset; never a fresh allocation) is refused with a
 ``RuntimeError``; f32 runs the FMA kernel.
+
+The card's result is differentiable: the kernel runs inside
+``FlashAttention``, an ``autograd.Function`` whose backward is
+``attention_backward``, explicit tensor ops that recompute the
+probabilities in f32 (there is no backward kernel: the reference
+differentiates its plain jnp attention, and no Pallas kernel has a
+backward).  On the CPU autograd differentiates ``attention_ref``.
 """
 from __future__ import annotations
 
@@ -78,12 +85,53 @@ def _check(q, k, v, window, q_offset):
         raise ValueError("flash_attention: q, k and v must be contiguous")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: int = 0, q_offset: int = 0) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, window, q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+# query rows per recomputation in the backward: the reference's SDPA_CHUNK,
+# so no (B, H, Lq, Lk) f32 tensor is held for more rows than that
+BACKWARD_CHUNK = 1024
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       out: torch.Tensor, dout: torch.Tensor,
+                       window: int = 0, q_offset: int = 0,
+                       chunk: int = BACKWARD_CHUNK):
+    """(dq, dk, dv) of ``out = softmax(q kᵀ d^-½) v`` (band and q offset as
+    in the forward) from q, k, v, the forward's ``out`` and its cotangent
+    ``dout``, in the inputs' dtypes.  P is recomputed in f32, ``chunk``
+    query rows at a time; then dV = Pᵀ dO, dP = dO Vᵀ,
+    dS = P ⊙ (dP − rowsum(dO ⊙ O)), dQ = dS K d^-½ and dK = dSᵀ Q d^-½,
+    with dK and dV summed over each kv head's H/G query heads."""
+    b, lq, h, d = q.shape
+    lk, g = k.shape[1], k.shape[2]
+    rep = h // g
+    scale = d ** -0.5
+    kf = k.float().repeat_interleave(rep, dim=2)          # (B, Lk, H, d)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    dq = torch.empty(b, lq, h, d, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(b, lk, h, d, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    ki = torch.arange(lk, device=q.device)
+    for lo in range(0, lq, chunk):
+        hi = min(lo + chunk, lq)
+        qc, doc = q[:, lo:hi].float(), dout[:, lo:hi].float()
+        scores = torch.einsum("bqhd,bkhd->bhqk", qc, kf) * scale
+        if window:
+            qi = q_offset + lo + torch.arange(hi - lo, device=q.device)
+            band = (qi[:, None] - ki[None, :]).abs() < window
+            scores = torch.where(band, scores, torch.full_like(scores, -1e30))
+        p = torch.softmax(scores, dim=-1)
+        dv += torch.einsum("bhqk,bqhd->bkhd", p, doc)
+        dp = torch.einsum("bqhd,bkhd->bhqk", doc, vf)
+        rowsum = (doc * out[:, lo:hi].float()).sum(-1)     # (B, q, H)
+        ds = p * (dp - rowsum.transpose(1, 2)[..., None])
+        dq[:, lo:hi] = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds, qc) * scale
+    if rep > 1:
+        dk = dk.reshape(b, lk, g, rep, d).sum(3)
+        dv = dv.reshape(b, lk, g, rep, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch(q, k, v, window, q_offset):
     _check(q, k, v, window, q_offset)
     b, lq, h, d = q.shape
     lk, g = k.shape[1], k.shape[2]
@@ -101,3 +149,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     launches += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel as a differentiable op: forward launches it and saves
+    q, k, v and its output; backward is ``attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, q_offset):
+        out = _launch(q, k, v, window, q_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.band = (window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        return (*attention_backward(q, k, v, out, dout, *ctx.band),
+                None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int = 0, q_offset: int = 0) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, window, q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return FlashAttention.apply(q, k, v, window, q_offset)

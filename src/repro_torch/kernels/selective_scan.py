@@ -15,7 +15,8 @@ is cut into chunks of ``chunk_len(B, L, di)`` steps, pass 1 writes each
 chunk's end state and decay product to an f32 workspace that this
 wrapper allocates, and pass 2 folds those carries and walks each chunk
 again for y.  It never writes the ``(B, L, di, N)`` decay/drive tensors.
-Its two launches count as one in ``launches``.
+Its two launches count as one in ``launches``.  The kernel has no
+backward, so on a card it raises under grad (``_build.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -103,6 +104,7 @@ def selective_scan(x: torch.Tensor, delta: torch.Tensor, b_sel: torch.Tensor,
         return selective_scan_ref(x, delta, b_sel, c_sel, a_log)
     if x.device.type != "cuda":
         raise ValueError(f"selective_scan: unsupported device {x.device}")
+    _build.refuse_grad("selective_scan", x, delta, b_sel, c_sel, a_log)
     a_log = a_log.float()
     _check(x, delta, b_sel, c_sel, a_log)
     bsz, length, di = x.shape

@@ -162,20 +162,39 @@ def embed_tokens(p: Params, tokens: torch.Tensor,
     return p["tok"][tokens].to(compute_dtype(cfg))
 
 
+class HeadMatmul(torch.autograd.Function):
+    """``x2 @ w`` of bf16 operands to f32 logits on the card: cuBLAS's
+    f32-output bf16 GEMM (``torch.mm(..., out_dtype=torch.float32)``),
+    which has no derivative in the card's torch, with a backward of two
+    GEMMs in the operands' dtype (f32 accumulation): the cotangent is cast
+    to it, and so are the gradients."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dlogits):
+        x2, w = ctx.saved_tensors
+        g = dlogits.to(x2.dtype)
+        return g @ w.t(), x2.t() @ g
+
+
 def lm_head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """f32 logits from compute-dtype operands with f32 accumulation (the
     reference's ``preferred_element_type=float32``).  A bf16 matmul would
     round the logits to bf16 and move argmaxes and margins, so on the card
     the product goes through cuBLAS's f32-output bf16 GEMM
-    (``torch.mm(..., out_dtype=torch.float32)``); on the CPU the operands
-    are widened to f32, which computes the same exact products."""
+    (``HeadMatmul``); on the CPU the operands are widened to f32, which
+    computes the same exact products."""
     dt = compute_dtype(cfg)
     w = p["head"].to(dt)
     x2 = x.to(dt).reshape(-1, x.shape[-1])
     if dt == torch.float32:
         logits = x2 @ w
     elif x2.device.type == "cuda":
-        logits = torch.mm(x2, w, out_dtype=torch.float32)
+        logits = HeadMatmul.apply(x2, w)
     else:
         logits = x2.float() @ w.float()
     return logits.reshape(*x.shape[:-1], w.shape[1])

@@ -4,7 +4,8 @@ Parameters are a plain dict of tensors, held per layer: ``{"embed":
 {"tok", "head"}, "norm_f": {"scale"}, "blocks": [layer dict, ...]}`` —
 the reference's tree with its stacked layer axis unstacked into a list
 (``repro_torch.convert`` bridges the two).  PyTorch runs eagerly, so the
-layers are a Python loop.
+layers are a Python loop; with ``cfg.remat == "block"`` a forward that
+autograd records checkpoints each block.
 
 The fixed-shape block cache (DESIGN.md "The KV cache"): ``capture_cache``
 runs one full pass over the canvas and keeps every layer's K/V,
@@ -15,6 +16,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -67,9 +69,24 @@ def forward(params: Params, tokens: torch.Tensor,
     x = embed_tokens(params["embed"], tokens, cfg)
     rope = forward_rope(cfg, tokens.shape[1], device=tokens.device)
     for i, p in enumerate(params["blocks"]):
-        x = blocks_lib.block_forward(p, x, rope, cfg, i)
+        if cfg.remat == "block" and torch.is_grad_enabled() and \
+                _requires_grad(p):
+            # the reference's jax.checkpoint per layer: keep the block's
+            # input, recompute its insides in the backward (decodes never
+            # get here: their params do not require grad); a block draws
+            # no random numbers, so no RNG state is stashed
+            x = checkpoint(blocks_lib.block_forward, p, x, rope, cfg, i,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = blocks_lib.block_forward(p, x, rope, cfg, i)
     x = apply_norm(params["norm_f"], x, cfg)
     return lm_head(params["embed"], x, cfg)
+
+
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    return tree.requires_grad
 
 
 # the block cache's state: one KVCache per layer, each covering the whole

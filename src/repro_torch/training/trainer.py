@@ -1,0 +1,189 @@
+"""The training loop: the Eq. 4 masked-diffusion objective + AdamW
+(reference: ``src/repro/training/trainer.py``).
+
+Gradients come from autograd over the model's forward: on the card that
+forward runs the flash-attention kernel, whose ``autograd.Function``
+recomputes the probabilities in its backward
+(``kernels/flash_attention.py``), and the bf16 LM head's f32-output GEMM
+(``models/layers.py:HeadMatmul``).  The confidence and selective-scan
+kernels have no backward and raise under grad, so a Hymba config trains
+on the CPU only so far.  Master weights are f32; the forward casts them
+to the compute dtype at each matmul.
+
+A step is split at the corruption: ``TrainStep.__call__`` draws
+``(corrupted, masked, t)`` from its generator, ``TrainStep.apply`` takes
+them as given, so a test can inject the reference's draws.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core.loss import masked_cross_entropy, token_accuracy
+from repro_torch.core.masking import apply_mask, sample_mask_ratio
+from repro_torch.device import resolve_device
+from repro_torch.models.model import forward, init_model
+from repro_torch.training.checkpoint import save
+from repro_torch.training.optimizer import (AdamWState, adamw_init,
+                                            adamw_update, cosine_schedule,
+                                            leaves, tree_map)
+
+# a step's corruption: (corrupted tokens (B, L), masked (B, L) bool,
+# t (B,) f32)
+Corruption = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def corrupt(generator: torch.Generator, tokens: torch.Tensor,
+            maskable: torch.Tensor, cfg: ModelConfig) -> Corruption:
+    """Draw a step's corruption: t per row, then the masked positions."""
+    t = sample_mask_ratio(generator, tokens.shape[0])
+    corrupted, masked = apply_mask(generator, tokens, t, cfg, maskable)
+    return corrupted, masked, t
+
+
+class TrainStep:
+    """``step(params, opt_state, generator, batch) -> (params, opt_state,
+    metrics)``; ``batch`` = {tokens (B, L) int, maskable (B, L) bool}, on
+    the params' device.
+
+    ``bf16_params=True`` casts the f32 masters to bf16 once at the top of
+    the loss (the reference's mixed-precision ZeRO option); the optimizer
+    still updates the f32 masters.  ``microbatch > 1`` accumulates the
+    gradients of that many equal slices of the batch, then averages them
+    and the metrics."""
+
+    def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
+                 bf16_params: bool = False, microbatch: int = 1):
+        self.cfg, self.tcfg = cfg, tcfg
+        self.bf16_params, self.microbatch = bf16_params, microbatch
+        self.sched = cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.steps)
+
+    def loss(self, params, batch: Dict[str, torch.Tensor],
+             corruption: Corruption):
+        """(loss, metrics) of one (micro)batch under ``corruption``."""
+        tokens = batch["tokens"]
+        if self.bf16_params:
+            params = tree_map(lambda p: p.to(torch.bfloat16)
+                              if p.dtype == torch.float32 else p, params)
+        corrupted, masked, t = corruption
+        logits = forward(params, corrupted, self.cfg)
+        loss, _ = masked_cross_entropy(logits, tokens, masked, t)
+        acc = token_accuracy(logits.detach(), tokens, masked)
+        # no MoE aux loss: the port runs no MoE block yet
+        return loss, {"loss": loss.detach(), "acc": acc}
+
+    def grads(self, params, batch: Dict[str, torch.Tensor],
+              corruption: Corruption):
+        """(gradients in the tree of ``params``, metrics)."""
+        leaf = leaves(params)
+        n = self.microbatch
+        if n == 1:
+            loss, metrics = self.loss(params, batch, corruption)
+            flat = list(torch.autograd.grad(loss, leaf))
+        else:
+            flat, mets = None, []
+            for i in range(n):
+                sl = slice(i * len(batch["tokens"]) // n,
+                           (i + 1) * len(batch["tokens"]) // n)
+                loss, met = self.loss(params, {k: v[sl] for k, v in
+                                               batch.items()},
+                                      tuple(c[sl] for c in corruption))
+                g = torch.autograd.grad(loss, leaf)
+                flat = list(g) if flat is None else \
+                    torch._foreach_add(flat, g)
+                mets.append(met)
+            torch._foreach_div_(flat, float(n))
+            metrics = {k: torch.stack([m[k] for m in mets]).mean(0)
+                       for k in mets[0]}
+        it = iter(flat)
+        return tree_map(lambda _: next(it), params), metrics
+
+    def apply(self, params, opt_state: AdamWState,
+              batch: Dict[str, torch.Tensor], corruption: Corruption):
+        """The step under a given corruption: gradients, then AdamW (the
+        masters and the moments are updated in place)."""
+        grads, metrics = self.grads(params, batch, corruption)
+        params, opt_state = adamw_update(
+            grads, opt_state, params, self.sched,
+            weight_decay=self.tcfg.weight_decay,
+            clip_norm=self.tcfg.clip_norm)
+        return params, opt_state, metrics
+
+    def __call__(self, params, opt_state: AdamWState,
+                 generator: torch.Generator,
+                 batch: Dict[str, torch.Tensor]):
+        corruption = corrupt(generator, batch["tokens"], batch["maskable"],
+                             self.cfg)
+        return self.apply(params, opt_state, batch, corruption)
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    bf16_params: bool = False,
+                    microbatch: int = 1) -> TrainStep:
+    return TrainStep(cfg, tcfg, bf16_params=bf16_params,
+                     microbatch=microbatch)
+
+
+def to_device_batch(batch: Dict[str, np.ndarray], device
+                    ) -> Dict[str, torch.Tensor]:
+    """A ``TaskDataset`` batch -> {tokens int64, maskable bool} on
+    ``device``."""
+    return {"tokens": torch.from_numpy(np.asarray(batch["tokens"],
+                                                  np.int64)).to(device),
+            "maskable": torch.from_numpy(np.asarray(batch["maskable"],
+                                                    bool)).to(device)}
+
+
+def masters(params) -> dict:
+    """f32 copies of ``params`` that require grad (the caller's tensors
+    are left as they are)."""
+    return tree_map(lambda p: p.detach().to(torch.float32, copy=True)
+                    .requires_grad_(True), params)
+
+
+def train(cfg: ModelConfig, tcfg: TrainConfig,
+          batches: Iterator[Dict[str, np.ndarray]], params=None,
+          log: Optional[Callable[[str], None]] = print,
+          eval_fn: Optional[Callable] = None,
+          device="cuda") -> Tuple[dict, Dict]:
+    """Run ``tcfg.steps`` steps over the ``batches`` iterator on
+    ``device``.  ``params`` (default: ``init_model`` from ``tcfg.seed``)
+    are copied to f32 masters.  Returns the trained f32 params, with
+    ``requires_grad`` off (ready for ``Decoder`` and ``ServingEngine``),
+    and a history of ``loss``, ``acc`` and ``seconds`` (since the first
+    step) at each logged step (``step`` 1, every ``tcfg.log_every``-th and
+    the last).  ``eval_fn(params, step)`` runs every
+    ``tcfg.eval_every`` steps.  With ``tcfg.ckpt_dir`` the result is saved
+    to ``final.npz`` there, in the reference's layout."""
+    dev = resolve_device(device)
+    generator = torch.Generator(device=dev).manual_seed(tcfg.seed)
+    if params is None:
+        params = init_model(cfg, generator, dev, dtype=torch.float32)
+    params = masters(params)
+    opt_state = adamw_init(params)
+    step_fn = make_train_step(cfg, tcfg)
+    history = {"step": [], "loss": [], "acc": [], "seconds": []}
+    t0 = time.perf_counter()
+    for step in range(1, tcfg.steps + 1):
+        batch = to_device_batch(next(batches), dev)
+        params, opt_state, metrics = step_fn(params, opt_state, generator,
+                                             batch)
+        if step % tcfg.log_every == 0 or step == 1 or step == tcfg.steps:
+            loss, acc = float(metrics["loss"]), float(metrics["acc"])
+            history["step"].append(step)
+            history["loss"].append(loss)
+            history["acc"].append(acc)
+            history["seconds"].append(time.perf_counter() - t0)
+            if log:
+                log(f"step {step:5d}  loss {loss:.4f}  masked-acc "
+                    f"{acc:.3f}  ({history['seconds'][-1]:.1f}s)")
+        if eval_fn and step % tcfg.eval_every == 0:
+            eval_fn(params, step)
+    params = tree_map(lambda p: p.detach().requires_grad_(False), params)
+    if tcfg.ckpt_dir:
+        save(f"{tcfg.ckpt_dir}/final.npz", params, opt_state, tcfg.steps)
+    return params, history

@@ -574,3 +574,126 @@ def test_interleaved_graph_decodes_share_one_pool(cuda):
     assert torch.equal(got, want)
     assert torch.equal(fin.value.value[0], want)
     assert len(runs) == 2 and runs[0].graphs.pool == runs[1].graphs.pool
+
+
+# --------------------------------------------------------------------------
+# training on the card: the flash kernel's gradient, the kernels without one
+# --------------------------------------------------------------------------
+
+# (B, Lq, Lk, H, G, d, window, q_offset, dtype): LLaDA-8B's heads in bf16,
+# the f32 testbed's heads, and a GQA band at a q offset in both dtypes
+FLASH_GRAD_CASES = [(2, 128, 128, 32, 32, 128, 0, 0, torch.bfloat16),
+                    (2, 11, 11, 4, 4, 64, 0, 0, torch.float32),
+                    (2, 32, 128, 8, 2, 64, 32, 64, torch.float32),
+                    (2, 32, 128, 8, 2, 64, 32, 64, torch.bfloat16)]
+
+
+def _rel(got, want):
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("b,lq,lk,h,g,d,w,qo,dtype", FLASH_GRAD_CASES)
+def test_flash_gradient_matches_plain(cuda, b, lq, lk, h, g, d, w, qo, dtype):
+    """dq, dk, dv through the kernel's ``autograd.Function`` against
+    autograd of the plain version on the card: max abs error within 1e-4
+    (f32) or 2e-2 (bf16) of the largest gradient; one launch in the
+    forward, none in the backward."""
+    gen = torch.Generator(device=cuda).manual_seed(lq + g)
+    q, k, v = (torch.randn(*s, generator=gen, device=cuda).to(dtype)
+               for s in ((b, lq, h, d), (b, lk, g, d), (b, lk, g, d)))
+    dout = torch.randn(b, lq, h, d, generator=gen, device=cuda).to(dtype)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = fa_mod.launches
+    out = fa_mod.flash_attention(*ins, w, qo)
+    assert out.grad_fn is not None and fa_mod.launches == before + 1
+    got = torch.autograd.grad(out, ins, dout)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == before + 1
+    ref_ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(fa_mod.attention_ref(*ref_ins, w, qo),
+                               ref_ins, dout)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for gt, wt in zip(got, want):
+        assert gt.dtype == dtype and gt.shape == wt.shape
+        assert _rel(gt, wt) <= tol
+
+
+def test_kernels_without_a_backward_raise_under_grad(cuda):
+    """The confidence and selective-scan kernels have no backward: on a
+    card they raise where autograd would need one, and run under
+    ``no_grad``."""
+    logits = torch.randn(4, 1000, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        conf_mod.confidence_fused(logits)
+    with torch.no_grad():
+        conf_mod.confidence_fused(logits)
+    x = torch.randn(1, 16, 32, device=cuda, requires_grad=True)
+    delta = torch.rand(1, 16, 32, device=cuda)
+    bs, cs = (torch.randn(1, 16, 4, device=cuda) for _ in range(2))
+    a_log = torch.zeros(32, 4, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        scan_mod.selective_scan(x, delta, bs, cs, a_log)
+    with torch.no_grad():
+        scan_mod.selective_scan(x, delta, bs, cs, a_log)
+
+
+def test_bf16_head_gradient_matches_f32_autograd(cuda):
+    """The bf16 LM head's f32-output GEMM (``HeadMatmul``) against
+    autograd of the same operands widened to f32: logits within 1e-5,
+    gradients within 2e-2 of the largest."""
+    from repro_torch.models.layers import HeadMatmul
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(96, 256, generator=gen, device=cuda).bfloat16()
+    w = torch.randn(256, 1000, generator=gen, device=cuda).bfloat16()
+    dl = torch.randn(96, 1000, generator=gen, device=cuda)
+    ins = [t.clone().requires_grad_(True) for t in (x, w)]
+    out = HeadMatmul.apply(*ins)
+    got = torch.autograd.grad(out, ins, dl)
+    ref_ins = [t.float().requires_grad_(True) for t in (x, w)]
+    ref = ref_ins[0] @ ref_ins[1]
+    want = torch.autograd.grad(ref, ref_ins, dl)
+    assert out.dtype == torch.float32
+    assert _rel(out, ref) <= 1e-5
+    for gt, wt in zip(got, want):
+        assert gt.dtype == torch.bfloat16 and _rel(gt, wt) <= 2e-2
+
+
+@pytest.mark.parametrize("remat", ["none", "block"])
+def test_card_trains_the_testbed(cuda, remat):
+    """Two steps of ``train`` on the card: finite losses, params back
+    without ``requires_grad``, and per step one flash launch per layer in
+    the forward, plus one more per layer when ``remat="block"``
+    recomputes each block in the backward."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import CharTokenizer, TaskDataset
+    from repro_torch.training import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llada-8b").reduced(num_layers=4, d_model=256,
+                                         num_heads=4, num_kv_heads=4,
+                                         d_ff=1024, remat=remat)
+    ds = TaskDataset("sum", CharTokenizer(cfg.vocab_size))
+    tcfg = TrainConfig(batch_size=8, seq_len=ds.seq_len, steps=2,
+                       log_every=1)
+    before = fa_mod.launches
+    params, history = train(cfg, tcfg, ds.batches(8), log=None, device=cuda)
+    per_layer = 2 if remat == "block" else 1
+    assert fa_mod.launches - before == 2 * per_layer * cfg.num_layers
+    assert len(history["loss"]) == 2
+    assert all(torch.isfinite(torch.tensor(history["loss"])))
+    assert params["embed"]["tok"].is_cuda
+    assert not params["embed"]["tok"].requires_grad
+
+
+def test_hymba_training_on_the_card_raises(cuda):
+    """The scan has no gradient on the card yet (ROADMAP.md): training a
+    Hymba config there raises rather than dropping the Mamba branch's
+    gradient."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import CharTokenizer, TaskDataset
+    from repro_torch.training import train
+    cfg = get_config("hymba-1.5b").reduced()
+    ds = TaskDataset("sum", CharTokenizer(cfg.vocab_size))
+    with pytest.raises(RuntimeError, match="no backward"):
+        train(cfg, TrainConfig(batch_size=4, seq_len=ds.seq_len, steps=1),
+              ds.batches(4), log=None, device=cuda)
