@@ -78,7 +78,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. training — full-width LLaDA-8B cut to 4 of its 32 layers trained a
              few steps (B=2, L=512): ms/step, tokens/s, peak memory, the
              initial NLL, exactly 2 flash launches per layer and step
-             (the path's launch count), and one step's device profile.
+             (the path's launch count), and one step's device profile;
+11. http serving — the async stack (``ServerThread`` → ``ModelRouter`` →
+             ``AsyncScheduler`` → ``ServingEngine``, every decode on the
+             card's worker thread) over real sockets: full-width LLaDA-8B
+             (random bf16 weights, seed 0) at the engine's default batch
+             of 8 with Hymba-1.5B registered beside it; 8 concurrent
+             clients stream 24 requests (prompts 41-64, gen 64, block 32,
+             64 steps; fdm, fdm_a, probability; none, prefix, dual), and
+             every request's tokens must equal its own batch decoded
+             directly by ``Decoder.generate`` (the engine records each
+             batch's prompts, config and seed); decode and wall tokens/s,
+             latency, queue wait, batches and real rows per batch,
+             forward-equivalents per token, executed launches (the path
+             ``llada-8b-http``); then a seeded fault schedule (a poison
+             request quarantined with one terminal error, the survivors
+             equal to a fault-free run), Hymba's first request under a
+             budget that holds one model (LLaDA evicted: allocated memory
+             must fall by at least its weights' bytes), a drain with
+             requests in flight (503 during it, one terminal event per
+             stream), and ``python -m repro_torch.launch.serve
+             --selftest``.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -1071,6 +1091,419 @@ def strategy_ab_phase(torch, cfg, params) -> None:
 
 
 # --------------------------------------------------------------------------
+# http serving (phase 11): the async stack over real sockets
+# --------------------------------------------------------------------------
+
+# LLaDA-8B behind ServerThread → ModelRouter → AsyncScheduler → engine at
+# the engine's default batch (8), Hymba-1.5B registered beside it; 8
+# concurrent clients send 3 requests each (prompts 41-64, gen 64, block
+# 32, 64 steps; fdm, fdm_a, probability; each client's requests under
+# none, then prefix, then dual), one length bucket for all prompts
+HTTP_MAX_BATCH = 8
+HTTP_CLIENTS = 8
+HTTP_STRATEGIES = ("fdm", "fdm_a", "probability")
+HTTP_BUCKET = 32
+HTTP_FAULT_PROMPTS = 4            # one batch under a seeded fault schedule
+HTTP_DRAIN_REQUESTS = 6
+HTTP_DRAIN_DEADLINE_S = 0.5
+HTTP_DEVICE = "cuda"
+
+
+def _http_router(torch, records: list):
+    """A router of LLaDA-8B and Hymba-1.5B on the card: each factory makes
+    its model's random bf16 weights from the seed (on the card's worker,
+    where the server builds) and records each decoded batch of its
+    engine (``records``: (model, Batch))."""
+    from repro_torch.configs import DecodeConfig, RouterConfig, get_config
+    from repro_torch.models import init_model
+    from repro_torch.serving import ModelRouter, ServingEngine
+
+    def factory(name):
+        def build():
+            cfg = get_config(name)
+            params = init_model(cfg, torch.Generator(
+                device=HTTP_DEVICE).manual_seed(SEED), device=HTTP_DEVICE)
+            engine = ServingEngine(
+                params, cfg, DecodeConfig(gen_length=GEN, block_size=BLOCK,
+                                          steps=GEN, strategy="fdm", k=K,
+                                          k1=K),
+                max_batch=HTTP_MAX_BATCH, seed=SEED,
+                length_bucket=HTTP_BUCKET, device=HTTP_DEVICE)
+            engine.on_batch_done = lambda b: records.append((name, b))
+            return engine
+        return build
+
+    router = ModelRouter(RouterConfig(), device=HTTP_DEVICE)
+    router.register("llada-8b", factory("llada-8b"))
+    router.register("hymba-1.5b", factory("hymba-1.5b"))
+    return router
+
+
+def _stream(client, prompt, **kw):
+    """One request's SSE stream: its events, checked to be blocks then
+    exactly one terminal event."""
+    events = list(client.generate_stream(prompt, **kw))
+    finals = [e for name, e in events if e.get("final")]
+    if len(finals) != 1 or not events[-1][1].get("final"):
+        raise AssertionError(f"stream without exactly one terminal event "
+                             f"at its end: {[n for n, _ in events]}")
+    return events
+
+
+def _redecode_batches(torch, router, name, batches, tokens) -> int:
+    """Each recorded batch of ``name`` decoded again directly by
+    ``Decoder.generate`` from its prompts, config and seed, on the card's
+    worker; every request's tokens (``tokens``: rid -> list) must equal
+    its row.  Returns the number of requests checked."""
+    from repro_torch.core import Decoder
+    from repro_torch.serving import run_on_worker
+
+    def redecode():
+        engine = router.touch(name)
+        out = []
+        for batch in batches:
+            x, _ = Decoder(engine.params, engine.cfg, batch.dcfg,
+                           device=HTTP_DEVICE).generate(batch.seed,
+                                                        batch.prompts)
+            out.append(x.cpu().numpy())
+        return out
+
+    checked = 0
+    for batch, x in zip(batches, run_on_worker(HTTP_DEVICE, redecode)):
+        for i, req in enumerate(batch.requests):
+            if req.rid not in tokens:
+                continue
+            if tokens[req.rid] != x[i, batch.pads[i]:].tolist():
+                raise AssertionError(
+                    f"http {name}: request {req.rid}'s tokens differ from "
+                    f"its batch ({len(batch.requests)} real rows, "
+                    f"{batch.dcfg.strategy}, {batch.dcfg.cache_policy}) "
+                    f"decoded directly")
+            checked += 1
+    return checked
+
+
+def http_phase(torch, mods: dict) -> dict:
+    """Phase 11 (module docstring).  Returns the traffic's executed kernel
+    launches (counts set to 0 just before it, read just after)."""
+    import threading
+    import numpy as np
+    from repro_torch.configs import ServerConfig
+    from repro_torch.core import decode_cache_scope, graphs
+    from repro_torch.serving import ServerThread
+    records = []
+    t0 = time.perf_counter()
+    with decode_cache_scope():
+        router = _http_router(torch, records)
+        handle = ServerThread(router, ServerConfig(port=0)).start()
+        try:
+            launches = _http_traffic(torch, handle, router, records, mods,
+                                     graphs, threading, np)
+            _http_faults(handle, records, np)
+            _http_eviction(torch, handle, router, records, np)
+            _http_drain(handle, threading, np)
+        finally:
+            handle.stop()
+    # the CLI's own selftest on the card (train, park, serve one request)
+    t1 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--selftest",
+         "--train-steps", "50", "--device", HTTP_DEVICE],
+        capture_output=True, text=True,
+        timeout=600, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    tail = res.stdout.strip().splitlines()[-12:]
+    log("http selftest (python -m repro_torch.launch.serve --selftest): "
+        f"exit {res.returncode} in {time.perf_counter() - t1:.1f} s; "
+        + " | ".join(tail))
+    if res.returncode != 0 or "selftest OK" not in res.stdout:
+        raise AssertionError(f"serve --selftest failed: {res.stderr[-2000:]}")
+    log(f"http serving phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _http_traffic(torch, handle, router, records, mods, graphs, threading,
+                  np) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.core import decode_cache_info
+    from repro_torch.serving import ServingClient
+    vocab = get_config("llada-8b").vocab_size
+    rs = np.random.default_rng(SEED + 11)
+    plan = [[(rs.integers(0, vocab - 1, int(rs.integers(41, 65))).tolist(),
+              HTTP_STRATEGIES[c % len(HTTP_STRATEGIES)], policy)
+             for policy in POLICIES] for c in range(HTTP_CLIENTS)]
+    results, errors = {}, []
+
+    def client_main(c):
+        client = ServingClient(handle.host, handle.port, timeout=900)
+        try:
+            for prompt, strategy, policy in plan[c]:
+                t0 = time.perf_counter()
+                events = _stream(client, prompt, model="llada-8b",
+                                 strategy=strategy, cache_policy=policy,
+                                 gen_length=GEN, block_size=BLOCK,
+                                 steps=GEN)
+                results[(c, policy)] = (events, time.perf_counter() - t0)
+        except Exception as e:              # surfaced below
+            errors.append((c, repr(e)))
+
+    captures = decode_cache_info().captures
+    for mod in mods.values():
+        mod.launches = 0
+    graphs.REPLAYED.clear()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client_main, args=(c,))
+               for c in range(HTTP_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    launches = {k: mod.launches + graphs.REPLAYED[k]
+                for k, mod in mods.items()}
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"http llada-8b: client failures {errors}")
+    log(f"http llada-8b: {len(results)} requests from {HTTP_CLIENTS} "
+        f"concurrent clients in {wall:.2f} s (weights built and "
+        f"{decode_cache_info().captures - captures} graphs captured "
+        f"inside it); executed kernel launches {launches}")
+    if not (launches["confidence"] and launches["flash_attention"]):
+        raise AssertionError(f"a kernel was not launched on the http "
+                             f"serving path: {launches}")
+
+    tokens, fwd, latency, gen_tokens = {}, 0.0, [], 0
+    for (c, policy), (events, secs) in sorted(results.items()):
+        done = events[-1][1]
+        if done["type"] != "done" or done["status"] != "ok":
+            raise AssertionError(f"http llada-8b client {c} {policy}: "
+                                 f"{done}")
+        blocks = [e for name, e in events if name == "block"]
+        streamed = sum((e["tokens"] for e in blocks), [])
+        prompt = plan[c][POLICIES.index(policy)][0]
+        if [e["block"] for e in blocks] != list(range(GEN // BLOCK)) or \
+                streamed != done["tokens"][len(prompt):] or \
+                done["tokens"][:len(prompt)] != prompt:
+            raise AssertionError(f"http llada-8b client {c} {policy}: the "
+                                 f"SSE blocks do not tile the result")
+        tokens[done["rid"]] = done["tokens"]
+        fwd += done["stats"]["forward_equivalents"]
+        gen_tokens += GEN
+        latency.append(secs)
+    batches = [b for name, b in records if name == "llada-8b"]
+    del records[:]
+    t0 = time.perf_counter()
+    checked = _redecode_batches(torch, router, "llada-8b", batches, tokens)
+    redecode_s = time.perf_counter() - t0
+    if checked != len(tokens):
+        raise AssertionError(f"http llada-8b: {checked} of {len(tokens)} "
+                             f"requests found in the recorded batches")
+    client = ServingClient(handle.host, handle.port)
+    waits = []
+    for rid in tokens:
+        spans = client.trace(rid, model="llada-8b")["traceEvents"]
+        waits += [e["dur"] / 1e6 for e in spans
+                  if e.get("name") == "queue_wait"]
+    summary = router.touch("llada-8b").summary()
+    rows = [len(b.requests) for b in batches]
+    log(f"http llada-8b: every request's tokens equal its own batch "
+        f"decoded directly ({checked} requests, {len(batches)} batches, "
+        f"re-decoded in {redecode_s:.2f} s)")
+    log(f"http llada-8b: decode tokens/s {summary['decode_tps']:.2f}; wall "
+        f"tokens/s {gen_tokens / wall:.2f}; latency mean "
+        f"{statistics.mean(latency):.3f} s p95 "
+        f"{float(np.percentile(latency, 95)):.3f} s (client side); queue "
+        f"wait mean {statistics.mean(waits):.3f} s p95 "
+        f"{float(np.percentile(waits, 95)):.3f} s; batches {len(batches)}, "
+        f"real rows per batch {statistics.mean(rows):.2f} (of "
+        f"{HTTP_MAX_BATCH}: {rows}); forward-equivalents per token "
+        f"{fwd / gen_tokens:.4f}; launches {launches}")
+    return launches
+
+
+def _http_faults(handle, records, np):
+    """One seeded fault schedule on LLaDA: a poison request (every batch
+    holding it fails: retries, bisection, quarantine) and one NaN-style
+    corruption of a committed block (a transient failure, retried).  The
+    survivors must equal a fault-free run of the same prompts (one length,
+    so no pads; every batch is 8 rows), and the poison request must get
+    exactly one terminal ``error``."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Fault, FaultInjector, ServingClient
+    rs = np.random.default_rng(SEED + 12)
+    prompts = [rs.integers(0, get_config("llada-8b").vocab_size - 1, 48)
+               for _ in range(HTTP_FAULT_PROMPTS)]
+    sched = handle.call(handle.server.scheduler, "llada-8b")
+    client = ServingClient(handle.host, handle.port, timeout=900)
+
+    def run(schedule):
+        async def submit():
+            # on the server's loop, with no await: the worker sees the
+            # whole group (one batch) and the armed injector together
+            rids = [sched.submit(p, strategy="probability",
+                                 cache_policy="dual", gen_length=GEN,
+                                 block_size=BLOCK, steps=GEN)
+                    for p in prompts]
+            sched.engine.set_fault_injector(schedule(rids))
+            return rids
+        rids = handle.call(submit)
+        return rids, {rid: [e for _, e in client.stream(rid,
+                                                        model="llada-8b")]
+                      for rid in rids}
+
+    before = dict(sched.counters)
+    clean_rids, clean = run(lambda rids: None)
+    t0 = time.perf_counter()
+    rids, faulted = run(lambda rids: FaultInjector(
+        [Fault(kind="nan", block=0, times=1),
+         Fault(kind="error", rid=rids[2], times=None)], seed=SEED))
+    secs = time.perf_counter() - t0
+
+    async def disarm():
+        sched.engine.set_fault_injector(None)
+
+    handle.call(disarm)
+    counters = {k: sched.counters[k] - before[k] for k in
+                ("batches", "retries", "requeued", "quarantined", "errors",
+                 "resets")}
+    for i, rid in enumerate(rids):
+        finals = [e for e in faulted[rid] if e.get("final")]
+        if len(finals) != 1:
+            raise AssertionError(f"http faults: request {rid} got "
+                                 f"{len(finals)} terminal events")
+        if i == 2:
+            if finals[0]["type"] != "error":
+                raise AssertionError(f"http faults: the poison request "
+                                     f"ended {finals[0]['type']}")
+        elif finals[0]["type"] != "done" or finals[0]["tokens"] != \
+                clean[clean_rids[i]][-1]["tokens"]:
+            raise AssertionError(f"http faults: survivor {rid} differs "
+                                 f"from the fault-free run")
+    if counters["quarantined"] != 1:
+        raise AssertionError(f"http faults: counters {counters}")
+    records[:] = [r for r in records if r[0] != "llada-8b"]
+    log(f"http faults llada-8b: poison request {rids[2]} quarantined with "
+        f"one terminal error ({faulted[rids[2]][-1].get('error')}); "
+        f"{HTTP_FAULT_PROMPTS - 1} survivors equal the fault-free run; "
+        f"{secs:.2f} s; supervision counters {counters}")
+
+
+def _http_eviction(torch, handle, router, records, np):
+    """A budget that holds one model: Hymba's first request makes the
+    router build it (on the card's worker) and evict the idle LLaDA.  The
+    card's allocated memory must fall by at least LLaDA's weights' bytes
+    across the eviction, LLaDA's weights must be gone (a weakref dies)
+    and the runner cache must hold only Hymba's runs after its
+    request."""
+    import dataclasses
+    import weakref
+    from repro_torch.core import decode_cache_info
+    from repro_torch.serving import ServingClient, run_on_worker
+    llada_bytes = router.info()["models"]["llada-8b"]["bytes"]
+    # the budget is read at each build: room for LLaDA, not for both
+    router.rcfg = dataclasses.replace(router.rcfg,
+                                      budget_bytes=int(1.1 * llada_bytes))
+    ref = run_on_worker(HTTP_DEVICE, lambda: weakref.ref(
+        router.touch("llada-8b").params["embed"]["tok"]))
+    entries = decode_cache_info().entries
+    client = ServingClient(handle.host, handle.port, timeout=900)
+    from repro_torch.configs import get_config
+    rs = np.random.default_rng(SEED + 13)
+    prompt = rs.integers(0, get_config("hymba-1.5b").vocab_size - 1,
+                         56).tolist()
+    t0 = time.perf_counter()
+    events = _stream(client, prompt, model="hymba-1.5b",
+                     strategy="probability", gen_length=GEN,
+                     block_size=BLOCK, steps=GEN)
+    secs = time.perf_counter() - t0
+    ev = router.last_eviction
+    if events[-1][1]["type"] != "done":
+        raise AssertionError(f"http hymba-1.5b: {events[-1][1]}")
+    if router.resident("llada-8b") or ev is None or \
+            ev["name"] != "llada-8b":
+        raise AssertionError(f"http eviction: LLaDA not evicted ({ev})")
+    freed = ev["allocated_before"] - ev["allocated_after"]
+    after = decode_cache_info().entries
+    log(f"http eviction: building hymba-1.5b evicted llada-8b "
+        f"({ev['weights_bytes']} bytes of weights): "
+        f"torch.cuda.memory_allocated {ev['allocated_before']} -> "
+        f"{ev['allocated_after']} bytes (freed {freed}); runner-cache "
+        f"entries {entries} -> {after}; hymba's first request (build "
+        f"included) {secs:.2f} s")
+    if freed < ev["weights_bytes"] or ref() is not None or after != 1:
+        raise AssertionError(f"http eviction did not free LLaDA: freed "
+                             f"{freed} of {ev['weights_bytes']} bytes, "
+                             f"weights alive {ref() is not None}, cache "
+                             f"entries {after}")
+    batches = [b for name, b in records if name == "hymba-1.5b"]
+    del records[:]
+    _redecode_batches(torch, router, "hymba-1.5b", batches,
+                      {events[-1][1]["rid"]: events[-1][1]["tokens"]})
+
+
+def _http_drain(handle, threading, np):
+    """A drain while requests are in flight on Hymba: new submits answer
+    503 with Retry-After during it, and every open stream ends with
+    exactly one terminal event (``done`` or ``shutdown``)."""
+    import asyncio
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServerError, ServingClient
+    client = ServingClient(handle.host, handle.port, timeout=900,
+                           max_retries=0)
+    vocab = get_config("hymba-1.5b").vocab_size
+    rs = np.random.default_rng(SEED + 14)
+    t0 = time.perf_counter()
+    rids = [client.generate(rs.integers(0, vocab - 1, 50).tolist(),
+                            model="hymba-1.5b", strategy=strategy,
+                            gen_length=GEN, block_size=BLOCK, steps=GEN,
+                            wait=False)["rid"]
+            for strategy in ("fdm", "probability")
+            for _ in range(HTTP_DRAIN_REQUESTS // 2)]
+    streams = {}
+
+    def read(rid):
+        streams[rid] = list(ServingClient(handle.host, handle.port,
+                                          timeout=900).stream(
+            rid, model="hymba-1.5b"))
+
+    readers = [threading.Thread(target=read, args=(r,)) for r in rids]
+    for t in readers:
+        t.start()
+    time.sleep(0.2)                 # the first batch is decoding
+    drain = asyncio.run_coroutine_threadsafe(
+        handle.server.drain(HTTP_DRAIN_DEADLINE_S), handle._loop)
+    for _ in range(100):
+        if client.healthz()["status"] == "draining":
+            break
+        time.sleep(0.01)
+    try:
+        client.generate([1, 2, 3], model="hymba-1.5b", wait=False)
+        refused = None
+    except ServerError as e:
+        refused = (e.status, e.retry_after)
+    drain.result(120)
+    for t in readers:
+        t.join(timeout=120)
+    if any(t.is_alive() for t in readers):
+        raise AssertionError("http drain: a stream did not end")
+    kinds = {}
+    for rid, events in streams.items():
+        finals = [e for _, e in events if e.get("final")]
+        if len(finals) != 1 or finals[0]["type"] not in ("done",
+                                                          "shutdown"):
+            raise AssertionError(f"http drain: request {rid} ended with "
+                                 f"{finals}")
+        kinds[rid] = finals[0]["type"]
+    if refused is None or refused[0] != 503 or not refused[1]:
+        raise AssertionError(f"http drain: a submit during the drain got "
+                             f"{refused}, want 503 with Retry-After")
+    log(f"http drain: {time.perf_counter() - t0:.2f} s, deadline "
+        f"{HTTP_DRAIN_DEADLINE_S} s with "
+        f"{len(rids)} requests in flight or queued; terminal events "
+        f"{kinds}; a submit during the drain: {refused[0]} with "
+        f"Retry-After {refused[1]}")
+
+
+# --------------------------------------------------------------------------
 # training (phases 7-10)
 # --------------------------------------------------------------------------
 
@@ -1612,12 +2045,20 @@ def main() -> None:
     t0 = time.perf_counter()
     training = full_train_phase(torch, fa_mod)
     log(f"full-width training phase: {time.perf_counter() - t0:.1f} s")
+    clear_decode_cache()
+    torch.cuda.empty_cache()
+
+    # 11. the async serving stack over HTTP
+    http = http_phase(torch, {"confidence": conf_mod,
+                              "flash_attention": fa_mod,
+                              "selective_scan": scan_mod})
 
     def launches(kernel):
         by_path = {"llada-8b" + ("" if p == "none" else f"-{p}"):
                    llada[p].get(kernel, 0) for p in POLICIES}
         by_path["hymba-1.5b"] = hymba[kernel]
         by_path["llada-8b-train"] = training.get(kernel, 0)
+        by_path["llada-8b-http"] = http.get(kernel, 0)
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 

@@ -8,10 +8,12 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import (DecodeConfig, EncDecConfig,
-                                      ExecutionConfig, MLAConfig, ModelConfig,
-                                      MoEConfig, SSMConfig, TrainConfig,
-                                      default_block_size)
+from repro_torch.configs.base import (DecodeConfig, DegradeConfig,
+                                      EncDecConfig, ExecutionConfig,
+                                      LadderRung, MLAConfig, ModelConfig,
+                                      MoEConfig, RouterConfig, ServerConfig,
+                                      SSMConfig, SupervisorConfig,
+                                      TrainConfig, default_block_size)
 
 _MODULES: Dict[str, str] = {
     "llada-8b": "repro_torch.configs.llada_8b",
@@ -35,5 +37,6 @@ def list_configs() -> List[str]:
 __all__ = [
     "ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig", "EncDecConfig",
     "DecodeConfig", "ExecutionConfig", "TrainConfig", "default_block_size",
-    "get_config", "list_configs",
+    "SupervisorConfig", "LadderRung", "DegradeConfig", "ServerConfig",
+    "RouterConfig", "get_config", "list_configs",
 ]

@@ -3,8 +3,9 @@
 A field-for-field copy of the reference package's ``configs/base.py``
 (model, decode and training configs), kept here so the port imports
 nothing of the reference.  Configs are frozen dataclasses, so they hash
-and can key the serving engine's batch buckets.  The serving-stack
-configs arrive with the slice that ports that layer.
+and can key the serving engine's batch buckets.  The serving stack's
+configs (supervision, degradation ladder, server, router) are the
+reference's too.
 """
 from __future__ import annotations
 
@@ -255,6 +256,130 @@ def default_block_size(gen_length: int) -> int:
     """Largest block ≤ gen_length/2 that divides gen_length; 1 for primes."""
     return next((b for b in range(gen_length // 2, 1, -1)
                  if gen_length % b == 0), 1)
+
+
+@dataclass(frozen=True)
+class SupervisorConfig:
+    """Engine supervision (``repro.serving.supervisor``) knobs.
+
+    The async scheduler runs every batch under this policy: decode
+    failures are caught at the batch boundary, transient ones retried
+    with capped exponential backoff, persistent ones bisected until the
+    poison request is isolated and quarantined (it alone gets a terminal
+    ``error`` event; its co-batched neighbours are re-queued and
+    survive).  Engine-fatal failures (OOM-shaped errors, watchdog
+    timeouts) feed a sliding-window crash counter; at
+    ``breaker_threshold`` crashes inside ``breaker_window_s`` the
+    circuit breaker trips and the engine is rebuilt through the router's
+    hot-swap path while ``/healthz`` reports the model degraded (until
+    the next clean batch completes).
+    """
+    max_retries: int = 2               # same-batch retries for transient
+                                       # failures before bisection; also the
+                                       # per-request re-queue cap on the
+                                       # engine-fatal path
+    backoff_base_s: float = 0.05       # retry delay: base * 2^(attempt-1),
+    backoff_cap_s: float = 2.0         # capped here, with seeded jitter
+    watchdog_s: float = 0.0            # per-BLOCK decode timeout (0 = off).
+                                       # A block that exceeds it abandons
+                                       # the batch: engine-fatal (the engine
+                                       # may be wedged), requests re-queued
+    breaker_threshold: int = 3         # engine-fatal crashes inside the
+    breaker_window_s: float = 60.0     # window that trip the breaker
+    drain_deadline_s: float = 5.0      # graceful-drain bound: queued work
+                                       # gets this long to finish before the
+                                       # remainder is shut down
+
+
+@dataclass(frozen=True)
+class LadderRung:
+    """One graceful-degradation rung: when queue depth reaches
+    ``at_depth`` (as a fraction of ``max_queue_depth``), effective steps
+    are scaled by ``steps_scale``.  Fewer denoising steps over the same
+    ``gen_length`` means MORE tokens committed in parallel per step —
+    the cheapen-before-shed response ParallelBench's workload-dependent
+    quality/latency frontier calls for."""
+    at_depth: float
+    steps_scale: float
+
+
+@dataclass(frozen=True)
+class DegradeConfig:
+    """Graceful-degradation ladder (scheduler admission path).
+
+    Under queue-depth or deadline-headroom pressure the scheduler
+    progressively cheapens per-request effective configs before
+    resorting to 429: rung 1 halves the step budget, rung 2 quarters it
+    (never below one step per block).  The default rungs are the
+    reference's: a decode's work is linear in its step budget, so halving
+    steps roughly halves queue drain time, which is the lever that keeps
+    the 429 count down at pressure.
+    """
+    enabled: bool = True
+    rungs: Tuple[LadderRung, ...] = (LadderRung(at_depth=0.5,
+                                                steps_scale=0.5),
+                                     LadderRung(at_depth=0.8,
+                                                steps_scale=0.25))
+
+
+@dataclass(frozen=True)
+class ServerConfig:
+    """Async serving front end (``repro.serving.server``) knobs.
+
+    Admission control is three-sided: ``max_queue_depth`` bounds the
+    per-model engine queue (submits beyond it are rejected with HTTP 429
+    — closed-loop clients back off instead of growing an unbounded
+    queue), ``default_deadline_s`` expires requests that sit QUEUED
+    longer than their deadline (they are dropped at batch-selection time,
+    never decoded, and their streams get a terminal ``expired`` event),
+    and the ``degrade`` ladder cheapens per-request step budgets under
+    pressure BEFORE the queue fills (shed steps before shedding
+    requests).  All act at the scheduling grain of blockwise diffusion
+    decoding — between batches — because a running batch is
+    batch-synchronous and cannot be preempted mid-decode.
+    """
+    host: str = "127.0.0.1"
+    port: int = 8000                   # 0 = pick an ephemeral port
+    max_queue_depth: int = 64          # queued (not yet decoding) requests
+                                       # per model; beyond it submits get 429
+    default_deadline_s: float = 0.0    # 0 = no deadline; per-request
+                                       # "deadline_s" overrides
+    max_gen_length: int = 1024         # request-validation cap on gen_length
+    max_steps: int = 4096              # cap on the per-request steps
+                                       # override: one request must not be
+                                       # able to park the model's single
+                                       # decode worker on an absurd step
+                                       # budget (deadlines only bound
+                                       # QUEUED time)
+    stream_retain: int = 256           # finished event streams kept for a
+                                       # late GET /v1/stream/{rid}
+    max_body_bytes: int = 1 << 20      # POST body cap (413 beyond; chunked
+                                       # bodies are rejected outright)
+    retry_after_s: float = 1.0         # Retry-After header on 429/503
+    profile_dir: str = ""              # non-empty = bracket each decoded
+                                       # batch with torch.profiler, one
+                                       # Chrome trace per batch written
+                                       # here (ops use: flip on,
+                                       # reproduce, flip off)
+    supervisor: SupervisorConfig = SupervisorConfig()
+    degrade: DegradeConfig = DegradeConfig()
+
+
+@dataclass(frozen=True)
+class RouterConfig:
+    """Multi-model router (``repro.serving.router``) knobs.
+
+    ``budget_bytes`` caps the summed parameter bytes of RESIDENT engines:
+    admitting or rebuilding a model evicts idle least-recently-used
+    engines until the batch fits (a busy engine — queued or mid-decode —
+    is never evicted; the budget may transiently overshoot if everything
+    is busy, and converges as decodes drain).  Evicting an engine drops
+    the process's last strong reference to its params, so the Decoder's
+    weak runner cache frees the compiled executables too —
+    ``decode_cache_info()`` observably shrinks.
+    """
+    budget_bytes: int = 0              # 0 = unlimited
+    max_models: int = 0                # 0 = unlimited registered models
 
 
 @dataclass(frozen=True)

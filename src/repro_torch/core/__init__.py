@@ -21,8 +21,10 @@ from repro_torch.core.decoder import (BlockEvent, CacheInfo, Decoder,
                                       validate_cache_policy)
 from repro_torch.core.fdm import fdm_select, fdm_step
 from repro_torch.core.fdm_a import FDMAStrategy, fdm_a_plan
-from repro_torch.core.strategies import (Strategy, commit_topn, rank_desc,
-                                         register_strategy, resolve_strategy)
+from repro_torch.core.strategies import (Strategy, available_strategies,
+                                         commit_topn, rank_desc,
+                                         register_strategy, resolve_strategy,
+                                         unregister_strategy)
 
 __all__ = [
     "Scores", "score_logits", "local_confidence", "global_confidence",
@@ -31,5 +33,5 @@ __all__ = [
     "reset_decode_cache_stats", "decode_cache_scope",
     "fdm_select", "fdm_step", "FDMAStrategy", "fdm_a_plan",
     "Strategy", "commit_topn", "rank_desc", "register_strategy",
-    "resolve_strategy",
+    "resolve_strategy", "unregister_strategy", "available_strategies",
 ]

@@ -36,7 +36,9 @@ Executed launches.  A kernel wrapper's ``launches`` counter counts calls,
 so a graph's replays do not move it.  A graph has no conditional node, so
 every kernel recorded into it runs on every replay: ``GraphSet`` keeps the
 wrapper launches recorded into each graph and the graph's replays, and
-``executed_launches()`` multiplies the two.
+``executed_launches()`` multiplies the two.  ``REPLAYED`` sums the same
+over every set of the process as its graphs run, so a set that the runner
+cache has dropped (and freed) still counts.
 """
 from __future__ import annotations
 
@@ -50,6 +52,11 @@ from repro_torch.kernels import confidence, flash_attention, selective_scan
 
 KERNELS = {"confidence": confidence, "flash_attention": flash_attention,
            "selective_scan": selective_scan}
+
+# kernel launches executed by every GraphSet's runs on the card, by kernel
+# (the recorded launches of each graph at each of its runs); zeroed by the
+# caller that counts
+REPLAYED: Counter = Counter()
 
 
 def wrapper_launches() -> Counter:
@@ -152,6 +159,7 @@ class GraphSet:
         if graph is None:
             graph = self._graphs[key] = self._capture(key, fn)
         graph.replay()
+        REPLAYED.update(self._launches[key])
 
     def _capture(self, key: Hashable,
                  fn: Callable[[], None]) -> torch.cuda.CUDAGraph:

@@ -146,6 +146,11 @@ def register_strategy(strategy: Strategy, replace: bool = False):
     return strategy
 
 
+def unregister_strategy(name: str) -> None:
+    """Drop ``name`` from the registry (a no-op if it is not there)."""
+    _REGISTRY.pop(name, None)
+
+
 def _ensure_builtins() -> None:
     global _BUILTINS_LOADED
     if _BUILTINS_LOADED:
@@ -169,6 +174,12 @@ def resolve_strategy(name) -> Strategy:
         raise KeyError(f"unknown strategy {name!r}; "
                        f"have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def available_strategies() -> Tuple[str, ...]:
+    """The names ``resolve_strategy`` accepts, sorted."""
+    _ensure_builtins()
+    return tuple(sorted(_REGISTRY))
 
 
 # --------------------------------------------------------------------------

@@ -697,3 +697,97 @@ def test_hymba_training_on_the_card_raises(cuda):
     with pytest.raises(RuntimeError, match="no backward"):
         train(cfg, TrainConfig(batch_size=4, seq_len=ds.seq_len, steps=1),
               ds.batches(4), log=None, device=cuda)
+
+
+# --------------------------------------------------------------------------
+# the serving stack on the card
+# --------------------------------------------------------------------------
+
+def test_card_oom_is_engine_fatal(cuda):
+    """A real out-of-memory on the card is classified engine-fatal (its
+    message reads "CUDA out of memory", which the reference's markers
+    miss), not a sticky error."""
+    from repro_torch.serving import is_context_poisoned, is_engine_fatal
+    from repro_torch.serving.supervisor import classify_failure
+    _, total = torch.cuda.mem_get_info()
+    with pytest.raises(torch.OutOfMemoryError) as err:
+        torch.empty(2 * total, dtype=torch.uint8, device=cuda)
+    assert "out of memory" in str(err.value)
+    assert is_engine_fatal(err.value)
+    assert not is_context_poisoned(err.value)
+    assert classify_failure(err.value) == "fatal"
+    torch.ones(8, device=cuda).sum().item()       # the context lives on
+
+
+def test_worker_replays_graphs_captured_on_another_thread(cuda):
+    """A decode's graphs captured on this thread replay on the device's
+    worker thread (no new capture) and decode the same tokens; and a
+    capture made on the worker replays here."""
+    import threading
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder, decode_cache_scope
+    from repro_torch.serving import run_on_worker
+    cfg, params, prompt = _reduced(cuda)
+    dcfg = DecodeConfig(gen_length=32, block_size=8, steps=32,
+                        strategy="fdm", gamma=0.0, cache_policy="dual")
+    with decode_cache_scope() as cache:
+        dec = Decoder(params, cfg, dcfg, device=cuda)
+        want, _ = dec.generate(None, prompt)
+        captures = cache.info().captures
+        assert captures > 0
+
+        def decode():
+            out, _ = dec.generate(None, prompt)
+            torch.cuda.synchronize()
+            return threading.current_thread().name, out
+
+        name, got = run_on_worker(cuda, decode)
+        assert name.startswith("repro-torch-cuda:0")
+        assert torch.equal(got, want)
+        assert cache.info().captures == captures
+    with decode_cache_scope() as cache:
+        dec = Decoder(params, cfg, dcfg, device=cuda)
+        _, first = run_on_worker(cuda, decode)
+        captures = cache.info().captures
+        got, _ = dec.generate(None, prompt)
+        assert torch.equal(got, first) and torch.equal(got, want)
+        assert cache.info().captures == captures
+
+
+def test_scheduler_serves_on_the_card_through_the_worker(cuda):
+    """The async stack on the card: requests of two cache policies
+    decode on the worker thread, equal to a direct decode of their own
+    batch (same prompts, config and seed)."""
+    import asyncio
+    import numpy as np
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder
+    from repro_torch.serving import AsyncScheduler, ServingEngine
+    cfg, params, _ = _reduced(cuda)
+    dcfg = DecodeConfig(gen_length=32, block_size=8, steps=32,
+                        strategy="fdm", gamma=0.0)
+    engine = ServingEngine(params, cfg, dcfg, max_batch=4, device=cuda)
+    batches = []
+    engine.on_batch_done = batches.append
+    rs = np.random.default_rng(0)
+    prompts = [rs.integers(0, cfg.vocab_size - 1, n) for n in (9, 12, 16)]
+
+    async def main():
+        sched = AsyncScheduler(engine)
+        rids = [sched.submit(p, cache_policy=pol) for p in prompts
+                for pol in ("none", "dual")]
+        await sched.start()
+        out = {rid: await sched.result(rid) for rid in rids}
+        await sched.close()
+        return out
+
+    finals = asyncio.run(main())
+    assert all(e["type"] == "done" for e in finals.values())
+    assert len(batches) == 2
+    for batch in batches:
+        want, _ = Decoder(params, cfg, batch.dcfg, device=cuda).generate(
+            batch.seed, batch.prompts)
+        want = want.cpu().numpy()
+        for i, req in enumerate(batch.requests):
+            assert finals[req.rid]["tokens"] == \
+                want[i, batch.pads[i]:].tolist()

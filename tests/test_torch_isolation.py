@@ -19,6 +19,13 @@ def test_files_cover_the_hybrid_slice():
     assert {"ssm.py", "selective_scan.py", "hymba_1_5b.py"} <= names
 
 
+def test_files_cover_the_serving_stack():
+    names = {p.name for p in FILES}
+    assert {"scheduler.py", "router.py", "server.py", "client.py",
+            "faults.py", "supervisor.py", "metrics.py", "tracing.py",
+            "worker.py", "serve.py"} <= names
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -56,6 +63,9 @@ def test_port_imports_and_runs_with_jax_blocked():
         "sys.modules['repro'] = None\n"
         "import torch\n"
         "import repro_torch, repro_torch.serving, repro_torch.convert\n"
+        "import repro_torch.serving.server, repro_torch.serving.scheduler\n"
+        "import repro_torch.serving.router, repro_torch.serving.client\n"
+        "import repro_torch.serving.worker, repro_torch.launch.serve\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models import forward, init_model\n"
         "for name in ('llada-8b-tiny', 'hymba-1.5b-tiny'):\n"
