@@ -25,9 +25,13 @@ Phases, in order; any failure raises and the script exits non-zero:
              (kernels) and on the CPU (plain versions) from the same
              weights, on the card by the eager, the per-block graph and
              the whole-request graph driver, and requires identical
-             tokens, steps, forward-equivalents and phase counts; LLaDA
-             under every cache policy (``none``, ``prefix``, ``dual``,
-             ``prefix`` without refreshes), Hymba under ``none``;
+             tokens, steps, forward-equivalents, phase counts,
+             revocations, skipped forwards and step traces (their commit
+             confidences within 1e-5); LLaDA under every cache policy
+             (``none``, ``prefix``, ``dual``, ``prefix`` without
+             refreshes), Hymba under ``none``; the cases include
+             ``wino_r`` and ``extrapolate`` with knobs that make them
+             revoke and skip, and traced FDM-A, wino_r and extrapolate;
 5. serving — full-width, full-depth LLaDA-8B, then Hymba-1.5B (random
              bf16 weights from a seed; LLaDA's weights and graphs are
              freed first) behind ``ServingEngine`` on the graph drivers
@@ -63,6 +67,19 @@ Phases, in order; any failure raises and the script exits non-zero:
              strategy A/B: eb and an always-accelerating FDM-A at the same
              geometry under ``none``, eager against graph, with the
              graph's executed step replays beside the logical steps;
+6b. carry — full-width LLaDA-8B at the serving geometry (B=2, prompt 64,
+             gen 64, block 32) under ``none``, ``prefix`` and ``dual`` on
+             the graph drivers: ``wino_r`` (defaults) and ``extrapolate``
+             (knobs that make it skip) tokens/s, steps, revocations,
+             skipped forwards and step replays (the forward runs in every
+             replay); under ``none`` extrapolate also by the eager driver
+             (which really skips), interleaved; FDM-A traced against
+             untraced (equal tokens and stats, the final commits summing
+             to the generated tokens); the phase's executed launches are
+             the path ``llada-8b-carry``; then one profiled, traced,
+             graph-driven wino_r request whose trace's kernels must equal
+             the graphs' executed launches (two confidence launches a
+             step: the scoring and the trace's re-score);
 7. flash gradient — dq, dk, dv through the flash kernel's
              ``autograd.Function`` against autograd of the plain version
              at four shapes (bf16 and f32, a GQA band at a q offset); the
@@ -74,7 +91,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. testbed — the testbed trained on the card (batch 64, up to 600 steps),
              then decoded with fdm under each cache policy on the graph
              drivers (EM, forward-equivalents, tokens equal to a CPU
-             decode of the same weights) and FDM-A graph against eager;
+             decode of the same weights), then with ``wino_r`` and
+             ``extrapolate`` at their defaults likewise (EM, revocations,
+             skips), and FDM-A graph against eager;
 10. training — full-width LLaDA-8B cut to 4 of its 32 layers trained a
              few steps (B=2, L=512): ms/step, tokens/s, peak memory, the
              initial NLL, exactly 2 flash launches per layer and step
@@ -88,7 +107,11 @@ Phases, in order; any failure raises and the script exits non-zero:
              64 steps; fdm, fdm_a, probability; none, prefix, dual), and
              every request's tokens must equal its own batch decoded
              directly by ``Decoder.generate`` (the engine records each
-             batch's prompts, config and seed); decode and wall tokens/s,
+             batch's prompts, config and seed); then a ``"trace": true``
+             FDM-A request (``/v1/trace/{rid}`` must carry one counter a
+             step, its final commits summing to the generation), a
+             ``wino_r`` and an ``extrapolate`` request, each 200 and equal
+             to its batch re-decoded; decode and wall tokens/s,
              latency, queue wait, batches and real rows per batch,
              forward-equivalents per token, executed launches (the path
              ``llada-8b-http``); then a seeded fault schedule (a poison
@@ -460,9 +483,17 @@ def _to(tree, device="cuda"):
 # keep FDM-A in exploration)
 FDM_A_PHASES = dict(strategy="fdm_a", eta1=0.025, eta2=0.02, gamma1=0.0,
                     n_max=4)
+# the carry-ful strategies' knobs that make their mechanisms act on random
+# weights (the reference's tests/test_carry_strategies.py): every pending
+# wino_r commit fails its verify; every observed extrapolate trajectory
+# qualifies, so steps skip their forward
+REVOKE = dict(strategy="wino_r", wino_revoke_tau=0.99, wino_revoke_budget=4)
+SKIP = dict(strategy="extrapolate", extrap_tau=0.0, extrap_min_obs=1)
 REFERENCE_CASES = [dict(strategy="fdm", gamma=0.0), dict(strategy="fdm_a"),
                    FDM_A_PHASES, dict(strategy="probability"),
-                   dict(strategy="eb")]
+                   dict(strategy="eb"), REVOKE, SKIP,
+                   dict(FDM_A_PHASES, trace=True), dict(REVOKE, trace=True),
+                   dict(SKIP, trace=True)]
 REFERENCE_POLICIES = {"none": {}, "prefix": dict(cache_policy="prefix"),
                       "dual": dict(cache_policy="dual"),
                       "prefix-off": dict(cache_policy="prefix",
@@ -471,12 +502,36 @@ DRIVERS = {"eager": dict(fused_loop=False), "block": dict(fused_blocks=False),
            "request": {}}
 
 
+def _stats_key(st) -> tuple:
+    """What a decode must reproduce besides its tokens: steps,
+    forward-equivalents, phase counts, revocations, skipped forwards and,
+    for a traced decode, the trace's integer fields."""
+    trace = () if st.trace is None else tuple(
+        getattr(st.trace, f).tolist() for f in (
+            "commit_step", "commits", "revocations", "skipped", "phase",
+            "block"))
+    return (st.steps, st.forward_equivalents, st.phase_counts,
+            st.revocations, st.skipped_forwards, trace)
+
+
+def _same_conf(got, want, tol: float = 1e-5) -> bool:
+    """Two traces' commit confidences agree within ``tol``, NaN where the
+    other has NaN (True without a trace)."""
+    import numpy as np
+    if got.trace is None or want.trace is None:
+        return got.trace is None and want.trace is None
+    a, b = got.trace.commit_conf, want.trace.commit_conf
+    return bool(np.array_equal(np.isnan(a), np.isnan(b)) and np.allclose(
+        a[~np.isnan(a)], b[~np.isnan(b)], rtol=0, atol=tol))
+
+
 def reference_phase(torch, name: str, policies):
     """The port on the card (kernels, f32) against the port on the CPU
     (plain versions) on a reduced config: same weights, same prompts.  On
     the card each case runs under the eager, the per-block graph and the
     whole-request graph driver; all four decodes must give identical
-    tokens, steps, forward-equivalents and phase counts."""
+    tokens, steps, forward-equivalents, phase counts, revocations, skipped
+    forwards and trace (its commit confidences within 1e-5)."""
     import dataclasses
     from repro_torch.configs import DecodeConfig, get_config
     from repro_torch.core import Decoder
@@ -493,18 +548,20 @@ def reference_phase(torch, name: str, policies):
                                 **REFERENCE_POLICIES[policy], **kw)
             x_cpu, s_cpu = Decoder(cpu_params, cfg, dcfg,
                                    device="cpu").generate(None, prompt)
-            want = (x_cpu, s_cpu.steps, s_cpu.forward_equivalents,
-                    s_cpu.phase_counts)
             for driver, over in DRIVERS.items():
                 x, st = Decoder(gpu_params, cfg, dataclasses.replace(
                     dcfg, **over), device="cuda").generate(None, prompt)
-                got = (x.cpu(), st.steps, st.forward_equivalents,
-                       st.phase_counts)
-                same = torch.equal(got[0], want[0]) and got[1:] == want[1:]
+                same = torch.equal(x.cpu(), x_cpu) and \
+                    _stats_key(st) == _stats_key(s_cpu) and \
+                    _same_conf(st, s_cpu)
                 log(f"reference {name} {policy} {kw} {driver}: tokens and "
                     f"stats equal={same} steps {s_cpu.steps}/{st.steps} "
                     f"forward_equivalents {s_cpu.forward_equivalents}/"
-                    f"{st.forward_equivalents} phases {st.phase_counts}")
+                    f"{st.forward_equivalents} phases {st.phase_counts} "
+                    f"revocations {st.revocations} skipped "
+                    f"{st.skipped_forwards}"
+                    + ("" if st.trace is None else
+                       f" trace steps {st.trace.steps}"))
                 if not same:
                     raise AssertionError(f"card decode of {name} ({driver}"
                                          f" driver) differs from the CPU "
@@ -513,6 +570,11 @@ def reference_phase(torch, name: str, policies):
                 raise AssertionError(f"{name} {policy}: the FDM-A phases "
                                      f"case missed a phase: "
                                      f"{s_cpu.phase_counts}")
+            if (kw.get("strategy") == "wino_r" and not s_cpu.revocations) \
+                    or (kw.get("strategy") == "extrapolate"
+                        and not s_cpu.skipped_forwards):
+                raise AssertionError(f"{name} {policy} {kw}: the knobs did "
+                                     f"not make the strategy act")
 
 
 def graph_stats(torch, runs) -> dict:
@@ -1091,6 +1153,157 @@ def strategy_ab_phase(torch, cfg, params) -> None:
 
 
 # --------------------------------------------------------------------------
+# the carry phase (6b): the carry-ful strategies and the step telemetry
+# --------------------------------------------------------------------------
+
+# full-width LLaDA-8B at the serving geometry (B=2, prompt 64, gen 64,
+# block 32, 64 steps): wino_r at its defaults (on random weights every
+# pending commit fails its verify, so it revokes up to its budget) and
+# extrapolate with SKIP's knobs (at its defaults it never skips there)
+CARRY_CASES = {"wino_r": dict(strategy="wino_r"), "extrapolate": SKIP}
+
+
+def _timed(torch, decs: dict, order, prompt, check) -> dict:
+    """Decode ``prompt`` with ``decs[k]`` for each k of ``order``;
+    ``check(k, out, st)`` after each.  Returns the seconds of each k's
+    decodes."""
+    secs = {k: [] for k in decs}
+    for k in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, st = decs[k].generate(None, prompt)
+        torch.cuda.synchronize()
+        secs[k].append(time.perf_counter() - t0)
+        check(k, out, st)
+    return secs
+
+
+def carry_phase(torch, cfg, params, mods: dict) -> dict:
+    """Phase 6b (module docstring).  Returns the executed kernel launches
+    of its decodes (counts set to 0 just before them, read just after)."""
+    import dataclasses
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder, decode_cache_scope, graphs
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    prompt = torch.randint(0, cfg.vocab_size - 1, (MAX_BATCH, 64),
+                           generator=gen, device="cuda")
+    tokens = MAX_BATCH * GEN
+    for mod in mods.values():
+        mod.launches = 0
+    graphs.REPLAYED.clear()
+    profiled = None
+    for policy in POLICIES:
+        base = dict(gen_length=GEN, block_size=BLOCK, steps=GEN,
+                    cache_policy=policy)
+        for label, kw in CARRY_CASES.items():
+            dcfg = DecodeConfig(**base, **kw)
+            with decode_cache_scope() as scope:
+                decs = {"graph": Decoder(params, cfg, dcfg)}
+                order = ["graph", "graph"]
+                if policy == "none" and label == "extrapolate":
+                    decs["eager"] = Decoder(params, cfg, dataclasses.replace(
+                        dcfg, fused_loop=False))
+                    order = ["eager", "graph", "graph", "eager"]
+                seen = {}
+
+                def check(k, out, st):
+                    key = (out.cpu(), (st.steps, st.forward_equivalents,
+                                       st.revocations, st.skipped_forwards))
+                    if (out[:, -GEN:] == cfg.mask_token_id).any():
+                        raise AssertionError(f"carry {label} {policy} {k}: "
+                                             f"masked token left")
+                    first = seen.setdefault("any", key)
+                    if not torch.equal(key[0], first[0]) or \
+                            key[1] != first[1]:
+                        raise AssertionError(
+                            f"carry {label} {policy}: {k} decode {key[1]} "
+                            f"differs from another ({first[1]})")
+                for dec in decs.values():        # captures the graphs
+                    dec.generate(None, prompt)
+                (run,) = scope.values()
+                run.graphs.reset_counts()
+                secs = _timed(torch, decs, order, prompt, check)
+                replays = (run.graphs.replays() - run.graphs.replays(
+                    ("refresh",))) / order.count("graph")
+            steps, fwd, revs, skips = seen["any"][1]
+            for k, ss in secs.items():
+                med = statistics.median(ss)
+                log(f"carry {cfg.name} {label} {policy} {k}: B={MAX_BATCH} "
+                    f"prompt 64 gen {GEN} block {BLOCK}: {med:.3f} s (runs "
+                    f"{', '.join(f'{x:.3f}' for x in ss)}), tokens/s "
+                    f"{tokens / med:.2f}")
+            log(f"carry {cfg.name} {label} {policy}: steps {steps}, "
+                f"forward_equivalents {fwd}, revocations {revs}, "
+                f"skipped_forwards {skips}; graph driver {replays:.0f} step "
+                f"replays per request, each running the forward"
+                + (f"; graph at {statistics.median(secs['eager']) / statistics.median(secs['graph']):.3f}x "  # noqa: E501
+                   f"the eager driver's tokens/s" if "eager" in secs else ""))
+            if (label == "wino_r" and not revs) or \
+                    (label == "extrapolate" and not skips):
+                raise AssertionError(f"carry {label} {policy}: the "
+                                     f"strategy did not act")
+        # FDM-A traced against untraced (as served: K₁ = 2; on random
+        # weights it explores, so its search runs in every step)
+        dcfg = DecodeConfig(**base, strategy="fdm_a", k1=K)
+        with decode_cache_scope():
+            decs = {"off": Decoder(params, cfg, dcfg),
+                    "on": Decoder(params, cfg, dataclasses.replace(
+                        dcfg, trace=True))}
+            outs = {}
+
+            def check(k, out, st):
+                outs.setdefault(k, (out.cpu(), st))
+                if k == "on" and st.trace.commit_histogram().sum() != tokens:
+                    raise AssertionError(f"carry fdm_a trace {policy}: the "
+                                         f"final commits do not sum to "
+                                         f"{tokens}")
+            for dec in decs.values():
+                dec.generate(None, prompt)
+            secs = _timed(torch, decs, ["off", "on", "on", "off"], prompt,
+                          check)
+        (x_off, s_off), (x_on, s_on) = outs["off"], outs["on"]
+        if not torch.equal(x_off, x_on) or \
+                (s_off.steps, s_off.forward_equivalents, s_off.phase_counts) \
+                != (s_on.steps, s_on.forward_equivalents, s_on.phase_counts):
+            raise AssertionError(f"carry fdm_a {policy}: the traced decode "
+                                 f"differs from the untraced one")
+        med = {k: statistics.median(v) for k, v in secs.items()}
+        log(f"carry {cfg.name} fdm_a traced {policy}: untraced "
+            f"{tokens / med['off']:.2f} tokens/s (runs "
+            f"{', '.join(f'{x:.3f}' for x in secs['off'])} s), traced "
+            f"{tokens / med['on']:.2f} tokens/s (runs "
+            f"{', '.join(f'{x:.3f}' for x in secs['on'])} s): traced at "
+            f"{med['off'] / med['on']:.4f}x; steps {s_on.steps}, phases "
+            f"{s_on.phase_counts}, trace steps {s_on.trace.steps}, summary "
+            f"{s_on.trace.summary()}")
+    launches = {k: mod.launches + graphs.REPLAYED[k]
+                for k, mod in mods.items()}
+    log(f"carry {cfg.name}: executed kernel launches {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel was not launched on the carry "
+                             f"path: {launches}")
+    # one profiled, traced, graph-driven wino_r request: its trace's
+    # kernels against the graphs' executed launches (two confidence
+    # launches a step: the scoring and the trace's re-score)
+    dcfg = DecodeConfig(gen_length=GEN, block_size=BLOCK, steps=GEN,
+                        strategy="wino_r", trace=True)
+    with decode_cache_scope() as scope:
+        dec = Decoder(params, cfg, dcfg)
+        dec.generate(None, prompt)
+        (profiled,) = scope.values()
+        graph_profile(torch, f"{cfg.name} traced wino_r graph-driven "
+                      f"request none B={MAX_BATCH} gen {GEN}",
+                      lambda: dec.generate(None, prompt), profiled, mods)
+        conf = executed_launches([profiled], mods)["confidence"]
+        steps = profiled.graphs.replays()
+        if conf != 2 * steps:
+            raise AssertionError(f"traced wino_r: {conf} confidence "
+                                 f"launches in {steps} step replays, want "
+                                 f"two a step")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # http serving (phase 11): the async stack over real sockets
 # --------------------------------------------------------------------------
 
@@ -1199,6 +1412,7 @@ def http_phase(torch, mods: dict) -> dict:
         try:
             launches = _http_traffic(torch, handle, router, records, mods,
                                      graphs, threading, np)
+            _http_carry(torch, handle, router, records, np)
             _http_faults(handle, records, np)
             _http_eviction(torch, handle, router, records, np)
             _http_drain(handle, threading, np)
@@ -1318,6 +1532,57 @@ def _http_traffic(torch, handle, router, records, mods, graphs, threading,
         f"{HTTP_MAX_BATCH}: {rows}); forward-equivalents per token "
         f"{fwd / gen_tokens:.4f}; launches {launches}")
     return launches
+
+
+# the requests the port answered 501 before the carry-ful strategies and
+# the step telemetry were ported: each must stream 200 and equal its batch
+# re-decoded; the traced one's /v1/trace must carry the device's counters
+HTTP_CARRY = ({"strategy": "fdm_a", "trace": True},
+              {"strategy": "wino_r", "cache_policy": "prefix"},
+              {"strategy": "extrapolate", "cache_policy": "dual"})
+
+
+def _http_carry(torch, handle, router, records, np) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServingClient
+    vocab = get_config("llada-8b").vocab_size
+    rs = np.random.default_rng(SEED + 13)
+    client = ServingClient(handle.host, handle.port, timeout=900)
+    t0 = time.perf_counter()
+    tokens = {}
+    for over in HTTP_CARRY:
+        prompt = rs.integers(0, vocab - 1, 48).tolist()
+        events = _stream(client, prompt, model="llada-8b", gen_length=GEN,
+                         block_size=BLOCK, steps=GEN, **over)
+        done = events[-1][1]
+        if done["type"] != "done" or done["status"] != "ok":
+            raise AssertionError(f"http carry {over}: {done}")
+        tokens[done["rid"]] = done["tokens"]
+        st = done["stats"]
+        counters = [e["args"] for e in client.trace(
+            done["rid"], model="llada-8b")["traceEvents"]
+            if e.get("name") == "commits"]
+        if over.get("trace") and (
+                len(counters) != st["steps"]
+                or sum(c["commits"] for c in counters) != GEN):
+            raise AssertionError(f"http carry {over}: /v1/trace has "
+                                 f"{len(counters)} step counters summing to "
+                                 f"{sum(c['commits'] for c in counters)}, "
+                                 f"want {st['steps']} and {GEN}")
+        log(f"http carry {over}: 200 and {len(events) - 1} block events; "
+            f"steps {st['steps']}, forward_equivalents "
+            f"{st['forward_equivalents']}, revocations {st['revocations']}, "
+            f"skipped_forwards {st['skipped_forwards']}; /v1/trace step "
+            f"counters {len(counters)} (final commits "
+            f"{sum(c['commits'] for c in counters)})")
+    batches = [b for name, b in records if name == "llada-8b"]
+    del records[:]
+    checked = _redecode_batches(torch, router, "llada-8b", batches, tokens)
+    if checked != len(tokens):
+        raise AssertionError(f"http carry: {checked} of {len(tokens)} "
+                             f"requests found in the recorded batches")
+    log(f"http carry: {checked} requests each equal to its batch decoded "
+        f"directly; {time.perf_counter() - t0:.1f} s")
 
 
 def _http_faults(handle, records, np):
@@ -1740,6 +2005,29 @@ def testbed_phase(torch) -> None:
         if not same:
             raise AssertionError(f"testbed fdm {policy}: the card's decode "
                                  f"differs from the CPU's")
+    # the carry-ful strategies at their defaults, where the trained
+    # confidences decide the revocations and the skips
+    for strategy in ("wino_r", "extrapolate"):
+        for policy in POLICIES:
+            dcfg = DecodeConfig(gen_length=gen, block_size=block, steps=gen,
+                                strategy=strategy, cache_policy=policy)
+            with decode_cache_scope():
+                out, st = Decoder(params, cfg, dcfg).generate(None,
+                                                              prompt.cuda())
+            want, wst = Decoder(cpu_params, cfg, dcfg,
+                                device="cpu").generate(None, prompt)
+            same = torch.equal(out.cpu(), want) and \
+                _stats_key(st) == _stats_key(wst)
+            log(f"testbed decode {strategy} {policy} (graph driver, 64 "
+                f"prompts, gen {gen}, block {block}): EM "
+                f"{ds.exact_match(out.cpu().numpy(), batch)}, steps "
+                f"{st.steps}, forward_equivalents {st.forward_equivalents}, "
+                f"revocations {st.revocations}, skipped_forwards "
+                f"{st.skipped_forwards}; card tokens equal the CPU's: "
+                f"{same}")
+            if not same:
+                raise AssertionError(f"testbed {strategy} {policy}: the "
+                                     f"card's decode differs from the CPU's")
     dcfg = DecodeConfig(gen_length=gen, block_size=block, steps=gen,
                         strategy="fdm_a", k1=2)
     with decode_cache_scope() as scope:
@@ -2015,6 +2303,9 @@ def main() -> None:
     kv_ab_phase(torch, cfg, params, mods)
     strategy_ab_phase(torch, cfg, params)
     log(f"kv a/b phase llada-8b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    carry = carry_phase(torch, cfg, params, mods)
+    log(f"carry phase llada-8b: {time.perf_counter() - t0:.1f} s")
     clear_decode_cache()
     del params
     torch.cuda.empty_cache()
@@ -2059,6 +2350,7 @@ def main() -> None:
         by_path["hymba-1.5b"] = hymba[kernel]
         by_path["llada-8b-train"] = training.get(kernel, 0)
         by_path["llada-8b-http"] = http.get(kernel, 0)
+        by_path["llada-8b-carry"] = carry.get(kernel, 0)
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 

@@ -229,15 +229,17 @@ class DecodeConfig:
     # WINO baseline
     wino_tau1: float = 0.7
     wino_tau2: float = 0.9
-    # wino_r (revocation; not yet ported)
+    # wino_r (core/wino.py): revoke a pending commit whose re-scored
+    # probability falls below wino_revoke_tau, at most budget per row
     wino_revoke_tau: float = 0.3
     wino_revoke_budget: int = 8
-    # extrapolate (forward skipping; not yet ported)
+    # extrapolate (core/extrapolate.py): commit from the carry, with no
+    # forward, when the extrapolated confidence reaches extrap_tau
     extrap_tau: float = 0.92
     extrap_beta: float = 0.5
     extrap_horizon: float = 2.0
     extrap_min_obs: int = 2
-    # step telemetry (not yet ported)
+    # step telemetry (core/tracebuffer.py): SampleStats.trace
     trace: bool = False
 
     def __post_init__(self):

@@ -7,6 +7,10 @@
                 Margin/Entropy + EB + WINO baselines
   fdm         — Algorithm 1 (FDM)
   fdm_a       — Algorithm 2 (FDM-A)
+  wino        — ``wino_r``: WINO revocation, the pending set in the carry
+  extrapolate — confidence extrapolation: skips forwards from the carry
+  tracebuffer — on-device step telemetry (``dcfg.trace``) and its
+                host read-back, ``DecodeTrace``
   graphs      — ``run_masked`` and the CUDA-graph set of a decode runner
   loop        — the eager and the graph block drivers
   decoder     — ``Decoder``, ``SampleStats`` and the runner cache
@@ -19,12 +23,17 @@ from repro_torch.core.decoder import (BlockEvent, CacheInfo, Decoder,
                                       decode_cache_scope,
                                       reset_decode_cache_stats,
                                       validate_cache_policy)
+from repro_torch.core.extrapolate import ExtrapolationStrategy
 from repro_torch.core.fdm import fdm_select, fdm_step
 from repro_torch.core.fdm_a import FDMAStrategy, fdm_a_plan
-from repro_torch.core.strategies import (Strategy, available_strategies,
+from repro_torch.core.strategies import (StatelessStrategy, Strategy,
+                                         as_strategy, available_strategies,
                                          commit_topn, rank_desc,
                                          register_strategy, resolve_strategy,
                                          unregister_strategy)
+from repro_torch.core.tracebuffer import (DecodeTrace, TracingStrategy,
+                                          trace_capacity, tracing)
+from repro_torch.core.wino import WINORevocationStrategy
 
 __all__ = [
     "Scores", "score_logits", "local_confidence", "global_confidence",
@@ -32,6 +41,9 @@ __all__ = [
     "RunnerCache", "CacheInfo", "decode_cache_info", "clear_decode_cache",
     "reset_decode_cache_stats", "decode_cache_scope",
     "fdm_select", "fdm_step", "FDMAStrategy", "fdm_a_plan",
-    "Strategy", "commit_topn", "rank_desc", "register_strategy",
-    "resolve_strategy", "unregister_strategy", "available_strategies",
+    "WINORevocationStrategy", "ExtrapolationStrategy",
+    "Strategy", "StatelessStrategy", "as_strategy", "commit_topn",
+    "rank_desc", "register_strategy", "resolve_strategy",
+    "unregister_strategy", "available_strategies",
+    "DecodeTrace", "TracingStrategy", "tracing", "trace_capacity",
 ]

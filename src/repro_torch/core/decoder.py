@@ -43,8 +43,14 @@ weights shares them (``ServingEngine`` builds one per batch) and they go
 when the weights go; at most ``max_runners`` runs per weights, least
 recently used dropped first.
 
-Not ported yet (each raises ``NotImplementedError``): ``trace=True`` and
-the strategies ``wino_r``/``extrapolate`` (ROADMAP.md queue 1 item 7).
+With ``dcfg.trace`` the strategy decodes wrapped by
+``tracebuffer.tracing`` (memoized, so traced decodes get runs of their
+own in the runner cache) and ``SampleStats.trace`` holds the decode's
+``DecodeTrace``.  Every driver builds the carry with
+``Strategy.init_carry_shaped`` for the canvas and reads it back once at
+the end, with the strategy's ``carry_stats`` (``revocations``,
+``skipped_forwards``).  A strategy without ``supports_fused`` decodes on
+the eager driver.
 """
 from __future__ import annotations
 
@@ -62,10 +68,11 @@ import torch
 from repro_torch.configs.base import DecodeConfig, ModelConfig
 from repro_torch.core.graphs import CapturePool
 from repro_torch.core.loop import (GraphRun, graph_block,
-                                   graph_cached_block, run_block,
+                                   graph_cached_block, read_tree, run_block,
                                    run_cached_block, warm_run)
 from repro_torch.core.masking import fully_masked
 from repro_torch.core.strategies import Strategy, resolve_strategy
+from repro_torch.core.tracebuffer import DecodeTrace, TracingStrategy, tracing
 from repro_torch.device import resolve_device
 from repro_torch.models.model import (DecodeState, capture_cache, forward,
                                       forward_cached)
@@ -78,8 +85,9 @@ class SampleStats:
     wall_time: float = 0.0
     tokens_generated: int = 0
     phase_counts: Dict[str, float] = field(default_factory=dict)
-    revocations: float = 0.0
-    skipped_forwards: float = 0.0
+    revocations: float = 0.0          # tokens re-masked (wino_r)
+    skipped_forwards: float = 0.0     # forwards skipped (extrapolate)
+    trace: Optional[DecodeTrace] = None   # dcfg.trace only; off the wire
 
     @property
     def tps(self) -> float:
@@ -305,13 +313,8 @@ def validate_cache_policy(cfg: ModelConfig, dcfg: DecodeConfig) -> None:
 
 def check_supported(cfg: ModelConfig, dcfg: DecodeConfig) -> None:
     """Raise ``ValueError`` for a cache policy ``cfg`` can never serve (as
-    the reference does), then ``NotImplementedError`` for decode options
-    not ported yet."""
+    the reference does)."""
     validate_cache_policy(cfg, dcfg)
-    if dcfg.trace:
-        raise NotImplementedError(
-            "trace=True (step telemetry) is not ported yet: ROADMAP.md "
-            "queue 1 item 7")
 
 
 def check_kernel_flag(dcfg: DecodeConfig, device: torch.device) -> None:
@@ -393,9 +396,9 @@ class Decoder:
         committed block (``x`` a device tensor of its own; on the graph
         drivers the copy may still be queued on the card, so the callback
         should not sync if it wants none)."""
-        strat = resolve_strategy(strategy or self.dcfg.strategy)
+        strat = self._strategy(strategy)
         gen, prompt, geometry = self._inputs(rng, prompt)
-        if self.dcfg.fused_loop:
+        if self._fused(strat):
             blocks = self._graph_blocks_gen(
                 strat, gen, prompt, geometry,
                 events=(on_block_committed is not None
@@ -415,11 +418,22 @@ class Decoder:
         committed block; its return value is ``(tokens, stats)``.  Runs
         the per-block graph driver, or the eager one under
         ``fused_loop=False``."""
-        strat = resolve_strategy(strategy or self.dcfg.strategy)
+        strat = self._strategy(strategy)
         gen, prompt, geometry = self._inputs(rng, prompt)
-        if self.dcfg.fused_loop:
+        if self._fused(strat):
             return self._graph_blocks_gen(strat, gen, prompt, geometry)
         return self._blocks_gen(strat, gen, prompt, geometry)
+
+    def _strategy(self, strategy) -> Strategy:
+        """The decode's strategy, wrapped by the (memoized) tracing adapter
+        under ``dcfg.trace``."""
+        strat = resolve_strategy(strategy or self.dcfg.strategy)
+        return tracing(strat) if self.dcfg.trace else strat
+
+    def _fused(self, strat: Strategy) -> bool:
+        """The graph drivers, or the eager one for ``fused_loop=False`` and
+        a strategy without a graph-safe step."""
+        return self.dcfg.fused_loop and strat.supports_fused
 
     def _inputs(self, rng, prompt):
         """(generator, prompt tensor, geometry); geometry and cache-policy
@@ -514,8 +528,9 @@ class Decoder:
         else:
             warm_run(strat, self._model_fn, self.cfg, self.dcfg, run)
         t0 = time.perf_counter()
-        run.start(prompt, strat.init_carry(self.cfg, self.dcfg, self.device),
-                  gen)
+        run.start(prompt, strat.init_carry_shaped(
+            self.cfg, self.dcfg, b, lp + self.dcfg.gen_length, self.device),
+            gen)
         return run, lease, t0
 
     def _graph_blocks_gen(self, strat: Strategy, gen: torch.Generator,
@@ -560,8 +575,8 @@ class Decoder:
         run.release()
         stats = SampleStats(tokens_generated=out.shape[0] * geometry[0],
                             steps=steps,
-                            forward_equivalents=fwd + float(refreshes),
-                            phase_counts=strat.phase_counts(carry))
+                            forward_equivalents=fwd + float(refreshes))
+        _carry_stats(stats, strat, carry)
         stats.wall_time = time.perf_counter() - t0
         return out, stats
 
@@ -573,7 +588,8 @@ class Decoder:
         b, lp = prompt.shape
         gen_len, bs, num_blocks, sched = geometry
         x = fully_masked(cfg, prompt, gen_len)
-        carry = strat.init_carry(cfg, dcfg, self.device)
+        carry = strat.init_carry_shaped(cfg, dcfg, b, x.shape[1],
+                                        self.device)
         stats = SampleStats(tokens_generated=b * gen_len)
         pos = torch.arange(x.shape[1], device=self.device)
         t0 = time.perf_counter()
@@ -604,10 +620,10 @@ class Decoder:
                     in_block, carry, stats.forward_equivalents)
             stats.steps += steps
             yield BlockEvent(blk, lo, hi, x)
+        stats.forward_equivalents += refresh_fwd
+        _carry_stats(stats, strat, read_tree(carry))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        stats.forward_equivalents += refresh_fwd
-        stats.phase_counts = strat.phase_counts(carry)
         stats.wall_time = time.perf_counter() - t0
         return x, stats
 
@@ -615,6 +631,24 @@ class Decoder:
     def cache_info(self) -> CacheInfo:
         """Counters of the runner cache this Decoder resolves against."""
         return self._cache.info()
+
+
+def _carry_stats(stats: SampleStats, strat: Strategy, carry) -> None:
+    """The final carry (on the host) into ``stats``: phase counts, the
+    strategy's ``carry_stats`` onto the fields of their names (the
+    reference's ``_merge_carry_stats``), and a traced decode's
+    ``DecodeTrace``."""
+    pc = strat.phase_counts(carry)
+    if pc:
+        stats.phase_counts = pc
+    for key, val in strat.carry_stats(carry).items():
+        if not hasattr(stats, key):
+            raise AttributeError(
+                f"strategy {strat.name!r} reported carry stat {key!r} "
+                f"which is not a SampleStats field")
+        setattr(stats, key, val)
+    if isinstance(strat, TracingStrategy):
+        stats.trace = strat.extract(carry)
 
 
 def _refresh_into(tiles: Dict[int, DecodeState], state: DecodeState) -> None:

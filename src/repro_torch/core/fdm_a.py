@@ -56,12 +56,21 @@ class FDMAStrategy(Strategy):
     many batch rows landed in each phase, read back once at the end."""
 
     name = "fdm_a"
+    # the scoring forward is unconditional and full-canvas (the search's
+    # forward has K·B rows, which the tracing adapter's tap skips)
+    trace_confidence_tap = True
 
     def init_carry(self, cfg: ModelConfig, dcfg: DecodeConfig, device):
         return torch.zeros(4, dtype=torch.int32, device=device)
 
     def phase_counts(self, carry) -> Dict[str, int]:
         return {k: int(v) for k, v in zip(PHASES, carry.tolist())}
+
+    def trace_phase(self, carry_before, carry_after):
+        """The step's phase for the trace: the argmax of the step's
+        increment of the phase histogram, the batch's dominant phase
+        (exact at batch 1; the first on a tie)."""
+        return torch.argmax(carry_after - carry_before).to(torch.int32)
 
     def _plan(self, carry, x, active, model_fn: ModelFn,
               dcfg: DecodeConfig):

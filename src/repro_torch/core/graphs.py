@@ -19,9 +19,11 @@ is a mask:
   first use; on the CPU it calls ``fn()``, so the drivers run the same
   code there, eagerly.  Its graphs are captured on the side stream of a
   ``CapturePool`` into that pool's memory and replayed on the current
-  stream.  The set's ``torch.Generator`` is registered with every graph
-  (only the default generator is registered on its own): a replay draws
-  from it at the offset it holds, then advances it by the graph's draws.
+  stream; a warm run or a capture on the side stream is ordered after the
+  current stream's queued work, and the current stream after it.  The
+  set's ``torch.Generator`` is registered with every graph (only the
+  default generator is registered on its own): a replay draws from it at
+  the offset it holds, then advances it by the graph's draws.
 * ``CapturePool`` — one graph memory pool and one capture stream, shared
   by every ``GraphSet`` given it (the runner cache gives one per device
   to all its runners).  Graphs may share a pool because none of them
@@ -164,6 +166,13 @@ class GraphSet:
     def _capture(self, key: Hashable,
                  fn: Callable[[], None]) -> torch.cuda.CUDAGraph:
         t0 = time.perf_counter()
+        # the capture stream runs work of its own before the capture (the
+        # generator's seed and offset fills, into tensors the allocator
+        # may have just handed on from a temporary of the current stream
+        # that a queued copy still reads), so it waits for the current
+        # stream first, and the current stream's replays wait for it
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
@@ -174,6 +183,7 @@ class GraphSet:
                 fn()
             finally:
                 graph.capture_end()
+        current.wait_stream(self.stream)
         self._launches[key] = wrapper_launches() - before
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0

@@ -100,14 +100,24 @@ def window_geometry(dcfg: DecodeConfig, total: int
     return dcfg.block_size, None
 
 
+def tree_map(fn: Callable, *trees):
+    """``fn`` over the tensors of one or more carries of the same
+    structure (a tensor, or nested tuples and lists of them), like
+    ``jax.tree.map``."""
+    if isinstance(trees[0], torch.Tensor):
+        return fn(*trees)
+    return type(trees[0])(tree_map(fn, *subs) for subs in zip(*trees))
+
+
 def carry_window(strategy: Strategy, carry, lo: int, width: int):
     """Slice a positional carry's per-column tensors to the live window
-    ``[:, lo:lo+width]``, like the canvas.  The carry of a strategy
-    without ``positional_carry`` passes through whole."""
+    ``[:, lo:lo+width]``, like the canvas: views, so a write into them
+    (``graphs.write``/``write_where``) lands in ``carry``.  The carry of a
+    strategy without ``positional_carry`` passes through whole."""
     if not strategy.positional_carry:
         return carry
     pos, glob = carry
-    return tuple(a[:, lo:lo + width] for a in pos), glob
+    return tree_map(lambda a: a[:, lo:lo + width], pos), glob
 
 
 def carry_unwindow(strategy: Strategy, carry_full, carry_win, lo: int):
@@ -117,7 +127,7 @@ def carry_unwindow(strategy: Strategy, carry_full, carry_win, lo: int):
         return carry_win
     pos_full, _ = carry_full
     pos_win, glob = carry_win
-    return tuple(_write(f, w, lo) for f, w in zip(pos_full, pos_win)), glob
+    return tree_map(lambda f, w: _write(f, w, lo), pos_full, pos_win), glob
 
 
 def _write(full: torch.Tensor, win: torch.Tensor, lo: int) -> torch.Tensor:
@@ -185,6 +195,15 @@ def _read(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     return [p.to(t.dtype).reshape(t.shape) for p, t in zip(parts, tensors)]
 
 
+def read_tree(tree):
+    """A carry's tensors copied to the host in one ``_read`` (the same
+    structure, CPU tensors); a carry without tensors passes through."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return tree
+    return _rebuild(tree, iter(_read(leaves)))
+
+
 class Lease:
     """A decode's hold on a ``GraphRun``: the run is that decode's while
     its lease lives (until ``GraphRun.release``, or until an abandoned
@@ -240,7 +259,8 @@ class GraphRun:
         # masked positions left in the block's fullest row, written by
         # every step and polled by the host (``post``/``left_after``)
         self.left = torch.zeros((), dtype=torch.int32, device=device)
-        self.carry = strategy.init_carry(cfg, dcfg, device)
+        self.carry = strategy.init_carry_shaped(cfg, dcfg, batch, total,
+                                                device)
         self.generator = torch.Generator(device=device)
         self.graphs = GraphSet(device, self.generator, on_capture, capture)
         if self.graphs.cuda:

@@ -2,12 +2,14 @@
 and the heuristic, EB and WINO baselines (reference:
 ``src/repro/core/strategies.py``).
 
-The protocol keeps the part of the reference's that the ported
-strategies and the drivers use:
+The protocol (the reference's, with ``fused_step`` named
+``device_step``):
 
   * ``init_carry(cfg, dcfg, device) -> carry`` — per-decode state
     (``()`` for the stateless builtins; FDM-A counts its phases in a
-    tensor);
+    tensor).  A strategy whose carry is positional (per canvas column)
+    overrides ``init_carry_shaped(cfg, dcfg, batch, length, device)``
+    instead, which every driver calls, and sets ``positional_carry``;
   * ``begin_block(carry, x, in_block) -> carry`` — fired by every driver
     before a block's first step; identity by default;
   * ``step(rng, carry, x, active, model_fn, cfg, dcfg, n)
@@ -18,18 +20,30 @@ strategies and the drivers use:
     reference's ``fused_step``): ``n`` is a 0-dim int32 tensor on the
     device and the forward count comes back as a 0-dim f32 tensor there;
     no host sync, no host branch on data (FDM-A's search skip is a
-    device-side select, ``graphs.run_masked``);
-  * ``phase_counts(carry)`` — host-side counters read from the final
-    carry into ``SampleStats``;
-  * ``positional_carry`` — whether the cached path slices the carry with
-    its window.
+    device-side select, ``graphs.run_masked``), and no write into the
+    carry's tensors: the drivers write the returned carry where the step
+    is live;
+  * host-side stats read from the final carry into ``SampleStats``:
+    ``phase_counts(carry)`` and ``carry_stats(carry)`` (``revocations``,
+    ``skipped_forwards``);
+  * for the step telemetry (``core/tracebuffer.py``):
+    ``trace_confidence_tap``, ``trace_confidence(carry, dcfg)`` and
+    ``trace_phase(before, after)``;
+  * metadata: ``supports_fused`` (the strategy has a graph-safe step; one
+    without decodes on the eager driver) and ``positional_carry`` (the
+    cached path slices the carry's positional half with its window).
 
-The registry is the port's own; the reference's registry is never
-touched.
+Registered strategies: the heuristics (random, probability, margin,
+entropy), ``eb`` and ``wino`` here; ``fdm`` (``core/fdm.py``), ``fdm_a``
+(``core/fdm_a.py``), ``wino_r`` (``core/wino.py``) and ``extrapolate``
+(``core/extrapolate.py``) register themselves.  Third-party strategies
+register through ``register_strategy`` or the ``repro_torch.strategies``
+entry-point group.  The registry is the port's own; the reference's
+registry is never touched.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -39,9 +53,6 @@ from repro_torch.core.confidence import local_confidence, score_logits
 ModelFn = Callable[[torch.Tensor], torch.Tensor]   # tokens (B,L) -> logits
 
 NEG = -1e30
-
-# registered in the reference, not ported yet (ROADMAP.md queue 1 item 7)
-NOT_PORTED = {"wino_r": "core/wino.py", "extrapolate": "core/extrapolate.py"}
 
 
 def rank_desc(conf: torch.Tensor) -> torch.Tensor:
@@ -71,14 +82,28 @@ class Strategy:
     """Base class for decoding strategies (see module docstring)."""
 
     name: str = ""
-    # True = the carry is ``(positional, global)``: ``positional`` a tuple
-    # of (B, L, ...) tensors column-aligned with the canvas, which the
-    # cached path slices with its live window (``core/loop.py:
-    # carry_window``).  No ported strategy has one yet.
+    # False = no graph-safe ``device_step``: the decoder runs the eager
+    # driver whatever ``fused_loop`` says
+    supports_fused: bool = True
+    # True = the carry is ``(positional, global)``: ``positional`` a tree of
+    # (B, L, ...) tensors column-aligned with the canvas, which the cached
+    # path slices with its live window (``core/loop.py:carry_window``);
+    # ``global`` rides every driver whole
     positional_carry: bool = False
+    # True = the step's first full-canvas ``model_fn`` call is
+    # unconditional, so the tracing adapter may capture its logits for the
+    # commit confidence; False = ``trace_confidence`` gives it (or NaN)
+    trace_confidence_tap: bool = False
 
     def init_carry(self, cfg: ModelConfig, dcfg: DecodeConfig, device):
         return ()
+
+    def init_carry_shaped(self, cfg: ModelConfig, dcfg: DecodeConfig,
+                          batch: int, length: int, device):
+        """The carry for a (batch, length) canvas on ``device``: what every
+        driver calls.  A positional strategy overrides this and returns
+        ``(positional, global)``; the default is ``init_carry``."""
+        return self.init_carry(cfg, dcfg, device)
 
     def begin_block(self, carry, x, in_block):
         """Block-entry hook, fired by every driver before a block's first
@@ -87,7 +112,24 @@ class Strategy:
         return carry
 
     def phase_counts(self, carry) -> Dict[str, int]:
+        """Per-phase step counts from the final carry (on the host)."""
         return {}
+
+    def carry_stats(self, carry) -> Dict[str, float]:
+        """Counters from the final carry (on the host), merged onto the
+        ``SampleStats`` fields of the same names (``revocations``,
+        ``skipped_forwards``)."""
+        return {}
+
+    def trace_confidence(self, carry, dcfg: DecodeConfig):
+        """The (B, L) commit confidence read from the post-step carry, for
+        a strategy without a confidence tap; None = NaN in the trace."""
+        return None
+
+    def trace_phase(self, carry_before, carry_after):
+        """The step's phase id (a 0-dim int tensor) from its carry
+        transition; None = -1 in the trace."""
+        return None
 
     def step(self, rng, carry, x, active, model_fn: ModelFn,
              cfg: ModelConfig, dcfg: DecodeConfig, n) -> Tuple:
@@ -115,6 +157,10 @@ class StatelessStrategy(Strategy):
     """Lifts ``step_fn(rng, x, active, model_fn, cfg, dcfg, n) -> (x,
     forwards)`` into the protocol."""
 
+    # every builtin stateless step opens with one unconditional
+    # full-canvas model_fn(x), which the tracing adapter may tap
+    trace_confidence_tap = True
+
     def __init__(self, name: str, step_fn: Callable):
         self.name = name
         self._step_fn = step_fn
@@ -124,25 +170,54 @@ class StatelessStrategy(Strategy):
         return new_x, carry, fwd
 
 
+def as_strategy(obj) -> Strategy:
+    """A ``Strategy``, a registered name, or a legacy step callable
+    (``step_fn(rng, x, active, model_fn, cfg, dcfg, n) -> (x, forwards)``)
+    as a ``Strategy``."""
+    if isinstance(obj, Strategy):
+        return obj
+    if isinstance(obj, str):
+        return resolve_strategy(obj)
+    if callable(obj):
+        return StatelessStrategy(getattr(obj, "__name__", "anonymous"), obj)
+    raise TypeError(f"cannot interpret {obj!r} as a decoding strategy")
+
+
 # --------------------------------------------------------------------------
 # registry
 # --------------------------------------------------------------------------
 
 _REGISTRY: Dict[str, Strategy] = {}
 _BUILTINS_LOADED = False
+_ENTRY_POINTS_LOADED = False
+ENTRY_POINT_GROUP = "repro_torch.strategies"
 
 
-def register_strategy(strategy: Strategy, replace: bool = False):
-    """Register a ``Strategy`` instance under its ``name``."""
-    if not isinstance(strategy, Strategy):
+def register_strategy(strategy=None, *, name: Optional[str] = None,
+                      replace: bool = False):
+    """Register a ``Strategy`` instance, or a zero-argument ``Strategy``
+    class (instantiated here), under ``name`` or its own ``name``.
+    Returns its argument, so it also decorates a class::
+
+        @register_strategy
+        class Mine(Strategy):
+            name = "mine"
+
+    ``register_strategy(name=..., replace=...)`` returns such a
+    decorator."""
+    if strategy is None:
+        return lambda s: register_strategy(s, name=name, replace=replace)
+    obj = strategy() if isinstance(strategy, type) else strategy
+    if not isinstance(obj, Strategy):
         raise TypeError(f"{strategy!r} is not a Strategy")
-    if not strategy.name:
-        raise ValueError(f"{strategy!r} has no name")
-    old = _REGISTRY.get(strategy.name)
-    if old is not None and old is not strategy and not replace:
-        raise ValueError(f"strategy {strategy.name!r} already registered "
+    key = name or obj.name
+    if not key:
+        raise ValueError(f"{obj!r} has no name")
+    old = _REGISTRY.get(key)
+    if old is not None and old is not obj and not replace:
+        raise ValueError(f"strategy {key!r} already registered "
                          "(pass replace=True to override)")
-    _REGISTRY[strategy.name] = strategy
+    _REGISTRY[key] = obj
     return strategy
 
 
@@ -156,20 +231,39 @@ def _ensure_builtins() -> None:
     if _BUILTINS_LOADED:
         return
     _BUILTINS_LOADED = True
-    import repro_torch.core.fdm      # noqa: F401  (registers "fdm")
-    import repro_torch.core.fdm_a    # noqa: F401  (registers "fdm_a")
+    import repro_torch.core.extrapolate  # noqa: F401  ("extrapolate")
+    import repro_torch.core.fdm          # noqa: F401  ("fdm")
+    import repro_torch.core.fdm_a        # noqa: F401  ("fdm_a")
+    import repro_torch.core.wino         # noqa: F401  ("wino_r")
+
+
+def _load_entry_points() -> None:
+    """Register the strategies published under ``ENTRY_POINT_GROUP``,
+    once; a plugin that fails to load or register is skipped."""
+    global _ENTRY_POINTS_LOADED
+    if _ENTRY_POINTS_LOADED:
+        return
+    _ENTRY_POINTS_LOADED = True
+    try:
+        from importlib.metadata import entry_points
+        eps = entry_points(group=ENTRY_POINT_GROUP)
+    except Exception:
+        return
+    for ep in eps:
+        try:
+            register_strategy(ep.load(), name=ep.name)
+        except Exception:
+            continue                  # a broken plugin must not stop decode
 
 
 def resolve_strategy(name) -> Strategy:
     """Look up a registered ``Strategy`` by name (a ``Strategy`` passes
-    through)."""
+    through); the entry points are loaded at the first unknown name."""
     if isinstance(name, Strategy):
         return name
     _ensure_builtins()
-    if name in NOT_PORTED and name not in _REGISTRY:
-        raise NotImplementedError(
-            f"strategy {name!r} ({NOT_PORTED[name]} in the reference) is "
-            f"not ported yet: ROADMAP.md queue 1 item 7")
+    if name not in _REGISTRY:
+        _load_entry_points()
     if name not in _REGISTRY:
         raise KeyError(f"unknown strategy {name!r}; "
                        f"have {sorted(_REGISTRY)}")
@@ -179,6 +273,7 @@ def resolve_strategy(name) -> Strategy:
 def available_strategies() -> Tuple[str, ...]:
     """The names ``resolve_strategy`` accepts, sorted."""
     _ensure_builtins()
+    _load_entry_points()
     return tuple(sorted(_REGISTRY))
 
 

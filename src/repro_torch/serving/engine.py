@@ -155,9 +155,8 @@ class ServingEngine:
         """Queue a prompt; returns the request id.  The overrides build the
         request's effective ``DecodeConfig``, validated HERE: an unknown
         strategy raises ``KeyError``, a bad geometry or a cache policy the
-        model can never serve ``ValueError``, an option the port does not
-        run yet ``NotImplementedError``, and a prompt token outside the
-        vocabulary ``CorruptOutputError``.  ``deadline_s`` bounds QUEUE
+        model can never serve ``ValueError``, and a prompt token outside
+        the vocabulary ``CorruptOutputError``.  ``deadline_s`` bounds QUEUE
         time: a request still queued after it is dropped as expired at
         the next reap."""
         over = {k: v for k, v in dict(
@@ -399,7 +398,8 @@ class ServingEngine:
         across the real (non-replica) members; ``steps`` stays the batch's
         (decode is batch-synchronous); phase counts are normalised by the
         padded row count (one flag per row per step), so they still sum to
-        ``steps`` per request."""
+        ``steps`` per request; a traced decode's ``DecodeTrace`` is cut to
+        each request's own row."""
         out = out.cpu().numpy()
         now = time.perf_counter()
         real = len(batch.requests)
@@ -414,7 +414,11 @@ class ServingEngine:
                 revocations=stats.revocations / real,
                 skipped_forwards=stats.skipped_forwards / real,
                 phase_counts={k: v / rows
-                              for k, v in stats.phase_counts.items()})
+                              for k, v in stats.phase_counts.items()},
+                # per position, not pro-rated: the request's own row, its
+                # pad columns cut so commit_step lines up with its result
+                trace=stats.trace.slice_rows(i, batch.pads[i])
+                if stats.trace is not None else None)
             req.finish_time = now
             self.done[req.rid] = req
         if self.on_batch_done is not None:

@@ -619,10 +619,9 @@ class AsyncScheduler:
             self._m_latency.labels(model=self.model).observe(req.latency)
             self._m_tokens.labels(model=self.model).observe(
                 req.stats.tokens_generated if req.stats else 0)
-        # no on-device DecodeTrace yet: trace=true is refused at submit
-        # until ROADMAP.md queue 1 item 7
+        trace = req.stats.trace if req.stats is not None else None
         self.trace_store.attach(
-            req.rid, None, rid=req.rid,
+            req.rid, trace, rid=req.rid,
             strategy=batch.dcfg.strategy,
             cache_policy=batch.dcfg.cache_policy,
             tokens_generated=int(req.stats.tokens_generated)

@@ -18,9 +18,9 @@ web framework, zero new runtime dependencies.  The endpoint surface:
   immediately; follow the ``stream`` URL for SSE.  Unknown strategy,
   bad geometry, an unknown/unservable ``cache_policy`` or a prompt token
   outside the vocabulary → 400 at the boundary; queue at max depth →
-  429; ``"trace": true`` or a strategy the port does not run yet
-  (``wino_r``, ``extrapolate``) → 501, until ROADMAP.md queue 1 item 7
-  ports them.
+  429; an option the port does not run (``NotImplementedError``, e.g. an
+  architecture not ported yet) → 501.  ``"trace": true`` records the
+  decode's on-device step telemetry for ``/v1/trace/{rid}``.
 
 * ``GET /v1/stream/{rid}?model=name`` — Server-Sent Events: one ``block``
   event per committed semi-AR block (the natural streaming grain of
@@ -37,7 +37,9 @@ web framework, zero new runtime dependencies.  The endpoint surface:
   after a circuit-breaker engine rebuild / ``draining``) + queue depths.
 * ``GET /v1/trace/{rid}?model=name`` — Chrome trace-event JSON for one
   request: the scheduler's lifecycle spans (queue wait, batch assembly,
-  per-block decode, cache refresh, emit).  Open in Perfetto or render
+  per-block decode, cache refresh, emit), and for a ``"trace": true``
+  request the device's per-step counters (commits, revocations, skips,
+  FDM-A's phase).  Open in Perfetto or render
   with ``tools/trace_view.py``.
 * ``GET /metrics`` — Prometheus text exposition (format 0.0.4, with
   HELP/TYPE) from a real ``MetricsRegistry``: the seed-era router/
@@ -268,8 +270,7 @@ class ServingServer:
                     self._respond(writer, 400, {"error": str(e)})
                     close = False
                 except NotImplementedError as e:
-                    # an option the port does not run yet (ROADMAP.md
-                    # queue 1 item 7)
+                    # an option the port does not run
                     self._respond(writer, 501, {"error": str(e)})
                     close = False
                 except QueueFullError as e:

@@ -7,10 +7,8 @@ The scheduler records a ``Span`` per lifecycle stage of every request —
 dispatch, ``cache_refresh`` when the decode's cache policy re-captured
 KV state, and ``emit`` (fan-out of the terminal event) — into a
 ``TraceStore``.  When the decode ran with ``trace=true`` the request's
-``DecodeTrace`` (the reference's on-device TraceBuffer read-back; the
-port refuses ``trace=true`` until ROADMAP.md queue 1 item 7 ports it,
-so no port decode attaches one yet) is attached too, and the export
-interleaves
+``DecodeTrace`` (``core/tracebuffer.py``: the on-device step telemetry,
+read back once per decode) is attached too, and the export interleaves
 per-step counter events — ``commits`` (the FINAL commit histogram, so
 the counter sums exactly to ``tokens_generated`` even under wino_r
 revocation), ``revocations``, ``skipped``, and the FDM-A phase — across

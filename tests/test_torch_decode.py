@@ -163,16 +163,29 @@ def test_random_strategy_commits_n_argmax_tokens_in_block(weights):
 @pytest.mark.parametrize("over,exc", [
     (dict(cache_policy="prefix"), ValueError),
     (dict(cache_policy="dual"), ValueError),
-    (dict(trace=True), NotImplementedError),
+    (dict(trace=True), None),
 ])
-def test_unported_decode_options_raise(over, exc):
-    """``trace`` is not ported yet; a cache policy is, but a ``Decoder``
-    built from a bare callable cannot drive it: the reference's
-    ``ValueError`` at ``generate``, as ``repro``'s ``_check_cached``."""
-    if exc is NotImplementedError:
-        with pytest.raises(exc, match="not ported yet"):
-            Decoder(lambda t: t, CFG, DecodeConfig(**BASE, **over),
-                    device="cpu")
+def test_unported_decode_options_raise(weights, prompt, over, exc):
+    """A cache policy is ported, but a ``Decoder`` built from a bare
+    callable cannot drive it: the reference's ``ValueError`` at
+    ``generate``, as ``repro``'s ``_check_cached``.  ``trace`` is ported:
+    it decodes as the reference's, with the same ``DecodeTrace``."""
+    if exc is None:
+        jp, tp = weights
+        kw = dict(BASE, strategy="probability", **over)
+        want, wstats = JaxDecoder(jp, JCFG, JaxDecodeConfig(
+            **kw, fused_loop=False)).generate(jax.random.PRNGKey(0),
+                                              jnp.asarray(prompt))
+        got, gstats = Decoder(tp, CFG, DecodeConfig(**kw),
+                              device="cpu").generate(None, prompt)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert (gstats.steps, gstats.forward_equivalents) == \
+            (wstats.steps, wstats.forward_equivalents)
+        for field in ("commit_step", "commits", "skipped", "block"):
+            np.testing.assert_array_equal(getattr(gstats.trace, field),
+                                          getattr(wstats.trace, field))
+        np.testing.assert_allclose(gstats.trace.commit_conf,
+                                   wstats.trace.commit_conf, atol=1e-5)
         return
     kw = dict(BASE, **over)
     jdec = JaxDecoder(lambda t: t, JCFG, JaxDecodeConfig(**kw))
@@ -201,9 +214,23 @@ def test_cache_policy_on_hybrid_raises_value_error(policy):
 
 
 @pytest.mark.parametrize("name", ["wino_r", "extrapolate"])
-def test_unported_strategies_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        resolve_strategy(name)
+def test_unported_strategies_raise(weights, prompt, name):
+    """Both strategies are ported: resolved by name, they decode (at their
+    default knobs) as the reference's; an unknown name still raises."""
+    strat = resolve_strategy(name)
+    assert strat.name == name and strat.positional_carry
+    jp, tp = weights
+    kw = dict(BASE, strategy=name)
+    want, wstats = JaxDecoder(jp, JCFG, JaxDecodeConfig(
+        **kw, fused_loop=False)).generate(jax.random.PRNGKey(0),
+                                          jnp.asarray(prompt))
+    got, gstats = Decoder(tp, CFG, DecodeConfig(**kw),
+                          device="cpu").generate(None, prompt)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (gstats.steps, gstats.forward_equivalents, gstats.revocations,
+            gstats.skipped_forwards) == \
+        (wstats.steps, wstats.forward_equivalents, wstats.revocations,
+         wstats.skipped_forwards)
     with pytest.raises(KeyError, match="unknown strategy"):
         resolve_strategy("no-such-strategy")
 

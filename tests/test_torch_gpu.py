@@ -476,6 +476,142 @@ def test_graph_drivers_match_the_eager_driver(cuda, kw, policy):
         assert st.phase_counts == runs[0][1].phase_counts
 
 
+CARRY_CASES = {
+    "wino_r": dict(strategy="wino_r", wino_revoke_tau=0.99,
+                   wino_revoke_budget=4),
+    "extrapolate": dict(strategy="extrapolate", extrap_tau=0.0,
+                        extrap_min_obs=1),
+    "fdm_a+trace": dict(strategy="fdm_a", eta1=0.025, eta2=0.02,
+                        gamma1=0.0, n_max=4, trace=True),
+    "wino_r+trace": dict(strategy="wino_r", wino_revoke_tau=0.99,
+                         wino_revoke_budget=4, trace=True),
+    "extrapolate+trace": dict(strategy="extrapolate", extrap_tau=0.0,
+                              extrap_min_obs=1, trace=True)}
+
+
+def _same_trace(got, want):
+    import numpy as np
+    for field in ("commit_step", "commits", "revocations", "skipped",
+                  "phase", "block"):
+        assert np.array_equal(getattr(got, field), getattr(want, field)), \
+            field
+    assert np.array_equal(np.isnan(got.commit_conf),
+                          np.isnan(want.commit_conf))
+    np.testing.assert_allclose(got.commit_conf, want.commit_conf,
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("policy", ["none", "prefix", "dual"])
+@pytest.mark.parametrize("case", sorted(CARRY_CASES))
+def test_carry_and_traced_graph_decodes_match_eager(cuda, case, policy):
+    """The carry-ful strategies and traced decodes on captured graphs
+    (the positional carry windowed into the static buffers, the trace
+    written at a device pointer) equal the eager driver on the card:
+    tokens, steps, forward-equivalents, revocations, skips and trace."""
+    import dataclasses
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder
+    cfg, params, prompt = _reduced(cuda)
+    dcfg = DecodeConfig(gen_length=32, block_size=8, steps=20,
+                        cache_policy=policy, **CARRY_CASES[case])
+    runs = []
+    for over in (dict(fused_loop=False), dict(fused_blocks=False), {}):
+        dec = Decoder(params, cfg, dataclasses.replace(dcfg, **over),
+                      device=cuda)
+        for _ in range(2):               # the second reuses the graphs
+            runs.append(dec.generate(None, prompt))
+    want, ws = runs[0]
+    assert ws.revocations > 0 or ws.skipped_forwards > 0 or \
+        case.startswith("fdm_a")
+    for out, st in runs[1:]:
+        assert torch.equal(out, want)
+        assert (st.steps, st.forward_equivalents, st.revocations,
+                st.skipped_forwards, st.phase_counts) == \
+            (ws.steps, ws.forward_equivalents, ws.revocations,
+             ws.skipped_forwards, ws.phase_counts)
+        if dcfg.trace:
+            _same_trace(st.trace, ws.trace)
+
+
+@pytest.mark.parametrize("case", ["wino_r+trace", "extrapolate+trace"])
+def test_traced_decode_does_not_sync(cuda, case):
+    """The trace's writes at the device pointer read nothing back: the
+    steps capture, and a whole-request traced decode makes no implicit
+    synchronising call."""
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder
+    cfg, params, prompt = _reduced(cuda)
+    dcfg = DecodeConfig(gen_length=32, block_size=8, steps=20,
+                        cache_policy="dual", **CARRY_CASES[case])
+    dec = Decoder(params, cfg, dcfg, device=cuda)
+    want, ws = dec.generate(None, prompt)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, st = dec.generate(None, prompt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+    assert st.trace.commit_histogram().sum() == st.tokens_generated
+    assert st.trace.steps == st.steps == ws.steps
+
+
+@pytest.mark.parametrize("case", ["fdm_a+trace", "wino_r+trace"])
+def test_first_capture_waits_for_the_current_stream(cuda, case,
+                                                    monkeypatch):
+    """A new run's first decode with the current stream still busy when
+    its first step is captured: the capture stream's own work before the
+    capture (the generator's seed and offset fills) must not overtake the
+    reset the current stream has queued, so the trace has no commit in a
+    prompt column and equals the eager driver's."""
+    import dataclasses
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder, decode_cache_scope, loop
+    cfg, params, prompt = _reduced(cuda)
+    dcfg = DecodeConfig(gen_length=32, block_size=8, steps=20,
+                        **CARRY_CASES[case])
+    want, ws = Decoder(params, cfg, dataclasses.replace(
+        dcfg, fused_loop=False), device=cuda).generate(None, prompt)
+    busy = torch.randn(4096, 4096, device=cuda)
+    start = loop.GraphRun.start
+
+    def busy_start(run, *args):
+        for _ in range(40):
+            busy @ busy
+        start(run, *args)
+
+    monkeypatch.setattr(loop.GraphRun, "start", busy_start)
+    for _ in range(3):
+        with decode_cache_scope():       # a new run: warm, then capture
+            got, st = Decoder(params, cfg, dcfg,
+                              device=cuda).generate(None, prompt)
+        assert (st.trace.commit_step[:, :prompt.shape[1]] == -1).all()
+        assert torch.equal(got, want)
+        _same_trace(st.trace, ws.trace)
+
+
+def test_extrapolate_forward_runs_in_every_replay(cuda):
+    """Without conditional nodes the graph step's forward runs in every
+    replay, skipped or not: executed flash launches are the step replays
+    times the layers, while ``skipped_forwards`` counts logical skips."""
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder, decode_cache_scope
+    cfg, params, prompt = _reduced(cuda)
+    dcfg = DecodeConfig(gen_length=32, block_size=8, steps=20,
+                        **CARRY_CASES["extrapolate"])
+    with decode_cache_scope() as cache:
+        dec = Decoder(params, cfg, dcfg, device=cuda)
+        dec.generate(None, prompt)
+        (run,) = cache.values()
+        run.graphs.reset_counts()
+        _, st = dec.generate(None, prompt)
+        flash = run.graphs.executed_launches()["flash_attention"]
+        replays = run.graphs.replays()
+    assert st.skipped_forwards > 0
+    assert st.steps == st.forward_equivalents + st.skipped_forwards
+    assert flash == replays * cfg.num_layers and replays >= st.steps
+
+
 def test_hymba_graph_decode_matches_eager(cuda):
     """Hymba's graph-driven decode (the selective scan inside the
     captured steps) equals its eager decode on the card."""

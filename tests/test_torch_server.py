@@ -161,10 +161,35 @@ def test_concurrent_mixed_requests_match_reference(weights, server):
     (dict(steps="ten"), 400, "wrong type"),
     (dict(gen_length=1 << 20), 400, "server cap"),
     (dict(model="missing"), 400, "unknown model"),
-    (dict(trace=True), 501, "ROADMAP.md queue 1 item 7"),
-    (dict(strategy="wino_r"), 501, "ROADMAP.md queue 1 item 7"),
+    (dict(trace=True), 200, "done"),
+    (dict(strategy="wino_r"), 200, "done"),
 ])
-def test_bad_requests_answer_at_the_boundary(client, over, status, text):
+def test_bad_requests_answer_at_the_boundary(weights, client, over, status,
+                                             text):
+    """Bad requests answer at the boundary; ``trace`` and ``wino_r`` are
+    ported and answer 200 with the reference's decode streamed, and a
+    traced request's ``/v1/trace/{rid}`` carries the device's per-step
+    counters, whose final commits sum to ``tokens_generated``."""
+    if status == 200:
+        prompt = [3, 5, 2]
+        events = list(client.generate_stream(prompt, **over))
+        assert [name for name, _ in events] == ["block", "block", text]
+        want_events, want_tokens, want_fwd = _reference(weights[0], prompt,
+                                                        **over)
+        assert [(e["block"], e["lo"], e["hi"], e["tokens"])
+                for name, e in events if name == "block"] == want_events
+        done = events[-1][1]
+        assert done["status"] == "ok" and done["tokens"] == want_tokens
+        assert done["stats"]["forward_equivalents"] == want_fwd
+        trace = client.trace(done["rid"], model="tiny")["traceEvents"]
+        counters = [e["args"] for e in trace if e.get("name") == "commits"]
+        if over.get("trace"):
+            assert len(counters) == done["stats"]["steps"]
+            assert sum(c["commits"] for c in counters) == \
+                done["stats"]["tokens_generated"] == BASE["gen_length"]
+        else:
+            assert not counters
+        return
     with pytest.raises(ServerError) as err:
         client.generate([3, 5, 2], **over)
     assert err.value.status == status

@@ -94,10 +94,6 @@ def test_submit_validates_at_the_boundary(weights):
         engine.submit(prompt, block_size=0)
     with pytest.raises(ValueError, match="positive"):
         engine.submit(prompt, gen_length=-8)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        engine.submit(prompt, trace=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        engine.submit(prompt, strategy="wino_r")
     with pytest.raises(CorruptOutputError):
         engine.submit(np.array([3, CFG.vocab_size], np.int32))
     with pytest.raises(ValueError, match="1-d"):
@@ -106,6 +102,31 @@ def test_submit_validates_at_the_boundary(weights):
     engine.submit(prompt, cache_policy="prefix")       # ported: it queues
     assert engine.queue_depth == 1
     assert engine.queue[0].dcfg.cache_policy == "prefix"
+    # trace and wino_r are ported too: they queue, and decode as the
+    # reference's engine does, each traced request with its own row
+    engine.queue.clear()
+    jp, _ = weights
+    jengine = JaxServingEngine(jp, JCFG, JaxDecodeConfig(**BASE),
+                               max_batch=2)
+    short = prompt[:4]
+    rids = []
+    for eng in (engine, jengine):
+        rids.append([eng.submit(prompt, trace=True),
+                     eng.submit(short, trace=True),
+                     eng.submit(prompt, strategy="wino_r")])
+        eng.run_until_idle()
+    for rid, jrid, p in zip(*rids, (prompt, short, prompt)):
+        got, want = engine.result(rid), jengine.result(jrid)
+        np.testing.assert_array_equal(got.result, np.asarray(want.result))
+        assert (got.stats.steps, got.stats.revocations) == \
+            (want.stats.steps, want.stats.revocations)
+        if got.stats.trace is None:
+            assert want.stats.trace is None
+            continue
+        np.testing.assert_array_equal(got.stats.trace.commit_step,
+                                      want.stats.trace.commit_step)
+        assert got.stats.trace.commit_step.shape == (1, len(p) + 16)
+        assert got.stats.trace.commit_histogram().sum() == 16
 
 
 def test_output_validator():

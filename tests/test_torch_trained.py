@@ -10,7 +10,8 @@ forward-equivalents and FDM-A's phase counts must equal the reference's
 host driver's exactly, for ``fdm``, ``fdm_a``, ``probability`` and ``eb``
 under ``none``, ``prefix`` and ``dual`` on the port's eager driver, and
 for one case per policy on its graph driver (the default, whose graphs
-are plain calls on the CPU).  FDM-A must take a step that skips the
+are plain calls on the CPU); and ``wino_r`` and ``extrapolate`` at their
+default knobs (with ``revocations`` and ``skipped_forwards``) on both.  FDM-A must take a step that skips the
 search (acceleration or local-only), which random weights never reach.
 """
 import jax
@@ -82,7 +83,7 @@ def _kw(strategy, policy, gen):
                 k=2, k1=2, cache_policy=policy)
 
 
-def _check(trained, reference, strategy, policy, **over):
+def _check(trained, reference, strategy, policy, complete=True, **over):
     _, tp, prompt, gen = trained
     want, wst = reference(strategy, policy)
     got, gst = Decoder(tp, CFG, DecodeConfig(
@@ -93,7 +94,10 @@ def _check(trained, reference, strategy, policy, **over):
     assert gst.forward_equivalents == wst.forward_equivalents
     assert gst.phase_counts == wst.phase_counts
     assert gst.tokens_generated == wst.tokens_generated
-    assert (got[:, prompt.shape[1]:] != CFG.mask_token_id).all()
+    assert gst.revocations == wst.revocations
+    assert gst.skipped_forwards == wst.skipped_forwards
+    if complete:
+        assert (got[:, prompt.shape[1]:] != CFG.mask_token_id).all()
     return gst
 
 
@@ -116,3 +120,17 @@ def test_fdm_a_skips_the_search_on_trained_weights(trained, reference,
     accelerate or decode locally without the K₁-candidate search."""
     st = _check(trained, reference, "fdm_a", policy, fused_loop=False)
     assert st.phase_counts["accel"] + st.phase_counts["local_only"] > 0
+
+
+@pytest.mark.parametrize("driver", ["eager", "graph"])
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("strategy", ["wino_r", "extrapolate"])
+def test_carry_strategies_match_reference(trained, reference, strategy,
+                                          policy, driver):
+    """The carry-ful strategies at their default knobs, where trained
+    confidences (not forced thresholds) decide the revocations and
+    skips.  The testbed's argmax is at times the mask token itself, which
+    a revocation can leave in place until the block's step cap, as in the
+    reference: the tokens are held equal, not to be free of it."""
+    _check(trained, reference, strategy, policy, complete=False,
+           fused_loop=driver == "graph")
