@@ -19,8 +19,14 @@ Phases, in order; any failure raises and the script exits non-zero:
              each call to call and on the device alone (with each
              confidence shape's share of its bound); counts the
              tensor-core instructions (HMMA/HGMMA) in the bf16 attention
-             kernels' SASS and requires no ptxas spills in them at d=64
-             and d=128, nor in the selective scan's two passes at N=16;
+             kernels' SASS (one kernel per head dim of
+             ``FLASH_HEAD_DIMS``, every multiple of 16 in [32, 256]) and
+             requires no ptxas spills in them at d=64, 80 and 128, nor in
+             the selective scan's two passes at N=16; also the dense GQA
+             family's attention (``ARCH_ATTN_SHAPES``: d=80 in
+             bf16 and f32 with a band and a ragged L, Qwen3's 40:8,
+             ChatGLM3's 32:2, StableLM-12B's d=160) and confidence at
+             Qwen3's V = 151936;
 4. reference — decodes reduced LLaDA and Hymba configs on the card
              (kernels) and on the CPU (plain versions) from the same
              weights, on the card by the eager, the per-block graph and
@@ -32,6 +38,11 @@ Phases, in order; any failure raises and the script exits non-zero:
              refreshes), Hymba under ``none``; the cases include
              ``wino_r`` and ``extrapolate`` with knobs that make them
              revoke and skip, and traced FDM-A, wino_r and extrapolate;
+             then reduced qwen3-14b (q/k norm, its scales drawn
+             away from 1), chatglm3-6b (half RoPE, GQA) and stablelm-3b,
+             and stablelm-3b at d_model=320 (head dim 80 in the f32
+             kernel), each under ``none``, ``prefix`` and ``dual``
+             (``ARCH_CASES``: fdm, FDM-A with its phases, probability);
 5. serving — full-width, full-depth LLaDA-8B, then Hymba-1.5B (random
              bf16 weights from a seed; LLaDA's weights and graphs are
              freed first) behind ``ServingEngine`` on the graph drivers
@@ -49,7 +60,11 @@ Phases, in order; any failure raises and the script exits non-zero:
              3·max_runners requests of distinct prompt lengths under
              ``dual`` (a batch key each) and requires the runner cache to
              stay at max_runners runs and the card's allocated and
-             reserved memory to stop growing once it is full;
+             reserved memory to stop growing once it is full; then,
+             after Hymba (each model's weights and graphs freed before
+             the next): full-width, full-depth Qwen3-14B under ``none``,
+             ``prefix`` and ``dual``, ChatGLM3-6B and StableLM-3B under
+             ``none`` (``ARCH_SERVING``);
 6. KV A/B  — (between LLaDA's serving and Hymba's) one B=2 request at the
              reference's ``BENCH_kv_cache.json`` geometry (prompt 128,
              gen 128, block 32, probability) on full-width LLaDA-8B under
@@ -83,11 +98,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. flash gradient — dq, dk, dv through the flash kernel's
              ``autograd.Function`` against autograd of the plain version
              at four shapes (bf16 and f32, a GQA band at a q offset); the
-             confidence and scan kernels must raise under grad; the
-             backward's device ms at the full-width training shape;
+             confidence kernel must raise under grad; the backward's
+             device ms at the full-width training shape; then the
+             scan gradient: ``SelectiveScan``'s backward against autograd
+             of the plain scan at Hymba's width (L = 128 and the training
+             shape's 512), with its device ms and bound;
 8. train step — one f32 step of the ``sum`` testbed on the card against
              the same step on the CPU (loss, every gradient leaf, the
-             updated params);
+             updated params); then the same for Hymba-tiny (the
+             scan's gradient from ``SelectiveScan``);
 9. testbed — the testbed trained on the card (batch 64, up to 600 steps),
              then decoded with fdm under each cache policy on the graph
              drivers (EM, forward-equivalents, tokens equal to a CPU
@@ -98,6 +117,9 @@ Phases, in order; any failure raises and the script exits non-zero:
              few steps (B=2, L=512): ms/step, tokens/s, peak memory, the
              initial NLL, exactly 2 flash launches per layer and step
              (the path's launch count), and one step's device profile;
+             then full-width, full-depth Hymba-1.5B likewise
+             (all 32 layers: 2 flash and 2 scan launches per layer and
+             step, the path ``hymba-1.5b-train``);
 11. http serving — the async stack (``ServerThread`` → ``ModelRouter`` →
              ``AsyncScheduler`` → ``ServingEngine``, every decode on the
              card's worker thread) over real sockets: full-width LLaDA-8B
@@ -165,14 +187,16 @@ STRATEGY_AB = {"eb": dict(strategy="eb"),
 # confidence shapes of the kernel phase, (rows, V, dtype): LLaDA-8B's
 # K-candidate and scoring batches in f32 and bf16, and Hymba-1.5B's
 # K-candidate and scoring batches (V = 32001: rows off 16-byte boundaries),
-# and the dual window's scoring and K-candidate rows (B·block, K·B·block)
+# the dual window's scoring and K-candidate rows (B·block, K·B·block), and
+# Qwen3-14B's scoring batch (V = 151936)
 CONF_SHAPES = ((K * MAX_BATCH * CANVAS, 126464, "float32"),
                (MAX_BATCH * CANVAS, 126464, "float32"),
                (K * MAX_BATCH * CANVAS, 126464, "bfloat16"),
                (K * MAX_BATCH * CANVAS, 32001, "float32"),
                (MAX_BATCH * CANVAS, 32001, "float32"),
                (MAX_BATCH * BLOCK, 126464, "float32"),
-               (K * MAX_BATCH * BLOCK, 126464, "float32"))
+               (K * MAX_BATCH * BLOCK, 126464, "float32"),
+               (MAX_BATCH * CANVAS, 151936, "float32"))
 # attention shapes of the kernel phase, (B, Lq, Lk, H, G, d, window,
 # q_offset), bf16: LLaDA-8B's scoring and K-candidate batches, a GQA and a
 # banded variant, Hymba-1.5B's heads at serving length and at 2048 with its
@@ -193,6 +217,21 @@ ATTN_SHAPES = ((MAX_BATCH, CANVAS, CANVAS, 32, 32, 128, 0, 0),
                (MAX_BATCH, 64, 2048, 25, 5, 64, 1024, 1024),
                (MAX_BATCH, BLOCK, CANVAS, 32, 32, 128, 32, 64))
 ATTN_F32 = ATTN_SHAPES[-2:]
+# head dims the flash kernels are built for (csrc/flash_attention.cu:
+# FLASH_HEAD_DIMS): one bf16 tensor-core kernel each
+FLASH_HEAD_DIMS = tuple(range(32, 257, 16))
+# the dense GQA family's attention at the serving geometry, (B, Lq, Lk, H,
+# G, d, window, q_offset, dtype): StableLM-3B (d=80) in bf16 and f32,
+# with a band and with a ragged L; Qwen3-14B (40 heads over 8), ChatGLM3-6B
+# (32 over 2), StableLM-12B (d=160, 32 over 8)
+ARCH_ATTN_SHAPES = tuple(
+    (*shape, dt) for shape in ((MAX_BATCH, CANVAS, CANVAS, 32, 32, 80, 0, 0),
+                               (MAX_BATCH, CANVAS, CANVAS, 32, 32, 80, 32, 0),
+                               (MAX_BATCH, 130, 130, 32, 32, 80, 17, 0))
+    for dt in ("bfloat16", "float32")) + (
+    (MAX_BATCH, CANVAS, CANVAS, 40, 8, 128, 0, 0, "bfloat16"),
+    (MAX_BATCH, CANVAS, CANVAS, 32, 2, 128, 0, 0, "bfloat16"),
+    (MAX_BATCH, CANVAS, CANVAS, 32, 8, 160, 0, 0, "bfloat16"))
 # selective-scan shapes of the kernel phase, (B, L, di, N, x dtype), Δ/B/C
 # f32: Hymba-1.5B's Mamba branch at the scoring and K-candidate batches, a
 # ragged L and di in f32, and one 2048-token row (Hymba's window is 1024)
@@ -233,11 +272,12 @@ def time_ms(fn, reps: int = 7, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 5, inner: int = 20) -> float:
+def device_ms(fn, reps: int = 5, inner: int = 20,
+              spin: int = 10_000_000) -> float:
     """Median over ``reps`` of the mean device time of ``inner``
-    back-to-back calls, enqueued while the card spins
-    (``torch.cuda._sleep``) so that host dispatch leaves no gap between
-    them: the kernel's own time, without the wrapper's."""
+    back-to-back calls, enqueued while the card spins ``spin`` cycles
+    (``torch.cuda._sleep``; 10 M ≈ 5 ms) so that host dispatch leaves no
+    gap between them: the kernel's own time, without the wrapper's."""
     import torch
     for _ in range(3):
         fn()
@@ -246,7 +286,7 @@ def device_ms(fn, reps: int = 5, inner: int = 20) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(10_000_000)          # ~5 ms of spinning
+        torch.cuda._sleep(spin)
         start.record()
         for _ in range(inner):
             fn()
@@ -500,6 +540,19 @@ REFERENCE_POLICIES = {"none": {}, "prefix": dict(cache_policy="prefix"),
                                          cache_refresh="off")}
 DRIVERS = {"eager": dict(fused_loop=False), "block": dict(fused_blocks=False),
            "request": {}}
+# the dense GQA family in the reference phase, (name, overrides of the
+# reduced config): q/k norm (qwen3), half RoPE with GQA (chatglm3), and
+# stablelm-3b at its reduced width and at d_model=320, whose head dim of 80
+# runs the f32 kernel's masked last column round; each under ``none``,
+# ``prefix`` and ``dual`` with ``ARCH_CASES``
+ARCH_REFERENCE = (("qwen3-14b", {}), ("chatglm3-6b", {}), ("stablelm-3b", {}),
+                  ("stablelm-3b", dict(d_model=320, num_heads=4)))
+ARCH_CASES = [dict(strategy="fdm", gamma=0.0), FDM_A_PHASES,
+              dict(strategy="probability")]
+# the dense GQA family served at full width and depth after Hymba, on the
+# graph drivers: (name, cache policies), each policy a path of its own
+ARCH_SERVING = (("qwen3-14b", POLICIES), ("chatglm3-6b", ("none",)),
+                ("stablelm-3b", ("none",)))
 
 
 def _stats_key(st) -> tuple:
@@ -525,25 +578,32 @@ def _same_conf(got, want, tol: float = 1e-5) -> bool:
         a[~np.isnan(a)], b[~np.isnan(b)], rtol=0, atol=tol))
 
 
-def reference_phase(torch, name: str, policies):
+def reference_phase(torch, name: str, policies, over=None,
+                    cases=REFERENCE_CASES):
     """The port on the card (kernels, f32) against the port on the CPU
-    (plain versions) on a reduced config: same weights, same prompts.  On
-    the card each case runs under the eager, the per-block graph and the
-    whole-request graph driver; all four decodes must give identical
-    tokens, steps, forward-equivalents, phase counts, revocations, skipped
-    forwards and trace (its commit confidences within 1e-5)."""
+    (plain versions) on a reduced config (with ``over``): same weights,
+    same prompts.  On the card each case runs under the eager, the
+    per-block graph and the whole-request graph driver; all four decodes
+    must give identical tokens, steps, forward-equivalents, phase counts,
+    revocations, skipped forwards and trace (its commit confidences within
+    1e-5).  A q/k norm's scales are drawn from the seed in [0.5, 1.5], so
+    that a scale the card dropped would show."""
     import dataclasses
     from repro_torch.configs import DecodeConfig, get_config
     from repro_torch.core import Decoder
     from repro_torch.models import init_model
-    cfg = get_config(name).reduced()
-    cpu_params = init_model(cfg, torch.Generator().manual_seed(SEED),
-                            device="cpu")
+    cfg = get_config(name).reduced(**(over or {}))
+    gen = torch.Generator().manual_seed(SEED)
+    cpu_params = init_model(cfg, gen, device="cpu")
+    for layer in cpu_params["blocks"] if cfg.qk_norm else ():
+        for key in ("q_scale", "k_scale"):
+            layer["attn"][key].uniform_(0.5, 1.5, generator=gen)
     gpu_params = _to(cpu_params)
+    label = name + "".join(f" {k}={v}" for k, v in (over or {}).items())
     gen = torch.Generator().manual_seed(SEED)
     prompt = torch.randint(0, cfg.vocab_size - 1, (2, 16), generator=gen)
     for policy in policies:
-        for kw in REFERENCE_CASES:
+        for kw in cases:
             dcfg = DecodeConfig(gen_length=32, block_size=16, steps=32,
                                 **REFERENCE_POLICIES[policy], **kw)
             x_cpu, s_cpu = Decoder(cpu_params, cfg, dcfg,
@@ -554,7 +614,7 @@ def reference_phase(torch, name: str, policies):
                 same = torch.equal(x.cpu(), x_cpu) and \
                     _stats_key(st) == _stats_key(s_cpu) and \
                     _same_conf(st, s_cpu)
-                log(f"reference {name} {policy} {kw} {driver}: tokens and "
+                log(f"reference {label} {policy} {kw} {driver}: tokens and "
                     f"stats equal={same} steps {s_cpu.steps}/{st.steps} "
                     f"forward_equivalents {s_cpu.forward_equivalents}/"
                     f"{st.forward_equivalents} phases {st.phase_counts} "
@@ -563,10 +623,13 @@ def reference_phase(torch, name: str, policies):
                     + ("" if st.trace is None else
                        f" trace steps {st.trace.steps}"))
                 if not same:
-                    raise AssertionError(f"card decode of {name} ({driver}"
+                    raise AssertionError(f"card decode of {label} ({driver}"
                                          f" driver) differs from the CPU "
                                          f"reference for {policy} {kw}")
-            if kw is FDM_A_PHASES and not all(s_cpu.phase_counts.values()):
+            # (only LLaDA's and Hymba's reduced weights are known to take
+            # every FDM-A phase at this geometry)
+            if kw is FDM_A_PHASES and cases is REFERENCE_CASES and \
+                    not all(s_cpu.phase_counts.values()):
                 raise AssertionError(f"{name} {policy}: the FDM-A phases "
                                      f"case missed a phase: "
                                      f"{s_cpu.phase_counts}")
@@ -1798,11 +1861,11 @@ def _rel_err(got, want) -> float:
                  / want.float().abs().max().clamp_min(1e-30))
 
 
-def flash_grad_phase(torch, fa_mod, conf_mod, scan_mod) -> dict:
+def flash_grad_phase(torch, fa_mod, conf_mod) -> dict:
     """dq, dk, dv through the flash kernel's ``autograd.Function`` against
     autograd of the plain version on the card, at ``FLASH_GRAD_SHAPES``
     (max abs error within 1e-4 of the largest gradient in f32, 2e-2 in
-    bf16); the other two kernels must raise under grad.  Then, at the
+    bf16); the confidence kernel must raise under grad.  Then, at the
     full-width training shape (B=2, L=512, LLaDA-8B's heads, bf16): the
     backward's device ms (``attention_backward``), the kernel's forward,
     the plain version's forward + backward and SDPA's (a yardstick),
@@ -1826,22 +1889,16 @@ def flash_grad_phase(torch, fa_mod, conf_mod, scan_mod) -> dict:
             raise AssertionError(f"flash gradient off at "
                                  f"{(b, lq, lk, h, g, d, w, qo, dt)}: "
                                  f"{errs}")
-    for name, call in (
-            ("confidence_fused", lambda: conf_mod.confidence_fused(
-                torch.randn(4, 1000, device="cuda", requires_grad=True))),
-            ("selective_scan", lambda: scan_mod.selective_scan(
-                *[t.requires_grad_(True) if i == 0 else t for i, t in
-                  enumerate(scan_inputs(torch, 1, 16, 32, 4,
-                                        "float32"))]))):
-        try:
-            call()
-        except RuntimeError as e:
-            if "no backward" not in str(e):
-                raise
-            log(f"{name} under grad on the card raises: {e}")
-        else:
-            raise AssertionError(f"{name} returned a result without a "
-                                 f"gradient path under grad")
+    try:
+        conf_mod.confidence_fused(torch.randn(4, 1000, device="cuda",
+                                              requires_grad=True))
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        log(f"confidence_fused under grad on the card raises: {e}")
+    else:
+        raise AssertionError("confidence_fused returned a result without "
+                             "a gradient path under grad")
     b, l, h, d = FULL_TRAIN_B, FULL_TRAIN_L, 32, 128
     q, k, v, _, _ = attn_inputs(torch, b, l, l, h, h, d, 0)
     dout = torch.randn_like(q)
@@ -1877,6 +1934,76 @@ def flash_grad_phase(torch, fa_mod, conf_mod, scan_mod) -> dict:
     return r
 
 
+# scan-gradient shapes, (B, L, di, N, x dtype), Δ/B/C f32: Hymba-1.5B's
+# Mamba branch at the serving length and at the training shape
+SCAN_GRAD_SHAPES = ((MAX_BATCH, CANVAS, 3200, 16, "bfloat16"),
+                    (2, 512, 3200, 16, "bfloat16"))
+
+
+def scan_grad_phase(torch, scan_mod) -> dict:
+    """dx, dΔ, dB, dC and d a_log through ``SelectiveScan`` (the kernel's
+    forward, ``selective_scan_backward``'s f32 ops replayed from a CUDA
+    graph) against autograd of
+    the plain version at ``SCAN_GRAD_SHAPES``: each leaf's max abs error
+    within 1e-4 of its max |g| (2e-2 for the bf16 x), one kernel launch
+    per forward and none in the backward.  Then the backward's device ms
+    (graph replay and eager ops) and call-to-call ms, and its bound at
+    each shape: the bytes of the inputs, dy and the five
+    gradients once, one exp per state and step on the SFU, ~20 f32 flops
+    per state and step (both recurrences, the five reductions).  Returns
+    the numbers of the training shape."""
+    out = {}
+    for b, l, di, n, xdt in SCAN_GRAD_SHAPES:
+        args = scan_inputs(torch, b, l, di, n, xdt)
+        dy = torch.randn_like(args[0])
+        ins = [t.clone().requires_grad_(True) for t in args]
+        before = scan_mod.launches
+        got = torch.autograd.grad(scan_mod.selective_scan(*ins), ins, dy)
+        torch.cuda.synchronize()
+        launched = scan_mod.launches - before
+        ref_ins = [t.clone().requires_grad_(True) for t in args]
+        want = torch.autograd.grad(scan_mod.selective_scan_ref(*ref_ins),
+                                   ref_ins, dy)
+        errs = [_rel_err(a, w) for a, w in zip(got, want)]
+        tols = [2e-2 if t.dtype == torch.bfloat16 else 1e-4 for t in args]
+        # the backward as the card runs it (one CUDA graph replay) and as
+        # plain eager ops, on the device alone and call to call
+        bwd = device_ms(lambda: scan_mod.graphed_backward(*args, dy),
+                        reps=3, inner=5)
+        bwd_call = time_ms(lambda: scan_mod.graphed_backward(*args, dy),
+                           reps=3, inner=5)
+        eager = device_ms(lambda: scan_mod.selective_scan_backward(*args, dy),
+                          reps=3, inner=2, spin=200_000_000)
+        eager_call = time_ms(
+            lambda: scan_mod.selective_scan_backward(*args, dy), reps=3,
+            inner=2)
+        nbytes = 2 * sum(t.numel() * t.element_size() for t in args) + \
+            dy.numel() * dy.element_size()
+        t_bytes = nbytes / MEM_BYTES_PER_S
+        t_ops = max(b * l * di * n / SFU_OPS_PER_S,
+                    20 * b * l * di * n / F32_OPS_PER_S)
+        r = dict(shape=[b, l, di, n, xdt], backward_device_ms=bwd,
+                 backward_ms=bwd_call, eager_device_ms=eager,
+                 eager_ms=eager_call,
+                 bound_ms=1e3 * max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 rel_err=errs)
+        log(f"scan gradient B={b} L={l} di={di} N={n} x {xdt}, f32 "
+            f"delta/B/C: dx/ddelta/dB/dC/da_log max abs error over max |g| "
+            f"{errs} (tolerances {tols}); kernel launches {launched}; "
+            f"the backward (graph replay) on the device alone {bwd:.4f} "
+            f"ms, call to call {bwd_call:.4f} ms; eager ops on the device "
+            f"alone {eager:.4f} ms, call to call {eager_call:.4f} ms; "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        if launched != 1 or any(e > t for e, t in zip(errs, tols)) or \
+                any(a.dtype != t.dtype for a, t in zip(got, args)):
+            raise AssertionError(f"scan gradient off at "
+                                 f"{(b, l, di, n, xdt)}: {errs}, "
+                                 f"{launched} launches")
+        out = r
+    return out
+
+
 def _testbed(torch):
     """The sum testbed's config and dataset."""
     from repro_torch.configs import get_config
@@ -1885,9 +2012,10 @@ def _testbed(torch):
     return cfg, TaskDataset("sum", CharTokenizer(cfg.vocab_size))
 
 
-def train_step_phase(torch) -> None:
-    """One f32 train step of the testbed on the card against the same
-    step on the CPU: same params, batch and corruption.  Loss within rel
+def train_step_phase(torch, cfg=None) -> None:
+    """One f32 train step of ``cfg`` (the testbed by default) on the ``sum``
+    task on the card against the same step on the CPU: same params, batch
+    and corruption.  Loss within rel
     1e-5, every gradient leaf's max abs error within 1e-4 of its max |g|,
     and the updated params within two f32 spacings plus 1e-2 of the
     step's learning rate wherever the gradient lies above that tolerance
@@ -1901,7 +2029,12 @@ def train_step_phase(torch) -> None:
     from repro_torch.models import init_model
     from repro_torch.training import adamw_init, make_train_step
     from repro_torch.training.trainer import corrupt, masters, to_device_batch
-    cfg, ds = _testbed(torch)
+    label = "testbed" if cfg is None else cfg.name
+    if cfg is None:
+        cfg, ds = _testbed(torch)
+    else:
+        from repro_torch.data import CharTokenizer, TaskDataset
+        ds = TaskDataset("sum", CharTokenizer(cfg.vocab_size))
     tcfg = TrainConfig(batch_size=TESTBED_BATCH, seq_len=ds.seq_len,
                        steps=TESTBED_STEPS)
     batch = to_device_batch(next(ds.batches(TESTBED_BATCH)), "cpu")
@@ -1932,7 +2065,7 @@ def train_step_phase(torch) -> None:
         p_err[k] = float(off.max() / lr) if off.size else 0.0
         if p_err[k] > 1e-2:
             bad.append(k)
-    log(f"train step card vs cpu (testbed f32, B={TESTBED_BATCH}, "
+    log(f"train step card vs cpu ({label} f32, B={TESTBED_BATCH}, "
         f"L={ds.seq_len}): loss {gpu_loss} / {cpu_loss}; gradient max abs "
         f"error over max |g|, worst leaf {max(g_err.values()):.3e} "
         f"({max(g_err, key=g_err.get)}); updated params beyond two f32 "
@@ -2061,21 +2194,23 @@ def testbed_phase(torch) -> None:
 
 
 
-def full_train_phase(torch, fa_mod) -> dict:
-    """Full-width LLaDA-8B (4 of its 32 layers, bf16 compute, f32 masters,
-    ``remat="block"``) trained for ``FULL_TRAIN_STEPS`` steps through
-    ``train`` on seeded random tokens.  The flash launch count is set to
-    0 just before and read just after: exactly 2 × layers per step (the
-    forward and the checkpoint's recomputation; the backward launches
-    none).  Prints ms/step, tokens/s, peak memory and the first loss
-    (≈ ln V at random init).  Returns the path's launches."""
+def full_train_phase(torch, mods: dict, name: str = "llada-8b",
+                     layers: int = FULL_TRAIN_LAYERS) -> dict:
+    """Full-width ``name`` (``layers`` of its layers, bf16 compute, f32
+    masters, ``remat="block"``) trained for ``FULL_TRAIN_STEPS`` steps
+    through ``train`` on seeded random tokens.  The launch counts of
+    ``mods`` (each kernel of the path: flash, and for Hymba the scan) are
+    set to 0 just before and read just after: exactly 2 × layers per step
+    each (the forward and the checkpoint's recomputation; the backwards
+    launch none).  Prints ms/step, tokens/s, peak memory and the first
+    loss (≈ ln V at random init).  Returns the path's launches."""
     import dataclasses
     import math
     import numpy as np
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.training import train
-    cfg = dataclasses.replace(get_config("llada-8b"),
-                              num_layers=FULL_TRAIN_LAYERS)
+    cfg = dataclasses.replace(get_config(name), num_layers=layers)
+    full_depth = get_config(name).num_layers
     rs = np.random.default_rng(SEED)
 
     def batches():
@@ -2095,15 +2230,18 @@ def full_train_phase(torch, fa_mod) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa_mod.launches = 0
+    for mod in mods.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     params, hist = train(cfg, tcfg, batches(), log=None)
-    launches = {"flash_attention": fa_mod.launches}
+    launches = {k: mod.launches for k, mod in mods.items()}
     total = time.perf_counter() - t0
     n = count_params(params)
     step_s = [float(x) for x in np.diff(hist["seconds"])]   # steps 2..
+    per_step = {k: n / FULL_TRAIN_STEPS for k, n in launches.items()}
     ms = 1e3 * statistics.median(step_s)
-    log(f"full-width training {cfg.name} ({cfg.num_layers} of 32 layers, "
+    log(f"full-width training {cfg.name} ({cfg.num_layers} of {full_depth} "
+        f"layers, "
         f"d={cfg.d_model}, {cfg.num_heads} heads, d_ff={cfg.d_ff}, "
         f"V={cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}; {n} "
         f"parameters, f32 masters; B={FULL_TRAIN_B}, L={FULL_TRAIN_L}): "
@@ -2113,18 +2251,16 @@ def full_train_phase(torch, fa_mod) -> dict:
         f"{[round(1e3 * x, 2) for x in step_s]}, median {ms:.2f} ms, tokens/s "
         f"{FULL_TRAIN_B * FULL_TRAIN_L / (ms / 1e3):.1f}; peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, reserved "
-        f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB; flash "
-        f"launches {launches['flash_attention']} "
-        f"({launches['flash_attention'] / FULL_TRAIN_STEPS:.0f} per step); "
-        f"{nvidia_smi()}")
+        f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB; launches "
+        f"{launches} ({per_step} per step); {nvidia_smi()}")
     log(f"full-width training: initial masked NLL {nll:.4f} (ln V + 1/2 = "
         f"{math.log(cfg.vocab_size) + 0.5:.4f}); first weighted loss "
         f"{hist['loss'][0]:.4f}")
     train_step_profile(torch, cfg, tcfg, params, next(batches()))
     want = 2 * cfg.num_layers * FULL_TRAIN_STEPS
-    if launches["flash_attention"] != want:
-        raise AssertionError(f"full-width training: {launches} flash "
-                             f"launches, want {want}")
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"full-width training {cfg.name}: launches "
+                             f"{launches}, want {want} of each")
     if not all(math.isfinite(x) for x in hist["loss"]) or \
             abs(nll - math.log(cfg.vocab_size) - 0.5) > 0.5:
         raise AssertionError(f"full-width training: initial NLL {nll}, "
@@ -2137,6 +2273,7 @@ TRAIN_GROUPS = {"GEMMs (cuBLAS)": ("gemm", "xmma", "nvjet", "cutlass"),
                 "foreach (AdamW moments, clip scale)":
                     ("multi_tensor_apply",),
                 "flash forward (hand-written)": ("flash_",),
+                "selective scan forward (hand-written)": ("sscan_",),
                 "softmax": ("softmax",),
                 "reductions": ("reduce_kernel",),
                 "index, gather, scatter": ("index", "gather", "scatter"),
@@ -2192,6 +2329,7 @@ def main() -> None:
     from repro_torch.kernels import confidence as conf_mod
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import selective_scan as scan_mod
+    from repro_torch.configs import get_config
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2206,10 +2344,11 @@ def main() -> None:
     libs = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.last_build['seconds']:.2f} s)")
-    # no spills allowed in the bf16 attention kernels at d=64 and d=128,
+    # no spills allowed in the bf16 attention kernels at d=64, 80 and 128,
     # in both scan passes at NP=16 (Hymba's N) and in both confidence
     # kernels (at most 64 registers: four CTAs per SM)
-    no_spill = (r"tc::flash_tc_kernel<(64|128)>|sscan_chunk_kernel<16,[01]>"
+    no_spill = (r"tc::flash_tc_kernel<(64|80|128)>"
+                r"|sscan_chunk_kernel<16,[01]>"
                 r"|confidence_kernel<(float|bf16)>")
     for name, text in _build.last_build["ptxas"].items():
         report = ptxas_report(text)
@@ -2230,9 +2369,11 @@ def main() -> None:
     tc_counts = {fn: n for fn, n in mma.items() if "flash_tc_kernel" in fn}
     log(f"sass flash_attention: HMMA/HGMMA per kernel: "
         f"{json.dumps(mma, sort_keys=True)}")
-    if len(tc_counts) != 8 or not all(tc_counts.values()):
-        raise AssertionError(f"the bf16 attention kernels are not all on "
-                             f"the tensor cores: {tc_counts}")
+    want_tc = {f"tc::flash_tc_kernel<{d}>" for d in FLASH_HEAD_DIMS}
+    if set(tc_counts) != want_tc or not all(tc_counts.values()):
+        raise AssertionError(f"the bf16 attention kernels are not one per "
+                             f"head dim of {FLASH_HEAD_DIMS}, all on the "
+                             f"tensor cores: {tc_counts}")
 
     # 3. kernels against their plain versions, main-path shapes
     conf_errs = []
@@ -2263,6 +2404,18 @@ def main() -> None:
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         if ((b, lq, lk, h, g, d, w, qo), dt) == attn_runs[0]:
             attn_entry = r
+    for b, lq, lk, h, g, d, w, qo, dt in ARCH_ATTN_SHAPES:
+        r = check_attention(fa_mod, torch, b, lq, lk, h, g, d, w, qo, dt)
+        attn_errs.append(r["max_abs_err"])
+        log(f"attention (dense GQA family) B={b} Lq={lq} Lk={lk} H={h} "
+            f"G={g} d={d} window={w} q_offset={qo} {dt}: max_abs_err "
+            f"{r['max_abs_err']} kernel {r['ms']:.4f} ms plain "
+            f"{r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms; on the "
+            f"device alone kernel {r['device_ms']:.4f} ms sdpa "
+            f"{r['library_device_ms']:.4f} ms (kernel/sdpa "
+            f"{r['device_ms'] / r['library_device_ms']:.3f}); bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of the bound "
+            f"on the device alone {r['bound_ms'] / r['device_ms']:.3f}")
     attn_entry["max_abs_err"] = max(attn_errs)
     scan_errs = []
     for b, l, di, n, xdt in SCAN_SHAPES:
@@ -2283,6 +2436,11 @@ def main() -> None:
     reference_phase(torch, "llada-8b", REFERENCE_POLICIES)
     reference_phase(torch, "hymba-1.5b", ["none"])
     log(f"reference phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, over in ARCH_REFERENCE:
+        reference_phase(torch, name, POLICIES, over, ARCH_CASES)
+    log(f"reference phase (dense GQA family): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # 5. the main paths, one model at a time (each frees its weights and
     # its graphs); 6. the KV A/B on LLaDA's weights
@@ -2320,22 +2478,49 @@ def main() -> None:
     clear_decode_cache()
     del params
     torch.cuda.empty_cache()
+    archs = {}
+    for name, policies in ARCH_SERVING:
+        t0 = time.perf_counter()
+        cfg, params = make_model(torch, name)
+        for policy in policies:
+            with decode_cache_scope() as scope:
+                archs[name + ("" if policy == "none" else f"-{policy}")] = \
+                    serving_phase(torch, cfg, params, {
+                        "confidence": conf_mod, "flash_attention": fa_mod},
+                        scope, policy)
+        del scope
+        clear_decode_cache()
+        del params
+        torch.cuda.empty_cache()
+        log(f"serving phase {name}: {time.perf_counter() - t0:.1f} s")
 
     # 7.-10. training: the flash gradient, one step against the CPU, the
     # testbed trained and decoded, full-width LLaDA-8B's steps
     t0 = time.perf_counter()
-    flash_grad = flash_grad_phase(torch, fa_mod, conf_mod, scan_mod)
+    flash_grad = flash_grad_phase(torch, fa_mod, conf_mod)
     log(f"flash gradient phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    scan_grad = scan_grad_phase(torch, scan_mod)
+    log(f"scan gradient phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     train_step_phase(torch)
+    train_step_phase(torch, get_config("hymba-1.5b").reduced())
     log(f"train step phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     testbed_phase(torch)
     clear_decode_cache()
     log(f"testbed phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    training = full_train_phase(torch, fa_mod)
+    training = full_train_phase(torch, {"flash_attention": fa_mod})
     log(f"full-width training phase: {time.perf_counter() - t0:.1f} s")
+    clear_decode_cache()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hymba_train = full_train_phase(
+        torch, {"flash_attention": fa_mod, "selective_scan": scan_mod},
+        "hymba-1.5b", get_config("hymba-1.5b").num_layers)
+    log(f"full-width training phase hymba-1.5b: "
+        f"{time.perf_counter() - t0:.1f} s")
     clear_decode_cache()
     torch.cuda.empty_cache()
 
@@ -2351,6 +2536,9 @@ def main() -> None:
         by_path["llada-8b-train"] = training.get(kernel, 0)
         by_path["llada-8b-http"] = http.get(kernel, 0)
         by_path["llada-8b-carry"] = carry.get(kernel, 0)
+        for path, counts in archs.items():
+            by_path[path] = counts.get(kernel, 0)
+        by_path["hymba-1.5b-train"] = hymba_train.get(kernel, 0)
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -2383,7 +2571,7 @@ def main() -> None:
          "plain_ms": scan_entry["plain_ms"],
          "bound_ms": scan_entry["bound_ms"],
          "bound_by": scan_entry["bound_by"], "library_ms": None,
-         "device_ms": scan_entry["device_ms"]},
+         "device_ms": scan_entry["device_ms"], "backward": scan_grad},
     ]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

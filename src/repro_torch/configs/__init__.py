@@ -18,6 +18,10 @@ from repro_torch.configs.base import (DecodeConfig, DegradeConfig,
 _MODULES: Dict[str, str] = {
     "llada-8b": "repro_torch.configs.llada_8b",
     "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+    "stablelm-3b": "repro_torch.configs.stablelm_3b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
 }
 
 

@@ -23,10 +23,11 @@ import torch
 
 from repro_torch.device import resolve_device
 
-# the reference's f32 vectors stay f32 under a dtype cast: norm scales and
-# the Mamba head's a_log and dt_bias (used in f32: a bf16 a_log would move
-# every decay) and mix scales
-_KEEP_F32 = ("scale", "a_log", "dt_bias", "mix_attn", "mix_ssm")
+# the reference's f32 vectors stay f32 under a dtype cast: norm scales, the
+# per-head q/k norm scales (qk_norm), the Mamba head's a_log and dt_bias
+# (used in f32: a bf16 a_log would move every decay) and mix scales
+_KEEP_F32 = ("scale", "q_scale", "k_scale", "a_log", "dt_bias", "mix_attn",
+             "mix_ssm")
 
 
 def _tensor(a, device, dtype, key: str) -> torch.Tensor:

@@ -10,7 +10,8 @@
 // gets 0, as in the Pallas kernel.  Beyond the Pallas kernel it
 // groups GQA heads natively (kv head = h / (H / G)), so the caller does not
 // expand K/V.  Layout is the reference's: q (B, Lq, H, d), k/v (B, Lk, G, d),
-// out (B, Lq, H, d); f32 or bf16; d a multiple of 32 up to 256.
+// out (B, Lq, H, d); f32 or bf16; d a multiple of 16 in [32, 256]
+// (FLASH_HEAD_DIMS below: one instantiation of each kernel per d).
 //
 // Bound: the work is 4*B*H*Lq*Lk*d operations (fewer under a band) on
 // 2*B*L*(H+G)*d*2 bytes (bf16, Lq = Lk = L), i.e. at most L/2 operations
@@ -50,8 +51,16 @@
 // live-tile interval, the edge test and the element mask); Q's tile loads
 // and the output stores keep local row indices.
 //
+// A head dim that is a multiple of 16 fits both designs: m16n8k16 takes
+// d/16 k-steps of Q K^T and d/8 (even) 8-column tiles of P V, a row is d/8
+// (even) 16-byte chunks, 64 rows of them an exact number of 128-thread
+// rounds, and the shared pitch d + 8 is an odd count of 16-byte units, so
+// an ldmatrix phase stays conflict-free (d = 80: 5 k-steps, 10 n-tiles,
+// 10 chunks a row, pitch 88).
+//
 // f32, the reference phase's path: the first kernel, plain f32 FMA from
-// shared memory (`flash_kernel<float, ...>`), kept exactly as it was.  The
+// shared memory (`flash_kernel<float, D>`), unchanged for d a multiple of
+// 32; other multiples of 16 mask the lanes of the last column round.  The
 // card's f32 decodes of the reduced configs must equal the CPU's token for
 // token; random weights put every max-probability near 1/V, so scores
 // moved by TF32's or bf16's ~1e-3 (the tensor cores' f32 inputs) flip
@@ -59,12 +68,20 @@
 // tile and each 64-row K/V tile are staged in shared memory as f32 (K rows
 // padded by 4 words so the per-lane 16-byte reads hit distinct banks);
 // each warp owns 8 query rows, each lane 2 keys of the tile for Q K^T and
-// d/32 output columns for P V; P goes through a per-warp shared buffer.
+// the output columns lane + 32 t, t < ceil(d/32), for P V (at d = 80 lanes
+// 16..31 idle in the third round: their columns are never stored); P goes
+// through a per-warp shared buffer.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <atomic>
 #include <cmath>
+
+// Head dims each kernel is instantiated for: every multiple of 16 in
+// [32, 256].  X(D) expands once per dim (the dispatch's switch cases).
+#define FLASH_HEAD_DIMS(X)                                                  \
+  X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160) X(176) X(192)   \
+  X(208) X(224) X(240) X(256)
 
 namespace {
 
@@ -125,12 +142,12 @@ constexpr size_t smem_bytes() {
          (kQT * D + kKT * (D + 4) + kKT * D + kWarps * kRPW * kKT);
 }
 
-template <typename T, int DPL>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int Lq, int Lk,
              int H, int G, int window, int q_offset, float scale) {
-  constexpr int D = DPL * 32;
+  constexpr int DPL = (D + 31) / 32;      // column rounds of P V per lane
   constexpr int KS = D + 4;
   extern __shared__ float4 smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
@@ -225,7 +242,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
         for (int t = 0; t < DPL; ++t) {
-          const float vv = Vs[(j + jj) * D + lane + 32 * t];
+          // past d (d % 32 = 16, last round) a lane reads column 0 and
+          // its sums are never stored
+          const int col = D % 32 == 0 || lane + 32 * t < D ? lane + 32 * t : 0;
+          const float vv = Vs[(j + jj) * D + col];
 #pragma unroll
           for (int r = 0; r < kRPW; ++r) acc[r][t] += elem(pr[r], jj) * vv;
         }
@@ -242,22 +262,23 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (i < Lq) {
       T* out = o + ((static_cast<int64_t>(b) * Lq + i) * H + h) * D;
 #pragma unroll
-      for (int t = 0; t < DPL; ++t) out[lane + 32 * t] = from_f<T>(acc[r][t] * inv);
+      for (int t = 0; t < DPL; ++t)
+        if (D % 32 == 0 || lane + 32 * t < D)
+          out[lane + 32 * t] = from_f<T>(acc[r][t] * inv);
     }
   }
 }
 
-template <typename T, int DPL>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Lq, int Lk, int H, int G, int window,
                    int q_offset, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<DPL * 32>();
+  constexpr size_t bytes = smem_bytes<D>();
   static std::atomic<unsigned> smem_set{0};
-  const cudaError_t err = set_smem_once(flash_kernel<T, DPL>, bytes,
-                                        smem_set);
+  const cudaError_t err = set_smem_once(flash_kernel<T, D>, bytes, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + kQT - 1) / kQT, B * H), block(kThreads);
-  flash_kernel<T, DPL><<<grid, block, bytes, stream>>>(
+  flash_kernel<T, D><<<grid, block, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Lq, Lk, H, G, window,
       q_offset, scale);
@@ -271,15 +292,11 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
   auto go = [&](auto launcher) {
     return launcher(q, k, v, o, B, Lq, Lk, H, G, window, q_offset, scale, s);
   };
-  switch (d / 32) {
-    case 1: return go(launch<T, 1>);
-    case 2: return go(launch<T, 2>);
-    case 3: return go(launch<T, 3>);
-    case 4: return go(launch<T, 4>);
-    case 5: return go(launch<T, 5>);
-    case 6: return go(launch<T, 6>);
-    case 7: return go(launch<T, 7>);
-    case 8: return go(launch<T, 8>);
+  switch (d) {
+#define FLASH_CASE(D) \
+    case D: return go(launch<T, D>);
+    FLASH_HEAD_DIMS(FLASH_CASE)
+#undef FLASH_CASE
     default: return cudaErrorInvalidValue;
   }
 }
@@ -601,15 +618,11 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
   auto go = [&](auto launcher) {
     return launcher(q, k, v, o, B, Lq, Lk, H, G, window, q_offset, scale, s);
   };
-  switch (d / 32) {
-    case 1: return go(launch<32>);
-    case 2: return go(launch<64>);
-    case 3: return go(launch<96>);
-    case 4: return go(launch<128>);
-    case 5: return go(launch<160>);
-    case 6: return go(launch<192>);
-    case 7: return go(launch<224>);
-    case 8: return go(launch<256>);
+  switch (d) {
+#define FLASH_CASE(D) \
+    case D: return go(launch<D>);
+    FLASH_HEAD_DIMS(FLASH_CASE)
+#undef FLASH_CASE
     default: return cudaErrorInvalidValue;
   }
 }
@@ -628,7 +641,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int q_offset, float scale, int dtype,
                                      void* stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0 || H <= 0 || G <= 0 || H % G != 0 ||
-      d % 32 != 0 || d < 32 || d > 256 || window < 0 || q_offset < 0) {
+      d % 16 != 0 || d < 32 || d > 256 || window < 0 || q_offset < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -74,9 +74,9 @@ def _check(q, k, v, window, q_offset):
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
                          f"fit q {tuple(q.shape)}")
-    if d % 32 or not 32 <= d <= 256:
+    if d % 16 or not 32 <= d <= 256:
         raise ValueError(f"flash_attention: head dim {d} must be a "
-                         f"multiple of 32 in [32, 256]")
+                         f"multiple of 16 in [32, 256]")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
     if q_offset < 0:

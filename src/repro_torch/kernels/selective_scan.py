@@ -15,12 +15,22 @@ is cut into chunks of ``chunk_len(B, L, di)`` steps, pass 1 writes each
 chunk's end state and decay product to an f32 workspace that this
 wrapper allocates, and pass 2 folds those carries and walks each chunk
 again for y.  It never writes the ``(B, L, di, N)`` decay/drive tensors.
-Its two launches count as one in ``launches``.  The kernel has no
-backward, so on a card it raises under grad (``_build.refuse_grad``).
+Its two launches count as one in ``launches``.
+
+The card's result is differentiable: the kernel runs inside
+``SelectiveScan``, an ``autograd.Function`` whose backward is
+``selective_scan_backward``, explicit f32 tensor ops over a recomputed
+state (there is no backward kernel: the reference differentiates its
+chunked ``associative_scan``, and no Pallas kernel has a backward),
+captured into a CUDA graph per shape at its first call and replayed
+after (``graphed_backward``: launched one by one, its hundreds of small
+ops a call leave the card waiting on the host).  On the CPU autograd
+differentiates ``selective_scan_ref``.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -70,6 +80,113 @@ def selective_scan_ref(x: torch.Tensor, delta: torch.Tensor,
     return torch.stack(ys, dim=1).to(x.dtype)
 
 
+# steps of one chunk of the backward: its (B, chunk, di, N) f32 decays,
+# drives, states and cotangents are the only ones alive at a time (one
+# such tensor is 105 MB at Hymba-1.5B's training shape B=2, di=3200)
+BACKWARD_CHUNK = 128
+# steps a chunk's scan walks one at a time, its sub-chunks side by side
+BACKWARD_ROUND = 16
+
+
+def _linear_scan(a: torch.Tensor, u: torch.Tensor, h0: torch.Tensor,
+                 reverse: bool = False) -> torch.Tensor:
+    """h_t = a_t ⊙ h_{t-1} + u_t along dim 1 of (B, T, di, N) f32, from
+    ``h0`` (B, di, N) before the first step; with ``reverse``, h_t = a_t ⊙
+    h_{t+1} + u_t from ``h0`` after the last step.  Returns every h_t.
+
+    T is cut into sub-chunks of ``BACKWARD_ROUND`` steps (padded with
+    a = 1, u = 0, which carry the state through), walked one step at a
+    time side by side from zero; then the states entering the sub-chunks
+    are folded in order and added back, scaled by each step's running
+    decay product within its sub-chunk (a cumulative product)."""
+    bsz, t, di, n = a.shape
+    r = min(BACKWARD_ROUND, t)
+    s = -(-t // r)
+    if s * r != t:
+        a = torch.cat([a, a.new_ones(bsz, s * r - t, di, n)], 1)
+        u = torch.cat([u, u.new_zeros(bsz, s * r - t, di, n)], 1)
+    a = a.reshape(bsz, s, r, di, n)
+    u = u.reshape(bsz, s, r, di, n)
+    prod = torch.cumprod(a.flip(2), 2).flip(2) if reverse else \
+        torch.cumprod(a, 2)
+    h = torch.empty_like(u)
+    steps = range(r - 1, -1, -1) if reverse else range(r)
+    h[:, :, steps[0]] = u[:, :, steps[0]]
+    for prev, i in zip(steps, steps[1:]):
+        torch.addcmul(u[:, :, i], a[:, :, i], h[:, :, prev],
+                      out=h[:, :, i])
+    end = steps[-1]
+    enter = torch.empty(bsz, s, di, n, dtype=h.dtype, device=h.device)
+    state = h0
+    for j in (range(s - 1, -1, -1) if reverse else range(s)):
+        enter[:, j] = state
+        state = torch.addcmul(h[:, j, end], prod[:, j, end], state)
+    h = torch.addcmul(h, prod, enter[:, :, None])
+    return h.reshape(bsz, s * r, di, n)[:, :t]
+
+
+def selective_scan_backward(x: torch.Tensor, delta: torch.Tensor,
+                            b_sel: torch.Tensor, c_sel: torch.Tensor,
+                            a_log: torch.Tensor, dy: torch.Tensor,
+                            chunk: int = BACKWARD_CHUNK):
+    """(dx, dΔ, dB, dC, d a_log) of ``y = selective_scan(x, Δ, B, C,
+    a_log)`` from its inputs and the cotangent ``dy``, each in its input's
+    dtype, by f32 tensor ops ``chunk`` steps at a time.
+
+    With a_t = exp(Δ_t A) and u_t = Δ_t B_t x_t, h_t = a_t h_{t-1} + u_t:
+    a first pass keeps only the state entering each chunk; then, last
+    chunk first, the chunk's states are recomputed and the reverse
+    recurrence g_t = C_t dy_t + a_{t+1} ⊙ g_{t+1} (g = ∂/∂h_t) runs with
+    the carry g and a of the chunk after.  Then dx = Δ Σ_n g B,
+    dΔ = x Σ_n g B + Σ_n w A, dB = Σ_c g Δ x, dC = Σ_c h dy and
+    dA = Σ_{b,t} w Δ, with w = g ⊙ h_{t-1} ⊙ a_t; d a_log = dA ⊙ A, since
+    A = −exp(a_log)."""
+    am = -torch.exp(a_log.float())                        # A (di, N)
+    xf, df, gy = x.float(), delta.float(), dy.float()
+    bf, cf = b_sel.float(), c_sel.float()
+    dfx = df * xf
+    bsz, length, di = x.shape
+    n = am.shape[1]
+
+    def terms(lo, hi):
+        dec = torch.exp(df[:, lo:hi, :, None] * am)       # a_t (B, T, di, N)
+        drv = dfx[:, lo:hi, :, None] * bf[:, lo:hi, None, :]
+        return dec, drv
+
+    los = list(range(0, length, chunk))
+    enter = [torch.zeros(bsz, di, n, dtype=torch.float32, device=x.device)]
+    # the carried states are copies: a view would keep its chunk alive
+    for lo in los[:-1]:
+        hs = _linear_scan(*terms(lo, lo + chunk), enter[-1])
+        enter.append(hs[:, -1].clone())
+    dx, ddelta = torch.empty_like(xf), torch.empty_like(df)
+    db, dc = torch.empty_like(bf), torch.empty_like(cf)
+    da = torch.zeros_like(am)
+    g = torch.zeros_like(enter[0])        # g of the chunk after's first step
+    a_next = torch.zeros_like(g)          # and its decay
+    for lo, h0 in zip(reversed(los), reversed(enter)):
+        hi = min(lo + chunk, length)
+        dec, drv = terms(lo, hi)
+        hs = _linear_scan(dec, drv, h0)
+        del drv
+        v = gy[:, lo:hi, :, None] * cf[:, lo:hi, None, :]
+        gs = _linear_scan(torch.cat([dec[:, 1:], a_next[:, None]], 1), v, g,
+                          reverse=True)
+        del v
+        dc[:, lo:hi] = torch.einsum("btcn,btc->btn", hs, gy[:, lo:hi])
+        w = torch.cat([h0[:, None], hs[:, :-1]], 1).mul_(dec).mul_(gs)
+        del hs
+        gb = torch.einsum("btcn,btn->btc", gs, bf[:, lo:hi])
+        dx[:, lo:hi] = gb * df[:, lo:hi]
+        ddelta[:, lo:hi] = gb * xf[:, lo:hi] + torch.einsum(
+            "btcn,cn->btc", w, am)
+        db[:, lo:hi] = torch.einsum("btcn,btc->btn", gs, dfx[:, lo:hi])
+        da += torch.einsum("btcn,btc->cn", w, df[:, lo:hi])
+        g, a_next = gs[:, 0].clone(), dec[:, 0].clone()
+    return (dx.to(x.dtype), ddelta.to(delta.dtype), db.to(b_sel.dtype),
+            dc.to(c_sel.dtype), (da * am).to(a_log.dtype))
+
+
 def _check(x, delta, b_sel, c_sel, a_log):
     ts = (x, delta, b_sel, c_sel, a_log)
     if any(t.device != x.device for t in ts):
@@ -98,14 +215,7 @@ def _check(x, delta, b_sel, c_sel, a_log):
         raise ValueError("selective_scan: inputs must be contiguous")
 
 
-def selective_scan(x: torch.Tensor, delta: torch.Tensor, b_sel: torch.Tensor,
-                   c_sel: torch.Tensor, a_log: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return selective_scan_ref(x, delta, b_sel, c_sel, a_log)
-    if x.device.type != "cuda":
-        raise ValueError(f"selective_scan: unsupported device {x.device}")
-    _build.refuse_grad("selective_scan", x, delta, b_sel, c_sel, a_log)
-    a_log = a_log.float()
+def _launch(x, delta, b_sel, c_sel, a_log):
     _check(x, delta, b_sel, c_sel, a_log)
     bsz, length, di = x.shape
     n = a_log.shape[1]
@@ -129,3 +239,88 @@ def selective_scan(x: torch.Tensor, delta: torch.Tensor, b_sel: torch.Tensor,
     global launches
     launches += 1
     return y
+
+
+class _BackwardGraph:
+    """``selective_scan_backward`` at one shape, captured once into a CUDA
+    graph and replayed: its ~100 small ops per chunk cost one launch.
+    The inputs are copied into static buffers before each replay and the
+    gradients cloned out after it; the graph's private memory pool holds
+    one chunk's temporaries and those buffers."""
+
+    def __init__(self, args):
+        self.inputs = [t.clone() for t in args]
+        current = torch.cuda.current_stream(args[0].device)
+        stream = torch.cuda.Stream(args[0].device)
+        # warm on the side stream (library handles and workspaces exist
+        # before the capture), then capture there; both after the current
+        # stream's queued work, which in turn waits for them
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            selective_scan_backward(*self.inputs)
+            self.graph = torch.cuda.CUDAGraph()
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.outputs = selective_scan_backward(*self.inputs)
+            finally:
+                self.graph.capture_end()
+        current.wait_stream(stream)
+
+    def __call__(self, args):
+        for static, t in zip(self.inputs, args):
+            static.copy_(t)
+        self.graph.replay()
+        return tuple(t.clone() for t in self.outputs)
+
+
+# the captured backwards, by device, shapes and dtypes; at most
+# ``BACKWARD_GRAPHS`` of them, the oldest dropped first
+BACKWARD_GRAPHS = 4
+_backward_graphs: dict = {}
+_backward_graphs_lock = threading.Lock()
+
+
+def graphed_backward(*args):
+    """``selective_scan_backward(*args)`` replayed from its CUDA graph
+    (captured at the first call per shape): the card's backward."""
+    key = tuple((t.device, tuple(t.shape), t.dtype) for t in args)
+    with _backward_graphs_lock:
+        graph = _backward_graphs.get(key)
+        if graph is None:
+            while len(_backward_graphs) >= BACKWARD_GRAPHS:
+                _backward_graphs.pop(next(iter(_backward_graphs)))
+            graph = _backward_graphs[key] = _BackwardGraph(args)
+    return graph(args)
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The kernel as a differentiable op: forward launches it (on a CPU
+    tensor it runs the plain version, so the CPU tests can hold this
+    backward inside a model's gradient) and saves its inputs; backward
+    is ``selective_scan_backward``, on the card replayed from a CUDA
+    graph captured at its first call per shape."""
+
+    @staticmethod
+    def forward(ctx, x, delta, b_sel, c_sel, a_log):
+        if x.device.type == "cpu":
+            y = selective_scan_ref(x, delta, b_sel, c_sel, a_log)
+        else:
+            y = _launch(x, delta, b_sel, c_sel, a_log)
+        ctx.save_for_backward(x, delta, b_sel, c_sel, a_log)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        args = (*ctx.saved_tensors, dy.contiguous())
+        if dy.device.type == "cuda":
+            return graphed_backward(*args)
+        return selective_scan_backward(*args)
+
+
+def selective_scan(x: torch.Tensor, delta: torch.Tensor, b_sel: torch.Tensor,
+                   c_sel: torch.Tensor, a_log: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return selective_scan_ref(x, delta, b_sel, c_sel, a_log)
+    if x.device.type != "cuda":
+        raise ValueError(f"selective_scan: unsupported device {x.device}")
+    return SelectiveScan.apply(x, delta, b_sel, c_sel, a_log.float())

@@ -1,13 +1,15 @@
 """Bidirectional GQA/MHA attention of the port (reference:
 ``src/repro/models/attention.py``).
 
-q/k/v projections, standard RoPE (from tables the model builds once
-per forward), and the attention itself through
+q/k/v projections, Qwen3's per-head q/k RMSNorm (``qk_norm``), RoPE
+(standard or half, from tables the model builds once per forward), and
+the attention itself through
 ``kernels.flash_attention`` (the hand-written kernel on a card, its plain
 version on the CPU) with GQA heads grouped inside the kernel: the
 full-sequence path and the fixed-shape block cache's capture and cached
-window.  MLA and q/k norm raise ``NotImplementedError``: they arrive with
-a later slice (ROADMAP.md queue 1 item 9).
+window; both cache paths go through ``_project_qkv``, so they norm q
+and k as the full path does.  MLA raises ``NotImplementedError``: it
+arrives with a later slice (ROADMAP.md queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import Params, Rope, dense_init, rotate
+from repro_torch.models.layers import (Params, Rope, dense_init,
+                                       rms_norm_headwise, rotate)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
@@ -25,19 +28,20 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
     _check_supported(cfg)
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    return {"wq": dense_init(gen, (d, nq * hd), device, dtype),
-            "wk": dense_init(gen, (d, nkv * hd), device, dtype),
-            "wv": dense_init(gen, (d, nkv * hd), device, dtype),
-            "wo": dense_init(gen, (nq * hd, d), device, dtype)}
+    p = {"wq": dense_init(gen, (d, nq * hd), device, dtype),
+         "wk": dense_init(gen, (d, nkv * hd), device, dtype),
+         "wv": dense_init(gen, (d, nkv * hd), device, dtype),
+         "wo": dense_init(gen, (nq * hd, d), device, dtype)}
+    if cfg.qk_norm:                           # f32, as the reference's
+        p["q_scale"] = torch.ones(hd, dtype=torch.float32, device=device)
+        p["k_scale"] = torch.ones(hd, dtype=torch.float32, device=device)
+    return p
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.attention == "mla":
         raise NotImplementedError(
             "MLA attention is not ported yet (ROADMAP.md queue 1 item 9)")
-    if cfg.qk_norm:
-        raise NotImplementedError(
-            "qk_norm is not ported yet (ROADMAP.md queue 1 item 9)")
 
 
 def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -56,6 +60,9 @@ def _project_qkv(p: Params, x: torch.Tensor, rope: Rope, cfg: ModelConfig):
     q = (x @ p["wq"].to(dt)).reshape(b, l, nq, hd)
     k = (x @ p["wk"].to(dt)).reshape(b, l, nkv, hd)
     v = (x @ p["wv"].to(dt)).reshape(b, l, nkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm_headwise(q, p["q_scale"])
+        k = rms_norm_headwise(k, p["k_scale"])
     return rotate(q, rope), rotate(k, rope), v
 
 

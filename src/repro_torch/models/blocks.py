@@ -22,7 +22,8 @@ from repro_torch.models.attention import (KVCache, attention_cached,
                                           attention_capture,
                                           attention_forward, init_attention)
 from repro_torch.models.layers import (Params, Rope, apply_mlp, apply_norm,
-                                       init_mlp, init_norm, rope_tables)
+                                       init_mlp, init_norm, rope_tables,
+                                       rotary_dim)
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -60,7 +61,8 @@ def block_forward(p: Params, x: torch.Tensor, rope, cfg: ModelConfig,
     (B, L) positions to build them from.  (The reference also returns an
     MoE aux loss, which is always zero for these blocks.)"""
     if isinstance(rope, torch.Tensor):
-        rope = rope_tables(rope, cfg.head_dim, cfg, x.dtype)
+        rope = rope_tables(rope, rotary_dim(cfg, cfg.head_dim), cfg,
+                           x.dtype)
     h = apply_norm(p["norm1"], x, cfg)
     attn_out = attention_forward(p["attn"], h, rope, cfg)
     if cfg.arch_type == "hybrid":

@@ -1,4 +1,5 @@
-"""Shared layers: RMSNorm, standard RoPE, SwiGLU, embedding and LM head.
+"""Shared layers: RMSNorm (and per head, for q/k), standard and half
+RoPE, SwiGLU, embedding and LM head.
 
 Functional style like the reference (``src/repro/models/layers.py``):
 ``init_*`` builds a dict of tensors, the matching apply function reads it.
@@ -67,9 +68,17 @@ def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """RMSNorm in f32, cast back to x's dtype."""
     if "bias" in p:
         raise NotImplementedError("LayerNorm is not ported yet (ROADMAP.md)")
+    return rms_norm_headwise(x, p["scale"], eps)
+
+
+def rms_norm_headwise(x: torch.Tensor, scale: torch.Tensor,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim in f32, cast back to x's dtype: per head
+    for Qwen3's q/k norm (``qk_norm``: x (..., head_dim), scale
+    (head_dim,) f32), and ``apply_norm``'s over d_model."""
     xf = x.float()
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
+    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -83,41 +92,57 @@ def rope_frequencies(dim: int, theta: float, device) -> torch.Tensor:
 
 
 class Rope(NamedTuple):
-    """RoPE tables for a run of positions, each (B or 1, L, 1, hd/2)."""
+    """RoPE tables for a run of positions, each (B or 1, L, 1, rot/2):
+    rot is the rotary dim, ``rotary_dim(cfg, hd)``."""
     cos: torch.Tensor
     sin: torch.Tensor
 
 
-def rope_tables(positions: torch.Tensor, head_dim: int, cfg: ModelConfig,
-                dtype: torch.dtype) -> Rope:
-    """cos/sin of ``positions`` (B, L) in f32, cast to ``dtype``: built
-    once per forward and shared by every layer's q and k.  'standard'
-    RoPE only."""
-    if cfg.rope != "standard":
+def _check_rope(cfg: ModelConfig) -> None:
+    if cfg.rope not in ("standard", "half"):
         raise NotImplementedError(
-            f"rope={cfg.rope!r}: only 'standard' RoPE is ported; the other "
-            f"modes come with the other architectures (ROADMAP.md queue 1 "
-            f"item 9)")
-    inv = rope_frequencies(head_dim, cfg.rope_theta, positions.device)
-    ang = positions.float()[..., None] * inv                   # (B, L, hd/2)
+            f"rope={cfg.rope!r}: only 'standard' and 'half' RoPE are "
+            f"ported; the other modes come with the other architectures "
+            f"(ROADMAP.md queue 1 item 9)")
+
+
+def rotary_dim(cfg: ModelConfig, head_dim: int) -> int:
+    """The dims of a head that RoPE turns: all of them ('standard'), or
+    the first half ('half': ChatGLM's 2d RoPE; the rest pass through)."""
+    _check_rope(cfg)
+    return head_dim // 2 if cfg.rope == "half" else head_dim
+
+
+def rope_tables(positions: torch.Tensor, rot_dim: int, cfg: ModelConfig,
+                dtype: torch.dtype) -> Rope:
+    """cos/sin of ``positions`` (B, L) over ``rot_dim`` rotary dims
+    (``rotary_dim``) in f32, cast to ``dtype``: built once per forward
+    and shared by every layer's q and k."""
+    _check_rope(cfg)
+    inv = rope_frequencies(rot_dim, cfg.rope_theta, positions.device)
+    ang = positions.float()[..., None] * inv                   # (B, L, rot/2)
     return Rope(torch.cos(ang)[:, :, None, :].to(dtype),
                 torch.sin(ang)[:, :, None, :].to(dtype))
 
 
 def rotate(x: torch.Tensor, rope: Rope) -> torch.Tensor:
     """x (B, L, H, hd) rotated by the tables, split halves (not
-    interleaved pairs)."""
-    hd = x.shape[-1]
-    x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
-    return torch.cat([x1 * rope.cos - x2 * rope.sin,
-                      x2 * rope.cos + x1 * rope.sin], dim=-1)
+    interleaved pairs) of its first rot = 2 × the tables' width dims; the
+    dims past rot pass through ('half' RoPE)."""
+    hd, rot = x.shape[-1], 2 * rope.cos.shape[-1]
+    xr = x if rot == hd else x[..., :rot]
+    x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]
+    turned = torch.cat([x1 * rope.cos - x2 * rope.sin,
+                        x2 * rope.cos + x1 * rope.sin], dim=-1)
+    return turned if rot == hd else torch.cat([turned, x[..., rot:]], dim=-1)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
     """x (B, L, H, hd), positions (B, L): tables then rotation, for a
     caller that has only positions (the model builds its tables once per
     forward, ``rope_tables``)."""
-    return rotate(x, rope_tables(positions, x.shape[-1], cfg, x.dtype))
+    return rotate(x, rope_tables(positions, rotary_dim(cfg, x.shape[-1]),
+                                 cfg, x.dtype))
 
 
 # --------------------------------------------------------------------------

@@ -25,7 +25,7 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (Params, Rope, apply_norm,
                                        compute_dtype, embed_tokens,
                                        init_embed, init_norm, lm_head,
-                                       rope_tables)
+                                       rope_tables, rotary_dim)
 
 
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -56,10 +56,12 @@ def make_positions(cfg: ModelConfig, batch: int, length: int,
 def forward_rope(cfg: ModelConfig, length: int, offset: int = 0,
                  device="cuda") -> Rope:
     """The RoPE tables of one forward over ``length`` positions from
-    ``offset``, (1, L, 1, hd/2) in the compute dtype: built once and
-    shared by every layer (they broadcast over the batch)."""
+    ``offset``, (1, L, 1, rot/2) in the compute dtype (rot: the rotary
+    dim, ``rotary_dim``): built once and shared by every layer (they
+    broadcast over the batch)."""
     return rope_tables(make_positions(cfg, 1, length, offset, device),
-                       cfg.head_dim, cfg, compute_dtype(cfg))
+                       rotary_dim(cfg, cfg.head_dim), cfg,
+                       compute_dtype(cfg))
 
 
 def forward(params: Params, tokens: torch.Tensor,

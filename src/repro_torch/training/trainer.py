@@ -5,10 +5,11 @@ Gradients come from autograd over the model's forward: on the card that
 forward runs the flash-attention kernel, whose ``autograd.Function``
 recomputes the probabilities in its backward
 (``kernels/flash_attention.py``), and the bf16 LM head's f32-output GEMM
-(``models/layers.py:HeadMatmul``).  The confidence and selective-scan
-kernels have no backward and raise under grad, so a Hymba config trains
-on the CPU only so far.  Master weights are f32; the forward casts them
-to the compute dtype at each matmul.
+(``models/layers.py:HeadMatmul``), and for Hymba the selective-scan
+kernel, whose ``autograd.Function`` recomputes the state chunk by chunk
+in its backward (``kernels/selective_scan.py``).  The confidence kernel
+is never on a training path (it raises under grad).  Master weights are
+f32; the forward casts them to the compute dtype at each matmul.
 
 A step is split at the corruption: ``TrainStep.__call__`` draws
 ``(corrupted, masked, t)`` from its generator, ``TrainStep.apply`` takes

@@ -122,6 +122,33 @@ def test_flash_kernel_matches_plain(cuda, b, l, h, g, d, w, dtype):
                                rtol=tol, atol=tol)
 
 
+# head dims that are multiples of 16 but not of 32 (and stablelm-12b's
+# 160): stablelm-3b's serving shape at d=80 with and without a band, a
+# ragged L, and one shape per other new dim
+@pytest.mark.parametrize("b,l,h,g,d,w", [
+    (2, 128, 32, 32, 80, 0),
+    (2, 128, 32, 32, 80, 32),
+    (1, 130, 4, 2, 80, 17),
+    (2, 128, 32, 8, 160, 0),
+    *[(1, 130, 4, 1, d, 0) for d in (48, 112, 144, 176, 208, 240)],
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_multiples_of_16_match_plain(cuda, b, l, h, g, d, w,
+                                                  dtype):
+    gen = torch.Generator(device=cuda).manual_seed(l + d + w)
+    q = torch.randn(b, l, h, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, l, g, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, l, g, d, generator=gen, device=cuda).to(dtype)
+    before = fa_mod.launches
+    got = fa_mod.flash_attention(q, k, v, w)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == before + 1 and got.shape == q.shape
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(),
+                               fa_mod.attention_ref(q, k, v, w).float(),
+                               rtol=tol, atol=tol)
+
+
 def _bf16_qkv(device, b, lq, lk, h, g, d, seed):
     gen = torch.Generator(device=device).manual_seed(seed)
     return (torch.randn(b, lq, h, d, generator=gen, device=device)
@@ -756,22 +783,51 @@ def test_flash_gradient_matches_plain(cuda, b, lq, lk, h, g, d, w, qo, dtype):
 
 
 def test_kernels_without_a_backward_raise_under_grad(cuda):
-    """The confidence and selective-scan kernels have no backward: on a
-    card they raise where autograd would need one, and run under
-    ``no_grad``."""
+    """The confidence kernel has no backward: on a card it raises where
+    autograd would need one, and runs under ``no_grad``.  (The selective
+    scan has one since it runs inside ``SelectiveScan``.)"""
     logits = torch.randn(4, 1000, device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         conf_mod.confidence_fused(logits)
     with torch.no_grad():
         conf_mod.confidence_fused(logits)
-    x = torch.randn(1, 16, 32, device=cuda, requires_grad=True)
-    delta = torch.rand(1, 16, 32, device=cuda)
-    bs, cs = (torch.randn(1, 16, 4, device=cuda) for _ in range(2))
-    a_log = torch.zeros(32, 4, device=cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
-        scan_mod.selective_scan(x, delta, bs, cs, a_log)
-    with torch.no_grad():
-        scan_mod.selective_scan(x, delta, bs, cs, a_log)
+
+
+# (B, L, di, N, x dtype): Hymba's serving width at L=128, a ragged L over
+# several backward chunks, f32 throughout
+@pytest.mark.parametrize("b,l,di,n,xdt", [
+    (2, 128, 3200, 16, torch.bfloat16),
+    (1, 300, 130, 16, torch.float32),
+])
+def test_scan_gradient_matches_plain_autograd(cuda, b, l, di, n, xdt):
+    """``SelectiveScan`` on the card: one kernel launch for the forward,
+    none in the backward (``selective_scan_backward``'s f32 ops), every
+    gradient against autograd of the plain version within 1e-4 of its
+    leaf's max |g| (2e-2 for a bf16 leaf)."""
+    gen = torch.Generator(device=cuda).manual_seed(l + di)
+    x = torch.randn(b, l, di, generator=gen, device=cuda).to(xdt)
+    delta = torch.nn.functional.softplus(
+        torch.randn(b, l, di, generator=gen, device=cuda) - 2)
+    bs, cs = (torch.randn(b, l, n, generator=gen, device=cuda)
+              for _ in range(2))
+    a_log = torch.log(torch.arange(1, n + 1, device=cuda,
+                                   dtype=torch.float32)).repeat(di, 1)
+    dy = torch.randn(b, l, di, generator=gen, device=cuda).to(xdt)
+    ins = [t.clone().requires_grad_(True) for t in (x, delta, bs, cs, a_log)]
+    before = scan_mod.launches
+    y = scan_mod.selective_scan(*ins)
+    assert y.grad_fn is not None and scan_mod.launches == before + 1
+    got = torch.autograd.grad(y, ins, dy)
+    torch.cuda.synchronize()
+    assert scan_mod.launches == before + 1
+    ref_ins = [t.clone().requires_grad_(True) for t in
+               (x, delta, bs, cs, a_log)]
+    want = torch.autograd.grad(scan_mod.selective_scan_ref(*ref_ins),
+                               ref_ins, dy)
+    for gt, wt in zip(got, want):
+        assert gt.dtype == wt.dtype and gt.shape == wt.shape
+        assert _rel(gt, wt) <= (2e-2 if gt.dtype == torch.bfloat16
+                                else 1e-4)
 
 
 def test_bf16_head_gradient_matches_f32_autograd(cuda):
@@ -821,18 +877,24 @@ def test_card_trains_the_testbed(cuda, remat):
     assert not params["embed"]["tok"].requires_grad
 
 
-def test_hymba_training_on_the_card_raises(cuda):
-    """The scan has no gradient on the card yet (ROADMAP.md): training a
-    Hymba config there raises rather than dropping the Mamba branch's
-    gradient."""
+def test_card_trains_hymba(cuda):
+    """Two steps of ``train`` of a reduced Hymba on the card, the scan's
+    gradient from ``SelectiveScan``: finite losses, one scan and one
+    flash launch per layer a step (no remat), nothing else."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data import CharTokenizer, TaskDataset
     from repro_torch.training import train
+    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config("hymba-1.5b").reduced()
     ds = TaskDataset("sum", CharTokenizer(cfg.vocab_size))
-    with pytest.raises(RuntimeError, match="no backward"):
-        train(cfg, TrainConfig(batch_size=4, seq_len=ds.seq_len, steps=1),
-              ds.batches(4), log=None, device=cuda)
+    tcfg = TrainConfig(batch_size=4, seq_len=ds.seq_len, steps=2,
+                       log_every=1)
+    before = (fa_mod.launches, scan_mod.launches)
+    params, history = train(cfg, tcfg, ds.batches(4), log=None, device=cuda)
+    assert fa_mod.launches - before[0] == 2 * cfg.num_layers
+    assert scan_mod.launches - before[1] == 2 * cfg.num_layers
+    assert all(torch.isfinite(torch.tensor(history["loss"])))
+    assert params["blocks"][0]["mamba"]["a_log"].is_cuda
 
 
 # --------------------------------------------------------------------------

@@ -206,8 +206,8 @@ def test_entry_points_default_to_the_card():
 @pytest.mark.parametrize("over,match", [
     (dict(arch_type="moe"), "dense and hybrid blocks only"),
     (dict(arch_type="ssm"), "dense and hybrid blocks only"),
-    (dict(rope="half"), "only 'standard' RoPE"),
-    (dict(qk_norm=True), "qk_norm"),
+    (dict(rope="mrope"), "only 'standard' and 'half' RoPE"),
+    (dict(norm="layernorm"), "RMSNorm only"),
 ])
 def test_unported_architectures_raise(over, match):
     cfg = dataclasses.replace(get_config("llada-8b-tiny"), **over)

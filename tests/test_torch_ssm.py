@@ -241,3 +241,128 @@ def test_mamba_parts_match_reference(mamba_weights, part):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                    atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# the scan's gradient: ``selective_scan_backward`` (the card's backward)
+# --------------------------------------------------------------------------
+
+def _rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _within_bf16_ulp(got, want) -> bool:
+    """|got − want| ≤ one bf16 ulp of the element + 1e-4 × max |want|: a
+    bf16 leaf is the same f32 sum rounded once, which may round the other
+    way where the two sums straddle a rounding boundary."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    mag = np.maximum(np.abs(got), np.abs(want))
+    ulp = np.exp2(np.floor(np.log2(np.where(mag > 0, mag, 1.0))) - 7)
+    tol = np.where(mag > 0, ulp, 0.0) + 1e-4 * np.abs(want).max()
+    return bool(np.all(np.abs(got - want) <= tol))
+
+
+# (B, L, di, N, x dtype, chunk of the backward): one chunk; a ragged L
+# over several chunks, each ragged against the walked round of 16; the
+# serving path's mix of dtypes (x bf16, Δ/B/C f32) over two chunks
+SCAN_GRAD_CASES = {"one-chunk": (2, 48, 24, 16, "float32", 128),
+                   "ragged": (2, 101, 20, 8, "float32", 24),
+                   "mixed-dtypes": (2, 70, 32, 16, "bfloat16", 40)}
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_GRAD_CASES))
+def test_scan_backward_matches_autograd_and_jax(case):
+    """dx, dΔ, dB, dC and d a_log against autograd of the plain version
+    and ``jax.grad`` of the reference's oracle (``kernels/ref.py``), each
+    to 1e-4 of its leaf's max |g| (a bf16 leaf within one bf16 ulp)."""
+    b, l, di, n, xdt, chunk = SCAN_GRAD_CASES[case]
+    x, delta, bs, cs, a_log = _scan_inputs(b, l, di, n, l + di)
+    a_log = a_log + 0.3 * np.random.default_rng(1).standard_normal(
+        a_log.shape).astype(np.float32)
+    dy = np.random.default_rng(2).standard_normal((b, l, di))
+    (jx, tx), (jdy, tdy) = _both(x, xdt), _both(dy, xdt)
+    rest = [_both(a, "float32") for a in (delta, bs, cs, a_log)]
+    ins = [tx] + [t for _, t in rest]
+    got = scan_mod.selective_scan_backward(*ins, tdy, chunk=chunk)
+    leaves = [t.detach().requires_grad_(True) for t in ins]
+    want = torch.autograd.grad(scan_mod.selective_scan_ref(*leaves), leaves,
+                               tdy)
+
+    def loss(*args):
+        y = jax_scan_ref(*args).astype(jnp.float32)
+        return jnp.sum(y * jdy.astype(jnp.float32))
+    jax_grads = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3, 4)))(
+        jx, *(j for j, _ in rest))
+    for name, g, w, j, t in zip(("x", "delta", "b", "c", "a_log"), got,
+                                want, jax_grads, ins):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        if t.dtype == torch.bfloat16:
+            assert _within_bf16_ulp(g.float(), w.float()), name
+            assert _within_bf16_ulp(g.float(), np.asarray(j, np.float32)), \
+                name
+        else:
+            assert _rel_err(g, w) <= 1e-4, name
+            assert _rel_err(g, j) <= 1e-4, name
+
+
+def test_scan_function_runs_the_plain_forward_on_the_cpu():
+    """``SelectiveScan`` on CPU tensors: the plain forward, no launch, and
+    ``selective_scan_backward`` as its gradient."""
+    x, delta, bs, cs, a_log = (torch.from_numpy(np.asarray(a, np.float32))
+                               for a in _scan_inputs(1, 30, 8, 4, 9))
+    ins = [t.requires_grad_(True) for t in (x, delta, bs, cs, a_log)]
+    before = scan_mod.launches
+    y = scan_mod.SelectiveScan.apply(*ins)
+    assert scan_mod.launches == before
+    assert torch.equal(y, scan_mod.selective_scan_ref(x, delta, bs, cs,
+                                                      a_log))
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(0))
+    got = torch.autograd.grad(y, ins, dy)
+    want = scan_mod.selective_scan_backward(
+        *(t.detach() for t in ins), dy)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _scan_through_backward(monkeypatch):
+    """Route ``mamba_forward``'s scan through ``SelectiveScan`` (on the
+    CPU: the plain forward, ``selective_scan_backward`` as the gradient);
+    returns the list its backward calls are counted in."""
+    calls = []
+
+    def backward(*args, **kw):
+        calls.append(args[0].shape)
+        return real(*args, **kw)
+    real = scan_mod.selective_scan_backward
+    monkeypatch.setattr(scan_mod, "selective_scan_backward", backward)
+    monkeypatch.setattr(ssm, "selective_scan", lambda x, d, b, c, a:
+                        scan_mod.SelectiveScan.apply(x, d, b, c, a.float()))
+    return calls
+
+
+def test_mamba_gradient_through_the_scan_backward_matches_jax(
+        mamba_weights, monkeypatch):
+    """Every gradient of ``mamba_forward`` (x and each Mamba weight) with
+    the scan's part from ``selective_scan_backward``, against ``jax.grad``
+    of the reference's chunked ``associative_scan`` at L = 300 (two of its
+    chunks, three of the backward's), each to 1e-4 of its max |g|."""
+    jcfg, tcfg, jp, tp = mamba_weights
+    calls = _scan_through_backward(monkeypatch)
+    rs = np.random.default_rng(4)
+    length = MAMBA_CHUNK + 44
+    x = rs.standard_normal((2, length, jcfg.d_model)).astype(np.float32)
+    dout = rs.standard_normal(x.shape).astype(np.float32)
+
+    def loss(p, x):
+        return jnp.sum(jax_ssm.mamba_forward(p, x, jcfg) * dout)
+    jg_p, jg_x = jax.jit(jax.grad(loss, argnums=(0, 1)))(jp, jnp.asarray(x))
+    leaves = {k: v.detach().requires_grad_(True) for k, v in tp.items()}
+    tx = torch.from_numpy(x).requires_grad_(True)
+    out = ssm.mamba_forward(leaves, tx, tcfg)
+    grads = torch.autograd.grad(out, [tx, *leaves.values()],
+                                torch.from_numpy(dout))
+    assert calls == [(2, length, 2 * jcfg.d_model)]
+    assert _rel_err(grads[0], jg_x) <= 1e-4, "x"
+    for (key, _), g in zip(leaves.items(), grads[1:]):
+        assert _rel_err(g, jg_p[key]) <= 1e-4, key

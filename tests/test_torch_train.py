@@ -295,6 +295,33 @@ def _jax_adamw(tcfg):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_one_train_step_matches_reference(task, case):
+    _step_matches_reference(task, case)
+
+
+def test_hymba_step_through_the_scan_backward_matches_reference(
+        task, monkeypatch):
+    """Hymba-tiny's step with every layer's scan gradient from
+    ``selective_scan_backward`` (through ``SelectiveScan``, the card's
+    op, whose forward on the CPU is the plain version), equal to the
+    reference's step as the plain autograd step is."""
+    from repro_torch.kernels import selective_scan as scan_mod
+    from repro_torch.models import ssm
+    calls = []
+    real = scan_mod.selective_scan_backward
+
+    def backward(*args, **kw):
+        calls.append(args[0].shape)
+        return real(*args, **kw)
+    monkeypatch.setattr(scan_mod, "selective_scan_backward", backward)
+    monkeypatch.setattr(ssm, "selective_scan", lambda x, d, b, c, a:
+                        scan_mod.SelectiveScan.apply(x, d, b, c, a.float()))
+    _step_matches_reference(task, "hymba-tiny")
+    # one backward per layer in each gradient: the helper takes it for
+    # the comparison (``grads``) and again in the update (``apply``)
+    assert len(calls) == 2 * get_config("hymba-1.5b").reduced().num_layers
+
+
+def _step_matches_reference(task, case):
     name, over, kw = CASES[case]
     jcfg, cfg = _configs(name, over)
     ds, batch = task
