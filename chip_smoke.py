@@ -26,7 +26,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              family's attention (``ARCH_ATTN_SHAPES``: d=80 in
              bf16 and f32 with a band and a ragged L, Qwen3's 40:8,
              ChatGLM3's 32:2, StableLM-12B's d=160) and confidence at
-             Qwen3's V = 151936;
+             Qwen3's V = 151936; and Mixtral-8x22B's (``MOE_ATTN_SHAPES``:
+             48:8 at d=128 at the serving batch and over 4160 tokens with
+             its band of 4096 live, bf16 and f32; ``MOE_CONF_SHAPES``:
+             256 x 32768, f32 and bf16);
 4. reference — decodes reduced LLaDA and Hymba configs on the card
              (kernels) and on the CPU (plain versions) from the same
              weights, on the card by the eager, the per-block graph and
@@ -43,6 +46,16 @@ Phases, in order; any failure raises and the script exits non-zero:
              and stablelm-3b at d_model=320 (head dim 80 in the f32
              kernel), each under ``none``, ``prefix`` and ``dual``
              (``ARCH_CASES``: fdm, FDM-A with its phases, probability);
+             then reduced mixtral-8x22b as is and with GQA
+             (``MOE_REFERENCE``: MoE blocks, window 32 over a 48-token
+             canvas) likewise; then the MoE dispatch (``moe_dispatch_
+             phase``): card against CPU on a reduced layer with 8 experts
+             and one expert over capacity at factors 1.25 and 2.0 (ids,
+             counts, slots, drops exact; outputs within 1e-5 of their
+             scale; a CUDA-graph replay equal to eager), and a full-width
+             layer at T = 256 and 512 (no drop; each token's two experts
+             computed plainly within 1e-2 of the scale; device ms against
+             the experts' bytes);
 5. serving — full-width, full-depth LLaDA-8B, then Hymba-1.5B (random
              bf16 weights from a seed; LLaDA's weights and graphs are
              freed first) behind ``ServingEngine`` on the graph drivers
@@ -64,7 +77,15 @@ Phases, in order; any failure raises and the script exits non-zero:
              after Hymba (each model's weights and graphs freed before
              the next): full-width, full-depth Qwen3-14B under ``none``,
              ``prefix`` and ``dual``, ChatGLM3-6B and StableLM-3B under
-             ``none`` (``ARCH_SERVING``);
+             ``none`` (``ARCH_SERVING``); then full-width Mixtral-8x22B
+             cut to ``MIXTRAL_LAYERS`` (8) of its 56 layers under the
+             three policies (``mixtral_phase``), its serving batch's
+             forwards on the card's clock, one profiled graph-driven fdm
+             request split into kernel groups (expert GEMMs, other GEMMs,
+             sort/gather/index, flash, confidence, elementwise) with its
+             hand-written kernels' launches in the trace equal to the
+             graphs' count, and one eager forward over 4160 tokens (the
+             band live: finite logits, one flash launch a layer);
 6. KV A/B  — (between LLaDA's serving and Hymba's) one B=2 request at the
              reference's ``BENCH_kv_cache.json`` geometry (prompt 128,
              gen 128, block 32, probability) on full-width LLaDA-8B under
@@ -232,6 +253,19 @@ ARCH_ATTN_SHAPES = tuple(
     (MAX_BATCH, CANVAS, CANVAS, 40, 8, 128, 0, 0, "bfloat16"),
     (MAX_BATCH, CANVAS, CANVAS, 32, 2, 128, 0, 0, "bfloat16"),
     (MAX_BATCH, CANVAS, CANVAS, 32, 8, 160, 0, 0, "bfloat16"))
+MIXTRAL_LAYERS, MIXTRAL_LONG = 8, 4160   # see MOE_REFERENCE
+# Mixtral-8x22B's attention (48 heads over 8 at d=128, window 4096; B, Lq,
+# Lk, H, G, d, window, q_offset, dtype): the serving batch (the band is
+# inactive below 4096) and one 4160-token row (the band live), each in
+# bf16 and f32; its confidence at the serving batch's 256 rows x V = 32768
+MOE_ATTN_SHAPES = tuple(
+    (*shape, dt) for shape in ((MAX_BATCH, CANVAS, CANVAS, 48, 8, 128, 4096,
+                                0),
+                               (1, MIXTRAL_LONG, MIXTRAL_LONG, 48, 8, 128,
+                                4096, 0))
+    for dt in ("bfloat16", "float32"))
+MOE_CONF_SHAPES = ((MAX_BATCH * CANVAS, 32768, "float32"),
+                   (MAX_BATCH * CANVAS, 32768, "bfloat16"))
 # selective-scan shapes of the kernel phase, (B, L, di, N, x dtype), Δ/B/C
 # f32: Hymba-1.5B's Mamba branch at the scoring and K-candidate batches, a
 # ragged L and di in f32, and one 2048-token row (Hymba's window is 1024)
@@ -553,6 +587,16 @@ ARCH_CASES = [dict(strategy="fdm", gamma=0.0), FDM_A_PHASES,
 # graph drivers: (name, cache policies), each policy a path of its own
 ARCH_SERVING = (("qwen3-14b", POLICIES), ("chatglm3-6b", ("none",)),
                 ("stablelm-3b", ("none",)))
+# Mixtral-8x22B (the MoE block, window 4096): reduced in the reference
+# phase, as is and with GQA (reduced gives 4:4), under every policy with
+# ARCH_CASES (the reduced window of 32 is live over the 48-token canvas);
+# served at full width cut to MIXTRAL_LAYERS of its 56 layers (a layer is
+# ~2.50 B parameters, 8 of them ~40.9 GB of bf16 beside the 0.8 GB of
+# embedding and head: all 56 would be ~281 GB); then one eager forward
+# over MIXTRAL_LONG tokens, past the window, so the band is live at full
+# width
+MOE_REFERENCE = (("mixtral-8x22b", {}), ("mixtral-8x22b",
+                                         dict(num_kv_heads=2)))
 
 
 def _stats_key(st) -> tuple:
@@ -682,19 +726,28 @@ def count_params(tree) -> int:
     return tree.numel()
 
 
-def make_model(torch, name: str):
-    """Full-width, full-depth random weights of ``name`` on the card, from
-    the seed.  Returns ``(cfg, params)``."""
+def make_model(torch, name: str, layers: int = 0):
+    """Full-width random weights of ``name`` on the card, from the seed, at
+    full depth or cut to its first ``layers`` layers.  Returns ``(cfg,
+    params)``."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
     cfg = get_config(name)
+    depth = (f"full width, {layers} of {cfg.num_layers} layers" if layers
+             else f"full width and depth ({cfg.num_layers} layers")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     t0 = time.perf_counter()
     params = init_model(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                         device="cuda")
     torch.cuda.synchronize()
-    log(f"serving: {name} full width and depth ({cfg.num_layers} layers, "
+    moe = (f", {cfg.moe.num_experts} experts top-"
+           f"{cfg.moe.num_experts_per_tok} at moe_d_ff {cfg.moe.moe_d_ff}"
+           if cfg.is_moe else "")
+    log(f"serving: {name} {depth}{' (' if layers else ', '}"
         f"d={cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv, "
-        f"d_ff={cfg.d_ff}, V={cfg.vocab_size}, window "
+        f"d_ff={cfg.d_ff}{moe}, V={cfg.vocab_size}, window "
         f"{cfg.sliding_window}, {cfg.arch_type}, {cfg.dtype}); "
         f"{count_params(params)} parameters made in "
         f"{time.perf_counter() - t0:.1f} s; "
@@ -902,16 +955,22 @@ def device_profile(torch, label: str, fn, reps: int = 2,
                                key=lambda kv: -kv[1][1])[:top]:
         log(f"  {t / reps / 1e3:8.3f} ms {n // reps:5d}x  {name[:100]}")
     if groups:
-        sums = defaultdict(lambda: [0, 0.0])
-        for name, (n, t) in by_name.items():
-            g = next((g for g, pats in groups.items()
-                      if any(p in name for p in pats)), "other")
-            sums[g][0] += n
-            sums[g][1] += t
         log(f"device profile {label} by group (ms per call, kernels): " +
             "; ".join(f"{g} {t / reps / 1e3:.3f} ({n // reps})"
-                      for g, (n, t) in sorted(sums.items(),
-                                              key=lambda kv: -kv[1][1])))
+                      for g, (n, t) in by_group(by_name, groups).items()))
+
+
+def by_group(by_name: dict, groups: dict) -> dict:
+    """Kernel name -> [count, µs] summed into ``groups`` (label -> name
+    substrings, first match wins; the rest is "other"), largest first."""
+    sums = {}
+    for name, (n, t) in by_name.items():
+        g = next((g for g, pats in groups.items()
+                  if any(p in name for p in pats)), "other")
+        acc = sums.setdefault(g, [0, 0.0])
+        acc[0] += n
+        acc[1] += t
+    return dict(sorted(sums.items(), key=lambda kv: -kv[1][1]))
 
 
 def forward_phase(torch, cfg, params) -> None:
@@ -931,11 +990,13 @@ def forward_phase(torch, cfg, params) -> None:
                  lambda: forward(params, tokens, cfg))
 
 
-def graph_profile(torch, label: str, fn, run, mods) -> None:
+def graph_profile(torch, label: str, fn, run, mods, groups=None) -> dict:
     """One call of ``fn`` (a graph-driven request) under ``torch.profiler``
     (device activity only): wall, kernel time, kernel count per step, the
     share of the wall the card was busy, and the hand-written kernels'
-    launches in the trace against the ones ``run``'s graphs count."""
+    launches in the trace against the ones ``run``'s graphs count; with
+    ``groups`` (as ``device_profile``'s) also the device ms and kernel
+    count of each group.  Returns kernel name -> [count, µs]."""
     from collections import Counter
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -957,12 +1018,15 @@ def graph_profile(torch, label: str, fn, run, mods) -> None:
         host1 = time.time_ns()
         time.sleep(PROFILE_MARGIN_S)
     t1 = time.perf_counter()
-    spans, seen = [], Counter()
+    spans, seen, by_name = [], Counter(), {}
     first, last = float("inf"), float("-inf")
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != DeviceType.CUDA:
             continue
         spans.append((e.start_ns() / 1e3, e.duration_ns() / 1e3))
+        acc = by_name.setdefault(e.name(), [0, 0.0])
+        acc[0] += 1
+        acc[1] += e.duration_ns() / 1e3
         first = min(first, e.start_ns())
         last = max(last, e.start_ns() + e.duration_ns())
         for k, pat in names.items():
@@ -993,10 +1057,15 @@ def graph_profile(torch, label: str, fn, run, mods) -> None:
              f"host's start, last one ends {(last - host1) / 1e6:+.3f} ms "
              f"from the host's end (of a {PROFILE_MARGIN_S} s margin)")
     log(f"device profile {label}: {edges}")
+    if groups:
+        log(f"device profile {label} by group (ms, kernels): " +
+            "; ".join(f"{g} {t / 1e3:.3f} ({n})"
+                      for g, (n, t) in by_group(by_name, groups).items()))
     if spans and any(seen[k] != counted[k] for k in counted):
         raise AssertionError(f"{label}: executed launches counted by the "
                              f"graphs {counted} differ from the trace's "
                              f"{dict(seen)}; {edges}")
+    return by_name
 
 
 def kv_ab_phase(torch, cfg, params, mods: dict) -> None:
@@ -1375,6 +1444,278 @@ def carry_phase(torch, cfg, params, mods: dict) -> dict:
 # concurrent clients send 3 requests each (prompts 41-64, gen 64, block
 # 32, 64 steps; fdm, fdm_a, probability; each client's requests under
 # none, then prefix, then dual), one length bucket for all prompts
+# the MoE dispatch phase: a reduced Mixtral layer with Mixtral's own 8
+# experts (f32), every token's first choice forced onto expert 0 (a
+# constant feature times a large router weight: 400 pairs meet 128 or 256
+# slots), at the block cache's and the forward's capacity factors; then a
+# full-width layer at the serving batches' token counts (T = B·L: the
+# scoring and the K-candidate batch)
+MOE_FACTORS = (1.25, 2.0)
+MOE_FULL_TOKENS = (MAX_BATCH * CANVAS, K * MAX_BATCH * CANVAS)
+# kernel groups of Mixtral's graph-driven request (first match wins; the
+# expert GEMMs' kernel names are learned at run time, ``gemm_names``;
+# what no group matches is elementwise: norms, RoPE, SwiGLU's products,
+# casts, fills)
+MOE_PROFILE_GROUPS = {
+    "flash attention (hand-written)": ("flash_",),
+    "confidence (hand-written)": ("confidence_kernel",),
+    "other GEMMs (cuBLAS: attention projections, router, head)":
+        ("gemm", "xmma", "nvjet", "cutlass", "splitKreduce"),
+    "sort, gather, scatter, index, scan (the dispatch, the combine, the "
+    "strategy's)": ("sort", "Sort", "radix", "Radix", "index", "Index",
+                    "gather", "scatter", "scan", "Scan")}
+
+
+def _overflow_moe(torch):
+    """The dispatch phase's reduced layer on the CPU: (cfg, params,
+    tokens (2, 200, d))."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("mixtral-8x22b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=8))
+    gen = torch.Generator().manual_seed(SEED)
+    p = moe.init_moe(gen, cfg, "cpu", torch.float32)
+    p["router"][0, 0] = 10.0
+    x = torch.randn(2, 200, cfg.d_model, generator=gen)
+    x[..., 0] = 4.0
+    return cfg, p, x
+
+
+def moe_dispatch_phase(torch) -> None:
+    """The MoE dispatch (``models/moe.py``) on the card against its CPU
+    run, same weights and tokens (reduced, f32, one expert over capacity),
+    at factors 1.25 and 2.0: expert ids, counts, slots and drops exact,
+    outputs within 1e-5 of their scale (f32 products summed in another
+    order; the σ = 1/√E experts make outputs of order 10²); the same call
+    captured in a CUDA graph and replayed equals the eager call.  Then one
+    full-width layer (bf16, random weights) at T = 256 and 512: nothing
+    drops, the outputs are within 1e-2 of their scale of a plain
+    computation of each token's two experts (expert by expert over the
+    tokens routed to it, in the same dtype order: bf16 operands, f32
+    accumulation; the products' rows differ, so bf16 roundings do), and
+    the layer's device ms against its bound (the experts' bytes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.graphs import GraphSet
+    from repro_torch.models import moe
+    cfg, p, x = _overflow_moe(torch)
+    pc = {k: v.cuda() for k, v in p.items()}
+    xc = x.cuda()
+    t = x.shape[0] * x.shape[1]
+    for factor in MOE_FACTORS:
+        cap = moe.capacity(t, cfg, factor)
+        want_r = moe.route(x.reshape(t, -1) @ p["router"], cfg, cap)
+        got_r = moe.route(xc.reshape(t, -1) @ pc["router"], cfg, cap)
+        same = all(torch.equal(getattr(got_r, f).cpu(), getattr(want_r, f))
+                   for f in ("ids", "counts", "slot"))
+        drops = [int((r.slot >= cap).sum().cpu()) for r in (want_r, got_r)]
+        want, _ = moe.moe_forward(p, x, cfg, factor)
+        got, _ = moe.moe_forward(pc, xc, cfg, factor)
+        scale = float(want.abs().max())
+        err = float((got.cpu() - want).abs().max()) / scale
+        out = torch.zeros_like(xc)
+
+        def body():
+            out.copy_(moe.moe_forward(pc, xc, cfg, factor,
+                                      need_aux=False)[0])
+        graphs = GraphSet(xc.device)
+        graphs.warm(body)
+        out.zero_()
+        graphs.run("moe", body)
+        replay_equal = torch.equal(out, got)
+        log(f"moe dispatch (reduced, {cfg.moe.num_experts} experts top-"
+            f"{cfg.moe.num_experts_per_tok}, f32, T={t}, factor {factor}, "
+            f"capacity {cap}): card vs CPU ids/counts/slots equal={same}, "
+            f"drops {drops[1]} (CPU {drops[0]}), max abs err "
+            f"{err * scale:.3e} ({err:.2e} of the scale {scale:.1f}); "
+            f"graph replay equals eager: {replay_equal}")
+        if not same or drops[0] != drops[1] or drops[0] != t - cap or \
+                err > 1e-5 or not replay_equal:
+            raise AssertionError(f"moe dispatch at factor {factor}: card vs "
+                                 f"CPU routing equal {same}, drops {drops} "
+                                 f"(want {t - cap}), error {err:.2e} of the "
+                                 f"scale, replay equal {replay_equal}")
+    full = get_config("mixtral-8x22b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    p = moe.init_moe(gen, full, "cuda", torch.bfloat16)
+    e, k = full.moe.num_experts, full.moe.num_experts_per_tok
+    wbytes = sum(w.numel() * w.element_size() for w in p.values())
+    for t in MOE_FULL_TOKENS:
+        # unit-RMS rows, as the block's norm hands them over
+        x = torch.randn(t, full.d_model, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        cap = moe.capacity(t, full)
+        r = moe.route(x @ p["router"], full, cap)
+        drops = int((r.slot >= cap).sum())
+        got = moe.moe_forward(p, x[None], full, need_aux=False)[0][0]
+        pairs = torch.zeros(t, k, full.d_model, dtype=x.dtype, device="cuda")
+        for ex in range(e):
+            tok, j = (r.ids == ex).nonzero(as_tuple=True)
+            h = torch.nn.functional.silu(x[tok] @ p["w_gate"][ex]) \
+                * (x[tok] @ p["w_up"][ex])
+            pairs[tok, j] = (h @ p["w_down"][ex]) \
+                * r.gates[tok, j][:, None].to(x.dtype)
+        want = pairs.sum(1)
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max()) / scale
+        ms = device_ms(lambda: moe.moe_forward(p, x[None], full,
+                                               need_aux=False), reps=3)
+        flops = 2 * 3 * t * k * full.d_model * full.moe.moe_d_ff
+        t_bytes, t_ops = wbytes / MEM_BYTES_PER_S, flops / BF16_OPS_PER_S
+        bound = 1e3 * max(t_bytes, t_ops)
+        log(f"moe dispatch full width (d={full.d_model}, {e} experts top-{k}"
+            f" at moe_d_ff {full.moe.moe_d_ff}, bf16, T={t}, capacity {cap}"
+            f"): drops {drops}, expert loads {r.counts.tolist()}; max abs "
+            f"err against each token's two experts {err * scale:.3e} "
+            f"({err:.2e} of the scale {scale:.1f}); on the device alone "
+            f"{ms:.4f} ms, bound {bound:.4f} ms "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+            f"{wbytes / 1e9:.3f} GB of experts), share {bound / ms:.3f}; "
+            f"the slot grid holds {e * cap} rows for {t * k} pairs")
+        if drops or err > 1e-2 or not torch.isfinite(got).all():
+            raise AssertionError(f"moe full width T={t}: drops {drops}, "
+                                 f"error {err:.2e} of the scale")
+    del p
+    torch.cuda.empty_cache()
+
+
+def traced_kernel_names(torch, fn) -> set:
+    """The device kernels one call of ``fn`` runs, by name, memsets left
+    out (a library runs them beside many ops).  The profiler's window
+    opens and closes ``PROFILE_MARGIN_S`` away from the call (a trace can
+    lose activities at its edges: one lost all of a window this short);
+    fails after three empty traces."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+        names = {e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and "Memset" not in e.name}
+        if names:
+            return names
+    raise AssertionError("three traces held no device kernel")
+
+
+def gemm_names(torch, cfg, params) -> tuple:
+    """(expert, other): the names of the kernels cuBLAS runs for an MoE
+    forward's expert products (``torch.bmm`` at 128 and 256 slots, the
+    capacities of the serving batches' T = 256 and 512) and for its other
+    products at those T (the q/k/v/o projections, the router, the
+    f32-output head), each traced alone."""
+    layer, head = params["blocks"][0], params["embed"]["head"]
+    dt = head.dtype
+    e, d, ff = cfg.moe.num_experts, cfg.d_model, cfg.moe.moe_d_ff
+    xs = {c: torch.zeros(e, c, d, dtype=dt, device="cuda") for c in (128, 256)}
+    hs = {c: torch.zeros(e, c, ff, dtype=dt, device="cuda")
+          for c in (128, 256)}
+    xt = {t: torch.zeros(t, d, dtype=dt, device="cuda")
+          for t in MOE_FULL_TOKENS}
+
+    def experts():
+        for c in xs:
+            torch.bmm(xs[c], layer["moe"]["w_gate"])
+            torch.bmm(hs[c], layer["moe"]["w_down"])
+
+    def others():
+        for x in xt.values():
+            for w in (layer["attn"]["wq"], layer["attn"]["wk"],
+                      layer["moe"]["router"]):
+                x @ w
+            torch.mm(x, head, out_dtype=torch.float32)
+    return (traced_kernel_names(torch, experts),
+            traced_kernel_names(torch, others))
+
+
+def mixtral_phase(torch, mods: dict) -> dict:
+    """Full-width Mixtral-8x22B cut to ``MIXTRAL_LAYERS`` of its 56 layers
+    (random bf16 weights from the seed) served like the others
+    (``serving_phase``) under ``none``, ``prefix`` and ``dual`` on the
+    graph drivers, each policy a path of its own; the serving batch's
+    forwards on the card's clock; one profiled graph-driven request (fdm,
+    ``none``) split into kernel groups, its hand-written kernels' launches
+    in the trace equal to the graphs' count; one eager forward over
+    ``MIXTRAL_LONG`` tokens (the band live): finite logits, one flash
+    launch a layer.  Frees the weights and graphs.  Returns the launches
+    by path."""
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder, clear_decode_cache, decode_cache_scope
+    from repro_torch.models import forward
+    cfg, params = make_model(torch, "mixtral-8x22b", MIXTRAL_LAYERS)
+    counts = {}
+    for policy in POLICIES:
+        with decode_cache_scope() as scope:
+            counts[cfg.name + ("" if policy == "none" else f"-{policy}")] = \
+                serving_phase(torch, cfg, params, mods, scope, policy)
+    del scope
+    forward_phase(torch, cfg, params)
+    expert, other = gemm_names(torch, cfg, params)
+    names = expert - other
+    log(f"{cfg.name}: the expert products' kernels {sorted(expert)}, the "
+        f"other products' {sorted(other)}")
+    groups = {"expert GEMMs (cuBLAS, batched over the experts)":
+              tuple(names),
+              "GEMMs whose kernel runs expert and other products":
+              tuple(expert & other), **MOE_PROFILE_GROUPS}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    prompt = torch.randint(0, cfg.vocab_size - 1, (MAX_BATCH, CANVAS - GEN),
+                           generator=gen, device="cuda")
+    dcfg = DecodeConfig(gen_length=GEN, block_size=BLOCK, steps=GEN,
+                        strategy="fdm", k=K)
+    with decode_cache_scope() as scope:
+        dec = Decoder(params, cfg, dcfg)
+        dec.generate(None, prompt)                    # captures
+        (run,) = scope.values()
+        by_name = graph_profile(
+            torch, f"{cfg.name} graph-driven request none B={MAX_BATCH} fdm "
+            f"gen {GEN}", lambda: dec.generate(None, prompt), run, mods,
+            groups)
+        steps = run.graphs.replays()
+    del scope, dec
+    n_expert = sum(n for name, (n, _) in by_name.items() if name in expert)
+    n_flash = sum(n for name, (n, _) in by_name.items() if "flash_" in name)
+    log(f"{cfg.name} graph-driven request: {n_expert} kernels of the "
+        f"expert products' names in {steps} step replays "
+        f"({n_expert / max(steps, 1):.1f} a step) against 3 products for "
+        f"each of the trace's {n_flash} flash launches (one a layer and "
+        f"forward call): {3 * n_flash}; names shared with other products: "
+        f"{sorted(expert & other)}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    tokens = torch.randint(0, cfg.vocab_size - 1, (1, MIXTRAL_LONG),
+                           generator=gen, device="cuda")
+    fa_mod = mods["flash_attention"]
+    before = fa_mod.launches
+    torch.cuda.reset_peak_memory_stats()
+    logits = forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    flash = fa_mod.launches - before
+    finite = bool(torch.isfinite(logits).all())
+    log(f"{cfg.name} eager forward B=1 L={MIXTRAL_LONG} (window "
+        f"{cfg.sliding_window}: the band live): logits "
+        f"{tuple(logits.shape)} finite={finite}, flash launches {flash}; "
+        f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB")
+    if not finite or flash != cfg.num_layers or \
+            tuple(logits.shape) != (1, MIXTRAL_LONG, cfg.vocab_size):
+        raise AssertionError(f"{cfg.name} long forward: finite {finite}, "
+                             f"flash launches {flash}, shape "
+                             f"{tuple(logits.shape)}")
+    del logits
+    card_vs_host(torch, {f"{cfg.name} B=1 L={MIXTRAL_LONG}":
+                         lambda: forward(params, tokens, cfg)})
+    clear_decode_cache()
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 HTTP_MAX_BATCH = 8
 HTTP_CLIENTS = 8
 HTTP_STRATEGIES = ("fdm", "fdm_a", "probability")
@@ -2387,6 +2728,15 @@ def main() -> None:
             f"the device alone {r['bound_ms'] / r['device_ms']:.3f}")
         if (rows, vocab, dtype) == CONF_SHAPES[0]:
             conf_entry = r
+    for rows, vocab, dtype in MOE_CONF_SHAPES:
+        r = check_confidence(conf_mod, torch, rows, vocab, dtype)
+        conf_errs.append(r["max_abs_err"])
+        log(f"confidence (mixtral) rows={rows} V={vocab} {dtype}: "
+            f"max_abs_err {r['max_abs_err']} kernel {r['ms']:.4f} ms, on "
+            f"the device alone {r['device_ms']:.4f} ms; plain "
+            f"{r['plain_ms']:.4f} ms library none bound {r['bound_ms']:.4f} "
+            f"ms (bytes); share of the bound on the device alone "
+            f"{r['bound_ms'] / r['device_ms']:.3f}")
     conf_entry["max_abs_err"] = max(conf_errs)
     attn_errs = []
     attn_runs = [(shape, "bfloat16") for shape in ATTN_SHAPES] + \
@@ -2409,6 +2759,18 @@ def main() -> None:
         attn_errs.append(r["max_abs_err"])
         log(f"attention (dense GQA family) B={b} Lq={lq} Lk={lk} H={h} "
             f"G={g} d={d} window={w} q_offset={qo} {dt}: max_abs_err "
+            f"{r['max_abs_err']} kernel {r['ms']:.4f} ms plain "
+            f"{r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms; on the "
+            f"device alone kernel {r['device_ms']:.4f} ms sdpa "
+            f"{r['library_device_ms']:.4f} ms (kernel/sdpa "
+            f"{r['device_ms'] / r['library_device_ms']:.3f}); bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of the bound "
+            f"on the device alone {r['bound_ms'] / r['device_ms']:.3f}")
+    for b, lq, lk, h, g, d, w, qo, dt in MOE_ATTN_SHAPES:
+        r = check_attention(fa_mod, torch, b, lq, lk, h, g, d, w, qo, dt)
+        attn_errs.append(r["max_abs_err"])
+        log(f"attention (mixtral) B={b} Lq={lq} Lk={lk} H={h} G={g} d={d} "
+            f"window={w} q_offset={qo} {dt}: max_abs_err "
             f"{r['max_abs_err']} kernel {r['ms']:.4f} ms plain "
             f"{r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms; on the "
             f"device alone kernel {r['device_ms']:.4f} ms sdpa "
@@ -2440,6 +2802,12 @@ def main() -> None:
     for name, over in ARCH_REFERENCE:
         reference_phase(torch, name, POLICIES, over, ARCH_CASES)
     log(f"reference phase (dense GQA family): "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, over in MOE_REFERENCE:
+        reference_phase(torch, name, POLICIES, over, ARCH_CASES)
+    moe_dispatch_phase(torch)
+    log(f"reference and dispatch phase (mixtral): "
         f"{time.perf_counter() - t0:.1f} s")
 
     # 5. the main paths, one model at a time (each frees its weights and
@@ -2493,6 +2861,10 @@ def main() -> None:
         del params
         torch.cuda.empty_cache()
         log(f"serving phase {name}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mixtral = mixtral_phase(torch, {"confidence": conf_mod,
+                                    "flash_attention": fa_mod})
+    log(f"serving phase mixtral-8x22b: {time.perf_counter() - t0:.1f} s")
 
     # 7.-10. training: the flash gradient, one step against the CPU, the
     # testbed trained and decoded, full-width LLaDA-8B's steps
@@ -2536,7 +2908,7 @@ def main() -> None:
         by_path["llada-8b-train"] = training.get(kernel, 0)
         by_path["llada-8b-http"] = http.get(kernel, 0)
         by_path["llada-8b-carry"] = carry.get(kernel, 0)
-        for path, counts in archs.items():
+        for path, counts in {**archs, **mixtral}.items():
             by_path[path] = counts.get(kernel, 0)
         by_path["hymba-1.5b-train"] = hymba_train.get(kernel, 0)
         return {"launches": sum(by_path.values()),

@@ -22,6 +22,7 @@ _MODULES: Dict[str, str] = {
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
 }
 
 

@@ -2,8 +2,12 @@
 
 The reference stacks the layers of each homogeneous group on a leading
 axis (``params["blocks"]`` is a list of groups, every leaf ``(len(group),
-...)``); the port holds one dict per layer.  For the dense and hybrid
-stacks every layer is one group.
+...)``); the port holds one dict per layer.  A group is a maximal run of
+layers with the same parameter tree: for the dense, hybrid and Mixtral
+stacks every layer is one group; a config with ``moe.first_k_dense``
+starts with a dense group.  An MoE layer's ``moe`` group (``router``
+(d, E) and the experts ``w_gate``/``w_up`` (E, d, ff), ``w_down``
+(E, ff, d)) keeps its expert axis: layers are unstacked, experts are not.
 
 * ``from_jax_params(tree)`` — a reference tree whose leaves are numpy
   arrays (``jax.device_get(params)``) -> the port's params.
@@ -114,17 +118,23 @@ def from_npz(path: str, device="cuda",
 
 
 def to_flat(params: dict) -> Dict[str, np.ndarray]:
-    """Port params -> ``{reference path: f32 array}``, layers restacked as
-    one group (the dense and hybrid stacks' layout)."""
+    """Port params -> ``{reference path: f32 array}``, each maximal run of
+    layers with the same leaves restacked as one group (the reference's
+    ``_layer_groups``)."""
     flat: Dict[str, np.ndarray] = {}
     _walk(params["embed"], "embed/", flat)
     _walk(params["norm_f"], "norm_f/", flat)
-    layers = []
+    groups = []
     for layer in params["blocks"]:
-        layers.append({})
-        _walk(layer, "", layers[-1])
-    for key in layers[0]:
-        flat[f"blocks/0/{key}"] = np.stack([d[key] for d in layers])
+        leaves: Dict[str, np.ndarray] = {}
+        _walk(layer, "", leaves)
+        if groups and set(groups[-1][0]) == set(leaves):
+            groups[-1].append(leaves)
+        else:
+            groups.append([leaves])
+    for g, layers in enumerate(groups):
+        for key in layers[0]:
+            flat[f"blocks/{g}/{key}"] = np.stack([d[key] for d in layers])
     return flat
 
 

@@ -1,22 +1,29 @@
 """Block assembly of the port (reference: ``src/repro/models/blocks.py``):
 
 * dense:           norm → attention → norm → SwiGLU;
+* moe:             norm → attention → norm → MoE (``models/moe.py``: top-k
+                   routed experts), in every layer from
+                   ``moe.first_k_dense`` on (the layers before it, and every
+                   layer of a config with no experts, are dense);
 * hybrid (Hymba):  norm → [attention ∥ Mamba], fused mean → norm → SwiGLU;
 
-with residuals.  The dense block also has the fixed-shape block cache's
-two entry points (``block_capture``, ``block_cached``); a hybrid config
-never reaches them, since the decoder refuses its cache policies first.
-The other families (MoE, SSM/xLSTM, encoder-decoder,
-VLM) raise ``NotImplementedError`` until their slice (ROADMAP.md queue 1
+with residuals.  The dense and MoE blocks also have the fixed-shape block
+cache's two entry points (``block_capture``, ``block_cached``); a hybrid
+config never reaches them, since the decoder refuses its cache policies
+first.  MoE blocks run; their aux loss is returned on request
+(``return_aux``) but not trained yet (ROADMAP.md queue 1 item 10).  The
+other families (SSM/xLSTM, encoder-decoder, VLM, MLA and shared experts)
+raise ``NotImplementedError`` until their slice (ROADMAP.md queue 1
 item 9).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import (KVCache, attention_cached,
                                           attention_capture,
@@ -28,13 +35,18 @@ from repro_torch.models.layers import (Params, Rope, apply_mlp, apply_norm,
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a block family not ported yet."""
-    if cfg.arch_type not in ("dense", "hybrid") or cfg.is_moe \
+    if cfg.arch_type not in ("dense", "hybrid", "moe") \
             or cfg.is_encdec or not cfg.d_ff \
-            or (cfg.arch_type == "hybrid" and cfg.ssm is None):
+            or (cfg.arch_type == "hybrid" and cfg.ssm is None) \
+            or cfg.attention == "mla" or cfg.moe.num_shared_experts:
         raise NotImplementedError(
             f"{cfg.name!r} (arch_type={cfg.arch_type!r}): the port runs the "
-            f"dense and hybrid blocks only so far (ROADMAP.md queue 1 "
-            f"item 9)")
+            f"dense and hybrid blocks only so far, and MoE feed-forwards "
+            f"without shared experts or MLA (ROADMAP.md queue 1 item 9)")
+
+
+def _is_moe_layer(cfg: ModelConfig, idx: int) -> bool:
+    return cfg.is_moe and idx >= cfg.moe.first_k_dense
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, idx: int, device,
@@ -51,15 +63,32 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, idx: int, device,
                                    device=device)
         p["mix_ssm"] = torch.ones(cfg.d_model, dtype=torch.float32,
                                   device=device)
-    p["mlp"] = init_mlp(gen, cfg, device, dtype)
+    if _is_moe_layer(cfg, idx):
+        p["moe"] = moe_lib.init_moe(gen, cfg, device, dtype)
+    else:
+        p["mlp"] = init_mlp(gen, cfg, device, dtype)
     return p
 
 
+def _feed_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, idx: int,
+                  capacity_factor: float, need_aux: bool = False
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The residual's second half: norm, then the layer's MoE or SwiGLU;
+    returns (x', aux: the MoE aux loss when ``need_aux``, else None)."""
+    h = apply_norm(p["norm2"], x, cfg)
+    if _is_moe_layer(cfg, idx):
+        out, aux = moe_lib.moe_forward(p["moe"], h, cfg, capacity_factor,
+                                       need_aux)
+        return x + out, aux
+    return x + apply_mlp(p["mlp"], h, cfg), None
+
+
 def block_forward(p: Params, x: torch.Tensor, rope, cfg: ModelConfig,
-                  idx: int) -> torch.Tensor:
-    """x (B, L, d) -> x'.  ``rope``: the forward's ``Rope`` tables, or the
-    (B, L) positions to build them from.  (The reference also returns an
-    MoE aux loss, which is always zero for these blocks.)"""
+                  idx: int, return_aux: bool = False):
+    """x (B, L, d) -> x', or (x', aux) with ``return_aux``: an MoE layer's
+    aux loss (f32 scalar), None for a dense or hybrid layer.  ``rope``:
+    the forward's ``Rope`` tables, or the (B, L) positions to build them
+    from.  An MoE layer dispatches at capacity factor 1.25."""
     if isinstance(rope, torch.Tensor):
         rope = rope_tables(rope, rotary_dim(cfg, cfg.head_dim), cfg,
                            x.dtype)
@@ -71,16 +100,17 @@ def block_forward(p: Params, x: torch.Tensor, rope, cfg: ModelConfig,
                        + ssm_out * p["mix_ssm"].to(x.dtype))
     else:
         x = x + attn_out
-    h = apply_norm(p["norm2"], x, cfg)
-    return x + apply_mlp(p["mlp"], h, cfg)
+    x, aux = _feed_forward(p, x, cfg, idx, 1.25, return_aux)
+    return (x, aux) if return_aux else x
 
 
 # --------------------------------------------------------------------------
-# fixed-shape block cache (cache_policy = prefix | dual; dense blocks)
+# fixed-shape block cache (cache_policy = prefix | dual; dense and MoE
+# blocks, whose MoE dispatches at capacity factor 2.0, as the reference's)
 # --------------------------------------------------------------------------
 
 def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "dense":
+    if cfg.arch_type not in ("dense", "moe"):
         raise ValueError(
             f"{cfg.name!r} (arch_type={cfg.arch_type!r}): the block cache "
             f"needs an attention-only block")
@@ -94,9 +124,8 @@ def block_capture(p: Params, x: torch.Tensor, rope: Rope,
     _check_dense(cfg)
     h = apply_norm(p["norm1"], x, cfg)
     attn_out, kv = attention_capture(p["attn"], h, rope, cfg)
-    x = x + attn_out
-    h = apply_norm(p["norm2"], x, cfg)
-    return x + apply_mlp(p["mlp"], h, cfg), kv
+    x, _ = _feed_forward(p, x + attn_out, cfg, idx, 2.0)
+    return x, kv
 
 
 def block_cached(p: Params, x: torch.Tensor, rope: Rope,
@@ -107,5 +136,4 @@ def block_cached(p: Params, x: torch.Tensor, rope: Rope,
     _check_dense(cfg)
     h = apply_norm(p["norm1"], x, cfg)
     x = x + attention_cached(p["attn"], h, rope, cfg, cache, win_start)
-    h = apply_norm(p["norm2"], x, cfg)
-    return x + apply_mlp(p["mlp"], h, cfg)
+    return _feed_forward(p, x, cfg, idx, 2.0)[0]

@@ -7,6 +7,9 @@ the reference's tree with its stacked layer axis unstacked into a list
 layers are a Python loop; with ``cfg.remat == "block"`` a forward that
 autograd records checkpoints each block.
 
+MoE layers (``models/moe.py``) dispatch at capacity factor 1.25 in
+``forward`` and 2.0 in the cache's two passes, as the reference's do.
+
 The fixed-shape block cache (DESIGN.md "The KV cache"): ``capture_cache``
 runs one full pass over the canvas and keeps every layer's K/V,
 ``forward_cached`` scores a live window against it.
@@ -64,12 +67,16 @@ def forward_rope(cfg: ModelConfig, length: int, offset: int = 0,
                        compute_dtype(cfg))
 
 
-def forward(params: Params, tokens: torch.Tensor,
-            cfg: ModelConfig) -> torch.Tensor:
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            return_aux: bool = False):
     """tokens (B, L) -> logits (B, L, V) float32.  Bidirectional: every
-    position is scored."""
+    position is scored.  ``return_aux=True`` returns (logits, aux): the
+    MoE layers' summed aux loss (f32 scalar; 0 without MoE layers), as
+    the reference's ``forward`` does; a decode never asks for it."""
     x = embed_tokens(params["embed"], tokens, cfg)
     rope = forward_rope(cfg, tokens.shape[1], device=tokens.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device) \
+        if return_aux else None
     for i, p in enumerate(params["blocks"]):
         if cfg.remat == "block" and torch.is_grad_enabled() and \
                 _requires_grad(p):
@@ -77,12 +84,20 @@ def forward(params: Params, tokens: torch.Tensor,
             # input, recompute its insides in the backward (decodes never
             # get here: their params do not require grad); a block draws
             # no random numbers, so no RNG state is stashed
-            x = checkpoint(blocks_lib.block_forward, p, x, rope, cfg, i,
-                           use_reentrant=False, preserve_rng_state=False)
+            out = checkpoint(blocks_lib.block_forward, p, x, rope, cfg, i,
+                             return_aux, use_reentrant=False,
+                             preserve_rng_state=False)
         else:
-            x = blocks_lib.block_forward(p, x, rope, cfg, i)
+            out = blocks_lib.block_forward(p, x, rope, cfg, i, return_aux)
+        if return_aux:
+            x, aux = out
+            if aux is not None:
+                aux_total = aux_total + aux
+        else:
+            x = out
     x = apply_norm(params["norm_f"], x, cfg)
-    return lm_head(params["embed"], x, cfg)
+    logits = lm_head(params["embed"], x, cfg)
+    return (logits, aux_total) if return_aux else logits
 
 
 def _requires_grad(tree) -> bool:

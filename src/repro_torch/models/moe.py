@@ -1,0 +1,173 @@
+"""Mixture-of-Experts of the port (reference: ``src/repro/models/moe.py``):
+a top-k router and a capacity-based, sort-and-gather dispatch over
+stacked expert weights.
+
+* Routing: an f32 softmax over the router's logits, the top k with ties
+  to the lower expert id (``jax.lax.top_k``'s rule, here a stable
+  descending sort), the gates divided by their sum.
+* Dispatch: the (token, slot) pairs are sorted stably by expert id, and
+  expert e reads the contiguous run [offset_e, offset_e + C) of that order
+  into its row of the (E, C) slot grid (slots past its count are zeroed).
+  One batched SwiGLU runs over the grid; the combine gathers each pair's
+  output back by its rank in the sort, zeroes the pairs past capacity
+  (dropped, as in Switch/GShard) and sums the k outputs weighted by the
+  gates.
+* Capacity C = ⌊T·k·factor/E⌋ + 1, rounded up to a multiple of 128, is a
+  Python int of the static T = B·L, so the dispatch has fixed shapes and
+  runs inside a captured CUDA graph: no op here reads a device value back
+  (no ``nonzero``, boolean-mask indexing, ``bincount`` or ``.item()``).
+  T counts every row of a batch, so which tokens drop can depend on a
+  request's batchmates, as in the reference.
+
+The expert products are ``torch.bmm`` over the stacked weights (the
+reference's einsums, outside any Pallas kernel): f32 accumulation, the
+result rounded to the compute dtype, ``silu(gate) · up`` in that dtype.
+Only the reference's global dispatch is ported: its grouped (``vmap``)
+dispatch runs only under a mesh of more than one shard.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import Params, dense_init
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def capacity(num_tokens: int, cfg: ModelConfig, factor: float = 1.25) -> int:
+    """Slots per expert for ``num_tokens`` tokens (the reference's rule)."""
+    e, k = cfg.moe.num_experts, cfg.moe.num_experts_per_tok
+    c = int(num_tokens * k * factor / e) + 1
+    return max(_round_up(c, 128), 128)
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, device,
+             dtype) -> Params:
+    """The router (d, E) and the stacked SwiGLU experts (E, d, ff),
+    (E, d, ff), (E, ff, d); no shared experts (``blocks.check_ported``
+    refuses a config with them).  ``dense_init`` takes the fan-in from
+    ``shape[0]``, so the experts are drawn with σ = 1/√E, as the
+    reference's are: kept on purpose, so both packages' random weights
+    share one distribution."""
+    m = cfg.moe
+    d, ff, e = cfg.d_model, m.moe_d_ff, m.num_experts
+    return {"router": dense_init(gen, (d, e), device, dtype, scale=0.02),
+            "w_gate": dense_init(gen, (e, d, ff), device, dtype),
+            "w_up": dense_init(gen, (e, d, ff), device, dtype),
+            "w_down": dense_init(gen, (e, ff, d), device, dtype)}
+
+
+# --------------------------------------------------------------------------
+# routing
+# --------------------------------------------------------------------------
+
+def router_topk(logits: torch.Tensor,
+                k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits (T, E) -> (gates (T, k) f32 normalised, expert ids (T, k)).
+    A stable descending sort keeps tied experts in id order, so the top k
+    break ties toward the lower id, as ``jax.lax.top_k`` does."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    gates, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, ids = gates[..., :k], ids[..., :k]
+    return gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9), ids
+
+
+def load_balance_loss(logits: torch.Tensor, ids: torch.Tensor,
+                      num_experts: int) -> torch.Tensor:
+    """Switch-style aux loss E · Σ_e f_e · P_e, plus 1e-3 × the router
+    z-loss (f32 scalar)."""
+    lf = logits.float()
+    probs = torch.softmax(lf, dim=-1)                            # (T, E)
+    frac_routed = F.one_hot(ids, num_experts).float().mean(dim=(0, 1))
+    frac_prob = probs.mean(dim=0)
+    aux = num_experts * torch.sum(frac_routed * frac_prob)
+    z = torch.mean(torch.square(torch.logsumexp(lf, dim=-1)))
+    return aux + 1e-3 * z
+
+
+class Routing(NamedTuple):
+    """Where each (token, slot) pair goes: pair j = token j // k, slot
+    j % k.  ``slot[j]`` is the pair's position in its expert's run of the
+    sorted order; it is dropped when ``slot[j] >= capacity``."""
+    gates: torch.Tensor       # (T, k) f32
+    ids: torch.Tensor         # (T, k) int64 expert ids
+    order: torch.Tensor       # (T·k,) pairs stably sorted by expert id
+    counts: torch.Tensor      # (E,) pairs routed to each expert
+    offsets: torch.Tensor     # (E,) start of each expert's run in ``order``
+    slot: torch.Tensor        # (T·k,)
+    capacity: int
+
+
+def route(logits: torch.Tensor, cfg: ModelConfig, cap: int) -> Routing:
+    """The top-k routing of router logits (T, E) and the sort that lays
+    the pairs out by expert, for ``cap`` slots per expert."""
+    e, k = cfg.moe.num_experts, cfg.moe.num_experts_per_tok
+    gates, ids = router_topk(logits, k)
+    flat_e = ids.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    rank = torch.argsort(order, stable=True)                     # inverse
+    # one_hot with num_classes checks nothing on a card (no readback)
+    counts = F.one_hot(flat_e, e).sum(0)
+    offsets = torch.cumsum(counts, 0) - counts
+    return Routing(gates, ids, order, counts, offsets,
+                   rank - offsets[flat_e], cap)
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+def _dispatch(p: Params, tokens: torch.Tensor, cfg: ModelConfig,
+              capacity_factor: float, need_aux: bool
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """tokens (T, d) -> (out (T, d), aux f32 scalar or None)."""
+    m = cfg.moe
+    t, d = tokens.shape
+    k, e = m.num_experts_per_tok, m.num_experts
+    dt = tokens.dtype
+    logits = tokens @ p["router"].to(dt)                         # (T, E)
+    r = route(logits, cfg, capacity(t, cfg, capacity_factor))
+    c = r.capacity
+    aux = load_balance_loss(logits, r.ids, e) * m.router_aux_coef \
+        if need_aux else None
+
+    # each expert's slot row reads its contiguous run of the sorted order
+    slots = torch.arange(c, device=tokens.device)
+    slot_idx = (r.offsets[:, None] + slots[None, :]).clamp_(0, t * k - 1)
+    slot_valid = slots[None, :] < r.counts[:, None]              # (E, C)
+    tok = (r.order // k)[slot_idx]                               # (E, C)
+    xs = tokens.index_select(0, tok.reshape(-1)).reshape(e, c, d) \
+        * slot_valid[..., None].to(dt)
+
+    # one batched SwiGLU over the experts
+    h = F.silu(torch.bmm(xs, p["w_gate"].to(dt))) \
+        * torch.bmm(xs, p["w_up"].to(dt))
+    ys = torch.bmm(h, p["w_down"].to(dt))                        # (E, C, d)
+
+    # combine: pair j sits at expert ids[j], position slot[j]
+    flat_out = ys[r.ids.reshape(-1), r.slot.clamp(0, c - 1)] \
+        * (r.slot < c)[:, None].to(dt)                           # (T·k, d)
+    out = (flat_out.reshape(t, k, d) * r.gates[..., None].to(dt)).sum(1)
+    return out, aux
+
+
+def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                capacity_factor: float = 1.25, need_aux: bool = True
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x (B, L, d) -> (out (B, L, d), aux loss f32 scalar); the dispatch is
+    global over all B·L tokens.  ``need_aux=False`` skips the aux loss
+    (a decode never reads it) and returns ``None`` in its place."""
+    b, l, d = x.shape
+    out, aux = _dispatch(p, x.reshape(b * l, d), cfg, capacity_factor,
+                         need_aux)
+    return out.reshape(b, l, d), aux

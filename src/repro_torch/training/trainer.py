@@ -38,6 +38,17 @@ from repro_torch.training.optimizer import (AdamWState, adamw_init,
 Corruption = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for an MoE config: the reference adds
+    the router's aux loss to the objective, which the port does not train
+    yet, and it never trains an MoE model without it."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name!r}: MoE training needs the router's aux loss in the "
+            f"objective, which the port does not train yet (ROADMAP.md "
+            f"queue 1 item 10)")
+
+
 def corrupt(generator: torch.Generator, tokens: torch.Tensor,
             maskable: torch.Tensor, cfg: ModelConfig) -> Corruption:
     """Draw a step's corruption: t per row, then the masked positions."""
@@ -59,6 +70,7 @@ class TrainStep:
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
                  bf16_params: bool = False, microbatch: int = 1):
+        check_trainable(cfg)
         self.cfg, self.tcfg = cfg, tcfg
         self.bf16_params, self.microbatch = bf16_params, microbatch
         self.sched = cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.steps)
@@ -74,7 +86,8 @@ class TrainStep:
         logits = forward(params, corrupted, self.cfg)
         loss, _ = masked_cross_entropy(logits, tokens, masked, t)
         acc = token_accuracy(logits.detach(), tokens, masked)
-        # no MoE aux loss: the port runs no MoE block yet
+        # no MoE aux loss: MoE blocks run, but their aux loss is not
+        # trained yet (check_trainable refuses an MoE config)
         return loss, {"loss": loss.detach(), "acc": acc}
 
     def grads(self, params, batch: Dict[str, torch.Tensor],
@@ -160,6 +173,7 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
     the last).  ``eval_fn(params, step)`` runs every
     ``tcfg.eval_every`` steps.  With ``tcfg.ckpt_dir`` the result is saved
     to ``final.npz`` there, in the reference's layout."""
+    check_trainable(cfg)
     dev = resolve_device(device)
     generator = torch.Generator(device=dev).manual_seed(tcfg.seed)
     if params is None:

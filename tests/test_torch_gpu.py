@@ -989,3 +989,90 @@ def test_scheduler_serves_on_the_card_through_the_worker(cuda):
         for i, req in enumerate(batch.requests):
             assert finals[req.rid]["tokens"] == \
                 want[i, batch.pads[i]:].tolist()
+
+
+# --------------------------------------------------------------------------
+# the MoE block (mixtral-8x22b)
+# --------------------------------------------------------------------------
+
+def _overflow_moe(experts=8, seed=0):
+    """A reduced Mixtral MoE layer (f32) with ``experts`` experts on the
+    CPU and 400 tokens whose first choice is expert 0 (a constant feature
+    times a large router weight): it overflows at factors 1.25 and 2.0."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("mixtral-8x22b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=experts))
+    gen = torch.Generator().manual_seed(seed)
+    p = moe.init_moe(gen, cfg, "cpu", torch.float32)
+    p["router"][0, 0] = 10.0
+    x = torch.randn(2, 200, cfg.d_model, generator=gen)
+    x[..., 0] = 4.0
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("factor", [1.25, 2.0])
+def test_moe_dispatch_on_card_matches_cpu_under_overflow(cuda, factor):
+    """The dispatch on the card against its CPU run, same weights and
+    tokens, with one expert over capacity: expert ids, counts, slots and
+    drops exact; outputs within 1e-5 of their scale (f32 products summed
+    in another order; the σ = 1/√E experts make outputs of order 10²)."""
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p, x = _overflow_moe()
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    t = x.shape[0] * x.shape[1]
+    cap = moe.capacity(t, cfg, factor)
+    want_r = moe.route(x.reshape(t, -1) @ p["router"], cfg, cap)
+    got_r = moe.route(x.reshape(t, -1).to(cuda) @ pc["router"], cfg, cap)
+    for name in ("ids", "counts", "slot"):
+        assert torch.equal(getattr(got_r, name).cpu(),
+                           getattr(want_r, name)), name
+    drops = int((want_r.slot >= cap).sum())
+    assert drops == t - cap > 0
+    want, want_aux = moe.moe_forward(p, x, cfg, factor)
+    got, aux = moe.moe_forward(pc, x.to(cuda), cfg, factor)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.cpu() / scale, want / scale, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-6)
+
+
+def test_moe_forward_in_a_graph_matches_eager(cuda):
+    """The dispatch has fixed shapes and reads nothing back, so it
+    captures: a replay equals the eager call, under overflow."""
+    from repro_torch.models import moe
+    cfg, p, x = _overflow_moe()
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    xc = x.to(cuda)
+    out = torch.zeros_like(xc)
+
+    def body():
+        out.copy_(moe.moe_forward(pc, xc, cfg, 1.25, need_aux=False)[0])
+    replay = _capture(body)
+    out.zero_()
+    replay()
+    want = moe.moe_forward(pc, xc, cfg, 1.25, need_aux=False)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("policy", ["none", "prefix", "dual"])
+def test_mixtral_graph_decode_matches_eager(cuda, policy):
+    """Reduced Mixtral (MoE blocks, window 32 over a 48-token canvas):
+    the whole-request graph driver decodes the eager driver's tokens,
+    steps and forward-equivalents on the card."""
+    import dataclasses
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder
+    cfg, params, prompt = _reduced(cuda, "mixtral-8x22b")
+    dcfg = DecodeConfig(gen_length=32, block_size=8, steps=32,
+                        strategy="fdm", gamma=0.0, cache_policy=policy)
+    want, ws = Decoder(params, cfg, dataclasses.replace(
+        dcfg, fused_loop=False), device=cuda).generate(None, prompt)
+    got, gs = Decoder(params, cfg, dcfg, device=cuda).generate(None, prompt)
+    assert torch.equal(got, want)
+    assert (gs.steps, gs.forward_equivalents) == (ws.steps,
+                                                  ws.forward_equivalents)

@@ -204,7 +204,7 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(arch_type="moe"), "dense and hybrid blocks only"),
+    (dict(arch_type="vlm"), "dense and hybrid blocks only"),
     (dict(arch_type="ssm"), "dense and hybrid blocks only"),
     (dict(rope="mrope"), "only 'standard' and 'half' RoPE"),
     (dict(norm="layernorm"), "RMSNorm only"),
@@ -214,6 +214,26 @@ def test_unported_architectures_raise(over, match):
     with pytest.raises(NotImplementedError, match=match):
         params = init_model(cfg, device="cpu")
         forward(params, torch.zeros(1, 4, dtype=torch.long), cfg)
+
+
+def test_moe_arch_without_experts_builds_dense_blocks():
+    """``arch_type="moe"`` with ``num_experts=0`` builds the dense block,
+    as the reference does (a layer is MoE only when the config has
+    experts): the same weights and logits as the dense config's."""
+    dense = get_config("llada-8b-tiny")
+    cfg = dataclasses.replace(dense, arch_type="moe")
+    assert not cfg.is_moe
+    params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    want = init_model(dense, torch.Generator().manual_seed(0), device="cpu")
+    assert all("mlp" in p and "moe" not in p for p in params["blocks"])
+    got_flat, want_flat = to_flat(params), to_flat(want)
+    assert sorted(got_flat) == sorted(want_flat)
+    for key, arr in want_flat.items():
+        np.testing.assert_array_equal(got_flat[key], arr, err_msg=key)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12),
+                           generator=torch.Generator().manual_seed(1))
+    assert torch.equal(forward(params, tokens, cfg),
+                       forward(want, tokens, dense))
 
 
 # --------------------------------------------------------------------------
