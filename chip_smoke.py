@@ -19,17 +19,23 @@ Phases, in order; any failure raises and the script exits non-zero:
              each call to call and on the device alone (with each
              confidence shape's share of its bound); counts the
              tensor-core instructions (HMMA/HGMMA) in the bf16 attention
-             kernels' SASS (one kernel per head dim of
-             ``FLASH_HEAD_DIMS``, every multiple of 16 in [32, 256]) and
-             requires no ptxas spills in them at d=64, 80 and 128, nor in
-             the selective scan's two passes at N=16; also the dense GQA
+             kernels' SASS (one kernel per (dqk, dv) pair of
+             ``FLASH_HEAD_DIM_PAIRS``: dqk = dv at every multiple of 16 in
+             [32, 256], and MLA's (192, 128) and (48, 32)) and requires no
+             ptxas spills in them at d=64, 80 and 128 and at (192, 128),
+             nor in the selective scan's two passes at N=16; also the
+             dense GQA
              family's attention (``ARCH_ATTN_SHAPES``: d=80 in
              bf16 and f32 with a band and a ragged L, Qwen3's 40:8,
              ChatGLM3's 32:2, StableLM-12B's d=160) and confidence at
              Qwen3's V = 151936; and Mixtral-8x22B's (``MOE_ATTN_SHAPES``:
              48:8 at d=128 at the serving batch and over 4160 tokens with
              its band of 4096 live, bf16 and f32; ``MOE_CONF_SHAPES``:
-             256 x 32768, f32 and bf16);
+             256 x 32768, f32 and bf16); and DeepSeek-V2's MLA heads
+             (``MLA_ATTN_SHAPES``: 128 heads with q/k 192 and v 128 wide,
+             at the serving batch, the K-candidate batch, the ``dual``
+             window and one 4096-token row, bf16 and f32;
+             ``DEEPSEEK_CONF_SHAPES``: 256 x 102400, f32 and bf16);
 4. reference — decodes reduced LLaDA and Hymba configs on the card
              (kernels) and on the CPU (plain versions) from the same
              weights, on the card by the eager, the per-block graph and
@@ -55,7 +61,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              scale; a CUDA-graph replay equal to eager), and a full-width
              layer at T = 256 and 512 (no drop; each token's two experts
              computed plainly within 1e-2 of the scale; device ms against
-             the experts' bytes);
+             the experts' bytes); then reduced deepseek-v2-236b (MLA at
+             (48, 32), a dense first layer, shared experts; the block
+             cache keeps MLA's latents) under every policy with
+             ``ARCH_CASES``;
 5. serving — full-width, full-depth LLaDA-8B, then Hymba-1.5B (random
              bf16 weights from a seed; LLaDA's weights and graphs are
              freed first) behind ``ServingEngine`` on the graph drivers
@@ -79,13 +88,18 @@ Phases, in order; any failure raises and the script exits non-zero:
              ``prefix`` and ``dual``, ChatGLM3-6B and StableLM-3B under
              ``none`` (``ARCH_SERVING``); then full-width Mixtral-8x22B
              cut to ``MIXTRAL_LAYERS`` (8) of its 56 layers under the
-             three policies (``mixtral_phase``), its serving batch's
+             three policies (``moe_model_phase``), its serving batch's
              forwards on the card's clock, one profiled graph-driven fdm
              request split into kernel groups (expert GEMMs, other GEMMs,
              sort/gather/index, flash, confidence, elementwise) with its
              hand-written kernels' launches in the trace equal to the
              graphs' count, and one eager forward over 4160 tokens (the
-             band live: finite logits, one flash launch a layer);
+             band live: finite logits, one flash launch a layer); then
+             full-width DeepSeek-V2 cut to ``DEEPSEEK_LAYERS`` (6) of its
+             60 layers (the dense layer 0 and 5 MoE layers of 160 routed
+             experts top-6 and 2 shared; MLA in every layer) likewise
+             (``moe_model_phase`` again), its long forward over 4096
+             tokens;
 6. KV A/B  — (between LLaDA's serving and Hymba's) one B=2 request at the
              reference's ``BENCH_kv_cache.json`` geometry (prompt 128,
              gen 128, block 32, probability) on full-width LLaDA-8B under
@@ -238,9 +252,10 @@ ATTN_SHAPES = ((MAX_BATCH, CANVAS, CANVAS, 32, 32, 128, 0, 0),
                (MAX_BATCH, 64, 2048, 25, 5, 64, 1024, 1024),
                (MAX_BATCH, BLOCK, CANVAS, 32, 32, 128, 32, 64))
 ATTN_F32 = ATTN_SHAPES[-2:]
-# head dims the flash kernels are built for (csrc/flash_attention.cu:
-# FLASH_HEAD_DIMS): one bf16 tensor-core kernel each
-FLASH_HEAD_DIMS = tuple(range(32, 257, 16))
+# (dqk, dv) pairs the flash kernels are built for (csrc/flash_attention.cu:
+# FLASH_HEAD_DIM_PAIRS): one bf16 tensor-core kernel each
+FLASH_HEAD_DIM_PAIRS = tuple((d, d) for d in range(32, 257, 16)) + (
+    (192, 128), (48, 32))
 # the dense GQA family's attention at the serving geometry, (B, Lq, Lk, H,
 # G, d, window, q_offset, dtype): StableLM-3B (d=80) in bf16 and f32,
 # with a band and with a ragged L; Qwen3-14B (40 heads over 8), ChatGLM3-6B
@@ -266,6 +281,21 @@ MOE_ATTN_SHAPES = tuple(
     for dt in ("bfloat16", "float32"))
 MOE_CONF_SHAPES = ((MAX_BATCH * CANVAS, 32768, "float32"),
                    (MAX_BATCH * CANVAS, 32768, "bfloat16"))
+DEEPSEEK_LAYERS, DEEPSEEK_LONG = 6, 4096   # see DEEPSEEK_REFERENCE
+# DeepSeek-V2's MLA heads (128 heads, q/k 192 = 128 + 64 rope wide, v 128;
+# B, Lq, Lk, H, G, dqk, dv, window, q_offset, dtype): the serving batch,
+# the K-candidate batch, the dual window (32 rows against the 128-token
+# canvas at its offset) and one 4096-token row, each in bf16 and f32; its
+# confidence at the serving batch's 256 rows x V = 102400
+MLA_ATTN_SHAPES = tuple(
+    (*shape, dt) for shape in (
+        (MAX_BATCH, CANVAS, CANVAS, 128, 128, 192, 128, 0, 0),
+        (K * MAX_BATCH, CANVAS, CANVAS, 128, 128, 192, 128, 0, 0),
+        (MAX_BATCH, BLOCK, CANVAS, 128, 128, 192, 128, 0, CANVAS - BLOCK),
+        (1, DEEPSEEK_LONG, DEEPSEEK_LONG, 128, 128, 192, 128, 0, 0))
+    for dt in ("bfloat16", "float32"))
+DEEPSEEK_CONF_SHAPES = ((MAX_BATCH * CANVAS, 102400, "float32"),
+                        (MAX_BATCH * CANVAS, 102400, "bfloat16"))
 # selective-scan shapes of the kernel phase, (B, L, di, N, x dtype), Δ/B/C
 # f32: Hymba-1.5B's Mamba branch at the scoring and K-candidate batches, a
 # ragged L and di in f32, and one 2048-token row (Hymba's window is 1024)
@@ -411,13 +441,13 @@ def conf_inputs(torch, rows: int, vocab: int, dtype: str):
 
 
 def attn_inputs(torch, b, lq, lk, h, g, d, window, q_offset=0,
-                dtype="bfloat16"):
+                dtype="bfloat16", dv=None):
     """q, k, v in ``dtype`` (bf16 by default), the band and its q offset
-    for the attention kernel."""
+    for the attention kernel; v is ``dv`` wide (default d)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + lk + g + window)
     q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(
         getattr(torch, dtype)) for shape in ((b, lq, h, d), (b, lk, g, d),
-                                             (b, lk, g, d)))
+                                             (b, lk, g, dv or d)))
     return q, k, v, window, q_offset
 
 
@@ -470,14 +500,15 @@ def check_confidence(conf_mod, torch, rows: int, vocab: int, dtype: str):
 
 
 def check_attention(fa_mod, torch, b, lq, lk, h, g, d, window, q_offset,
-                    dtype="bfloat16"):
+                    dtype="bfloat16", dv=None):
     """Kernel vs plain version (tolerance 2e-2 in bf16, 2e-4 in f32, as
-    the reference's kernel tests).  Returns a dict: max_abs_err, ms,
-    plain_ms, library_ms (SDPA) call to call, device_ms and
-    library_device_ms on the device alone, bound_ms and bound_by."""
+    the reference's kernel tests), q and k ``d`` wide, v ``dv`` (default
+    d).  Returns a dict: max_abs_err, ms, plain_ms, library_ms (SDPA)
+    call to call, device_ms and library_device_ms on the device alone,
+    bound_ms and bound_by."""
     import torch.nn.functional as F
     q, k, v, _, _ = attn_inputs(torch, b, lq, lk, h, g, d, window, q_offset,
-                                dtype)
+                                dtype, dv)
     got = fa_mod.flash_attention(q, k, v, window, q_offset)
     torch.cuda.synchronize()
     ref = fa_mod.attention_ref(q, k, v, window, q_offset)
@@ -501,8 +532,11 @@ def check_attention(fa_mod, torch, b, lq, lk, h, g, d, window, q_offset,
                library_ms=time_ms(sdpa), device_ms=device_ms(kernel),
                library_device_ms=device_ms(sdpa))
     pairs = int(band.sum()) if window else lq * lk
-    ops = 4 * b * h * pairs * d
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    # Q Kᵀ over d and P V over v's width, 2 operations a multiply-add; q,
+    # k and v read once, the output (v's width) written once
+    ops = 2 * b * h * pairs * (d + v.shape[-1])
+    nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * \
+        q.element_size()
     peak = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
     t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / peak
     out.update(bound_ms=1e3 * max(t_bytes, t_ops),
@@ -597,6 +631,12 @@ ARCH_SERVING = (("qwen3-14b", POLICIES), ("chatglm3-6b", ("none",)),
 # width
 MOE_REFERENCE = (("mixtral-8x22b", {}), ("mixtral-8x22b",
                                          dict(num_kv_heads=2)))
+# DeepSeek-V2 (MLA, a dense first layer, shared experts): reduced in the
+# reference phase under every policy with ARCH_CASES; served at full width
+# cut to DEEPSEEK_LAYERS of its 60 layers (layer 0 dense, then MoE layers
+# of ~3.97 B parameters: 6 layers are ~42.5 GB of bf16, all 60 ~471 GB);
+# then one eager forward over DEEPSEEK_LONG tokens
+DEEPSEEK_REFERENCE = (("deepseek-v2-236b", {}),)
 
 
 def _stats_key(st) -> tuple:
@@ -630,8 +670,8 @@ def reference_phase(torch, name: str, policies, over=None,
     per-block graph and the whole-request graph driver; all four decodes
     must give identical tokens, steps, forward-equivalents, phase counts,
     revocations, skipped forwards and trace (its commit confidences within
-    1e-5).  A q/k norm's scales are drawn from the seed in [0.5, 1.5], so
-    that a scale the card dropped would show."""
+    1e-5).  A q/k norm's scales (and MLA's latent norms') are drawn from
+    the seed in [0.5, 1.5], so that a scale the card dropped would show."""
     import dataclasses
     from repro_torch.configs import DecodeConfig, get_config
     from repro_torch.core import Decoder
@@ -639,8 +679,10 @@ def reference_phase(torch, name: str, policies, over=None,
     cfg = get_config(name).reduced(**(over or {}))
     gen = torch.Generator().manual_seed(SEED)
     cpu_params = init_model(cfg, gen, device="cpu")
-    for layer in cpu_params["blocks"] if cfg.qk_norm else ():
-        for key in ("q_scale", "k_scale"):
+    norms = ("q_norm", "kv_norm") if cfg.attention == "mla" else \
+        ("q_scale", "k_scale") if cfg.qk_norm else ()
+    for layer in cpu_params["blocks"]:
+        for key in norms:
             layer["attn"][key].uniform_(0.5, 1.5, generator=gen)
     gpu_params = _to(cpu_params)
     label = name + "".join(f" {k}={v}" for k, v in (over or {}).items())
@@ -1459,7 +1501,8 @@ MOE_FULL_TOKENS = (MAX_BATCH * CANVAS, K * MAX_BATCH * CANVAS)
 MOE_PROFILE_GROUPS = {
     "flash attention (hand-written)": ("flash_",),
     "confidence (hand-written)": ("confidence_kernel",),
-    "other GEMMs (cuBLAS: attention projections, router, head)":
+    "other GEMMs (cuBLAS: attention projections, router, shared experts, "
+    "dense SwiGLU, head)":
         ("gemm", "xmma", "nvjet", "cutlass", "splitKreduce"),
     "sort, gather, scatter, index, scan (the dispatch, the combine, the "
     "strategy's)": ("sort", "Sort", "radix", "Radix", "index", "Index",
@@ -1606,18 +1649,24 @@ def traced_kernel_names(torch, fn) -> set:
 
 def gemm_names(torch, cfg, params) -> tuple:
     """(expert, other): the names of the kernels cuBLAS runs for an MoE
-    forward's expert products (``torch.bmm`` at 128 and 256 slots, the
-    capacities of the serving batches' T = 256 and 512) and for its other
-    products at those T (the q/k/v/o projections, the router, the
-    f32-output head), each traced alone."""
-    layer, head = params["blocks"][0], params["embed"]["head"]
+    forward's expert products (``torch.bmm`` at the slots of the serving
+    batches' T = 256 and 512: 128 and 256 for Mixtral, 128 for both for
+    DeepSeek-V2) and for its other products at those T (every matrix of
+    the first MoE layer's attention, its router and shared experts, a
+    dense layer's SwiGLU, the f32-output head), each traced alone."""
+    from repro_torch.models import moe
+    layer = next(p for p in params["blocks"] if "moe" in p)
+    head = params["embed"]["head"]
     dt = head.dtype
     e, d, ff = cfg.moe.num_experts, cfg.d_model, cfg.moe.moe_d_ff
-    xs = {c: torch.zeros(e, c, d, dtype=dt, device="cuda") for c in (128, 256)}
-    hs = {c: torch.zeros(e, c, ff, dtype=dt, device="cuda")
-          for c in (128, 256)}
-    xt = {t: torch.zeros(t, d, dtype=dt, device="cuda")
-          for t in MOE_FULL_TOKENS}
+    caps = sorted({moe.capacity(t, cfg) for t in MOE_FULL_TOKENS})
+    xs = {c: torch.zeros(e, c, d, dtype=dt, device="cuda") for c in caps}
+    hs = {c: torch.zeros(e, c, ff, dtype=dt, device="cuda") for c in caps}
+    mats = [w for sub in (layer["attn"], layer["moe"],
+                          layer["moe"].get("shared", {}),
+                          params["blocks"][0].get("mlp", {}))
+            for w in sub.values()
+            if isinstance(w, torch.Tensor) and w.ndim == 2]
 
     def experts():
         for c in xs:
@@ -1625,30 +1674,32 @@ def gemm_names(torch, cfg, params) -> tuple:
             torch.bmm(hs[c], layer["moe"]["w_down"])
 
     def others():
-        for x in xt.values():
-            for w in (layer["attn"]["wq"], layer["attn"]["wk"],
-                      layer["moe"]["router"]):
-                x @ w
-            torch.mm(x, head, out_dtype=torch.float32)
+        for t in MOE_FULL_TOKENS:
+            for w in mats:
+                torch.zeros(t, w.shape[0], dtype=dt, device="cuda") @ w
+            torch.mm(torch.zeros(t, d, dtype=dt, device="cuda"), head,
+                     out_dtype=torch.float32)
     return (traced_kernel_names(torch, experts),
             traced_kernel_names(torch, others))
 
 
-def mixtral_phase(torch, mods: dict) -> dict:
-    """Full-width Mixtral-8x22B cut to ``MIXTRAL_LAYERS`` of its 56 layers
-    (random bf16 weights from the seed) served like the others
-    (``serving_phase``) under ``none``, ``prefix`` and ``dual`` on the
-    graph drivers, each policy a path of its own; the serving batch's
-    forwards on the card's clock; one profiled graph-driven request (fdm,
-    ``none``) split into kernel groups, its hand-written kernels' launches
-    in the trace equal to the graphs' count; one eager forward over
-    ``MIXTRAL_LONG`` tokens (the band live): finite logits, one flash
-    launch a layer.  Frees the weights and graphs.  Returns the launches
-    by path."""
+def moe_model_phase(torch, mods: dict, name: str, layers: int,
+                    long: int) -> dict:
+    """Full-width ``name`` cut to ``layers`` layers (random bf16 weights
+    from the seed: Mixtral-8x22B at ``MIXTRAL_LAYERS`` with
+    ``MIXTRAL_LONG``, DeepSeek-V2 at ``DEEPSEEK_LAYERS`` with
+    ``DEEPSEEK_LONG``) served like the others (``serving_phase``) under
+    ``none``, ``prefix`` and ``dual`` on the graph drivers, each policy a
+    path of its own; the serving batch's forwards on the card's clock; one
+    profiled graph-driven request (fdm, ``none``) split into kernel
+    groups, its hand-written kernels' launches in the trace equal to the
+    graphs' count; one eager forward over ``long`` tokens: finite logits,
+    one flash launch a layer, its peak memory.  Frees the weights and
+    graphs.  Returns the launches by path."""
     from repro_torch.configs import DecodeConfig
     from repro_torch.core import Decoder, clear_decode_cache, decode_cache_scope
     from repro_torch.models import forward
-    cfg, params = make_model(torch, "mixtral-8x22b", MIXTRAL_LAYERS)
+    cfg, params = make_model(torch, name, layers)
     counts = {}
     for policy in POLICIES:
         with decode_cache_scope() as scope:
@@ -1679,16 +1730,18 @@ def mixtral_phase(torch, mods: dict) -> dict:
             groups)
         steps = run.graphs.replays()
     del scope, dec
-    n_expert = sum(n for name, (n, _) in by_name.items() if name in expert)
-    n_flash = sum(n for name, (n, _) in by_name.items() if "flash_" in name)
+    n_expert = sum(n for k, (n, _) in by_name.items() if k in expert)
+    n_flash = sum(n for k, (n, _) in by_name.items() if "flash_" in k)
+    n_moe = sum("moe" in p for p in params["blocks"])
     log(f"{cfg.name} graph-driven request: {n_expert} kernels of the "
         f"expert products' names in {steps} step replays "
         f"({n_expert / max(steps, 1):.1f} a step) against 3 products for "
-        f"each of the trace's {n_flash} flash launches (one a layer and "
-        f"forward call): {3 * n_flash}; names shared with other products: "
-        f"{sorted(expert & other)}")
+        f"each MoE layer's share ({n_moe} of {cfg.num_layers}) of the "
+        f"trace's {n_flash} flash launches (one a layer and forward "
+        f"call): {3 * n_flash * n_moe // cfg.num_layers}; names shared "
+        f"with other products: {sorted(expert & other)}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    tokens = torch.randint(0, cfg.vocab_size - 1, (1, MIXTRAL_LONG),
+    tokens = torch.randint(0, cfg.vocab_size - 1, (1, long),
                            generator=gen, device="cuda")
     fa_mod = mods["flash_attention"]
     before = fa_mod.launches
@@ -1697,18 +1750,19 @@ def mixtral_phase(torch, mods: dict) -> dict:
     torch.cuda.synchronize()
     flash = fa_mod.launches - before
     finite = bool(torch.isfinite(logits).all())
-    log(f"{cfg.name} eager forward B=1 L={MIXTRAL_LONG} (window "
-        f"{cfg.sliding_window}: the band live): logits "
+    band = ": the band live" if 0 < cfg.sliding_window < long else ""
+    log(f"{cfg.name} eager forward B=1 L={long} (window "
+        f"{cfg.sliding_window}{band}): logits "
         f"{tuple(logits.shape)} finite={finite}, flash launches {flash}; "
         f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB")
     if not finite or flash != cfg.num_layers or \
-            tuple(logits.shape) != (1, MIXTRAL_LONG, cfg.vocab_size):
+            tuple(logits.shape) != (1, long, cfg.vocab_size):
         raise AssertionError(f"{cfg.name} long forward: finite {finite}, "
                              f"flash launches {flash}, shape "
                              f"{tuple(logits.shape)}")
     del logits
-    card_vs_host(torch, {f"{cfg.name} B=1 L={MIXTRAL_LONG}":
+    card_vs_host(torch, {f"{cfg.name} B=1 L={long}":
                          lambda: forward(params, tokens, cfg)})
     clear_decode_cache()
     del params
@@ -2685,10 +2739,11 @@ def main() -> None:
     libs = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.last_build['seconds']:.2f} s)")
-    # no spills allowed in the bf16 attention kernels at d=64, 80 and 128,
+    # no spills allowed in the bf16 attention kernels at d=64, 80 and 128
+    # and at MLA's (192, 128),
     # in both scan passes at NP=16 (Hymba's N) and in both confidence
     # kernels (at most 64 registers: four CTAs per SM)
-    no_spill = (r"tc::flash_tc_kernel<(64|80|128)>"
+    no_spill = (r"tc::flash_tc_kernel<(64,64|80,80|128,128|192,128)>"
                 r"|sscan_chunk_kernel<16,[01]>"
                 r"|confidence_kernel<(float|bf16)>")
     for name, text in _build.last_build["ptxas"].items():
@@ -2710,11 +2765,12 @@ def main() -> None:
     tc_counts = {fn: n for fn, n in mma.items() if "flash_tc_kernel" in fn}
     log(f"sass flash_attention: HMMA/HGMMA per kernel: "
         f"{json.dumps(mma, sort_keys=True)}")
-    want_tc = {f"tc::flash_tc_kernel<{d}>" for d in FLASH_HEAD_DIMS}
+    want_tc = {f"tc::flash_tc_kernel<{dq},{dv}>"
+               for dq, dv in FLASH_HEAD_DIM_PAIRS}
     if set(tc_counts) != want_tc or not all(tc_counts.values()):
         raise AssertionError(f"the bf16 attention kernels are not one per "
-                             f"head dim of {FLASH_HEAD_DIMS}, all on the "
-                             f"tensor cores: {tc_counts}")
+                             f"head dim pair of {FLASH_HEAD_DIM_PAIRS}, all "
+                             f"on the tensor cores: {tc_counts}")
 
     # 3. kernels against their plain versions, main-path shapes
     conf_errs = []
@@ -2732,6 +2788,15 @@ def main() -> None:
         r = check_confidence(conf_mod, torch, rows, vocab, dtype)
         conf_errs.append(r["max_abs_err"])
         log(f"confidence (mixtral) rows={rows} V={vocab} {dtype}: "
+            f"max_abs_err {r['max_abs_err']} kernel {r['ms']:.4f} ms, on "
+            f"the device alone {r['device_ms']:.4f} ms; plain "
+            f"{r['plain_ms']:.4f} ms library none bound {r['bound_ms']:.4f} "
+            f"ms (bytes); share of the bound on the device alone "
+            f"{r['bound_ms'] / r['device_ms']:.3f}")
+    for rows, vocab, dtype in DEEPSEEK_CONF_SHAPES:
+        r = check_confidence(conf_mod, torch, rows, vocab, dtype)
+        conf_errs.append(r["max_abs_err"])
+        log(f"confidence (deepseek) rows={rows} V={vocab} {dtype}: "
             f"max_abs_err {r['max_abs_err']} kernel {r['ms']:.4f} ms, on "
             f"the device alone {r['device_ms']:.4f} ms; plain "
             f"{r['plain_ms']:.4f} ms library none bound {r['bound_ms']:.4f} "
@@ -2778,6 +2843,18 @@ def main() -> None:
             f"{r['device_ms'] / r['library_device_ms']:.3f}); bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of the bound "
             f"on the device alone {r['bound_ms'] / r['device_ms']:.3f}")
+    for b, lq, lk, h, g, d, dv, w, qo, dt in MLA_ATTN_SHAPES:
+        r = check_attention(fa_mod, torch, b, lq, lk, h, g, d, w, qo, dt, dv)
+        attn_errs.append(r["max_abs_err"])
+        log(f"attention (deepseek mla) B={b} Lq={lq} Lk={lk} H={h} G={g} "
+            f"dqk={d} dv={dv} window={w} q_offset={qo} {dt}: max_abs_err "
+            f"{r['max_abs_err']} kernel {r['ms']:.4f} ms plain "
+            f"{r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms; on the "
+            f"device alone kernel {r['device_ms']:.4f} ms sdpa "
+            f"{r['library_device_ms']:.4f} ms (kernel/sdpa "
+            f"{r['device_ms'] / r['library_device_ms']:.3f}); bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of the bound "
+            f"on the device alone {r['bound_ms'] / r['device_ms']:.3f}")
     attn_entry["max_abs_err"] = max(attn_errs)
     scan_errs = []
     for b, l, di, n, xdt in SCAN_SHAPES:
@@ -2809,6 +2886,10 @@ def main() -> None:
     moe_dispatch_phase(torch)
     log(f"reference and dispatch phase (mixtral): "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, over in DEEPSEEK_REFERENCE:
+        reference_phase(torch, name, POLICIES, over, ARCH_CASES)
+    log(f"reference phase (deepseek): {time.perf_counter() - t0:.1f} s")
 
     # 5. the main paths, one model at a time (each frees its weights and
     # its graphs); 6. the KV A/B on LLaDA's weights
@@ -2862,9 +2943,16 @@ def main() -> None:
         torch.cuda.empty_cache()
         log(f"serving phase {name}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    mixtral = mixtral_phase(torch, {"confidence": conf_mod,
-                                    "flash_attention": fa_mod})
+    mixtral = moe_model_phase(torch, {"confidence": conf_mod,
+                                      "flash_attention": fa_mod},
+                              "mixtral-8x22b", MIXTRAL_LAYERS, MIXTRAL_LONG)
     log(f"serving phase mixtral-8x22b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    deepseek = moe_model_phase(torch, {"confidence": conf_mod,
+                                       "flash_attention": fa_mod},
+                               "deepseek-v2-236b", DEEPSEEK_LAYERS,
+                               DEEPSEEK_LONG)
+    log(f"serving phase deepseek-v2-236b: {time.perf_counter() - t0:.1f} s")
 
     # 7.-10. training: the flash gradient, one step against the CPU, the
     # testbed trained and decoded, full-width LLaDA-8B's steps
@@ -2908,7 +2996,7 @@ def main() -> None:
         by_path["llada-8b-train"] = training.get(kernel, 0)
         by_path["llada-8b-http"] = http.get(kernel, 0)
         by_path["llada-8b-carry"] = carry.get(kernel, 0)
-        for path, counts in {**archs, **mixtral}.items():
+        for path, counts in {**archs, **mixtral, **deepseek}.items():
             by_path[path] = counts.get(kernel, 0)
         by_path["hymba-1.5b-train"] = hymba_train.get(kernel, 0)
         return {"launches": sum(by_path.values()),

@@ -7,7 +7,10 @@ layers with the same parameter tree: for the dense, hybrid and Mixtral
 stacks every layer is one group; a config with ``moe.first_k_dense``
 starts with a dense group.  An MoE layer's ``moe`` group (``router``
 (d, E) and the experts ``w_gate``/``w_up`` (E, d, ff), ``w_down``
-(E, ff, d)) keeps its expert axis: layers are unstacked, experts are not.
+(E, ff, d)) keeps its expert axis: layers are unstacked, experts are not;
+its shared experts (``shared``: ``gate``, ``up``, ``down``) are one SwiGLU.
+MLA's attention tree (``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``,
+``kv_norm``, ``wk_b``, ``wv_b``, ``wo``) goes through leaf for leaf.
 
 * ``from_jax_params(tree)`` — a reference tree whose leaves are numpy
   arrays (``jax.device_get(params)``) -> the port's params.
@@ -28,10 +31,11 @@ import torch
 from repro_torch.device import resolve_device
 
 # the reference's f32 vectors stay f32 under a dtype cast: norm scales, the
-# per-head q/k norm scales (qk_norm), the Mamba head's a_log and dt_bias
-# (used in f32: a bf16 a_log would move every decay) and mix scales
-_KEEP_F32 = ("scale", "q_scale", "k_scale", "a_log", "dt_bias", "mix_attn",
-             "mix_ssm")
+# per-head q/k norm scales (qk_norm), MLA's two latent norm scales, the
+# Mamba head's a_log and dt_bias (used in f32: a bf16 a_log would move
+# every decay) and mix scales
+_KEEP_F32 = ("scale", "q_scale", "k_scale", "q_norm", "kv_norm", "a_log",
+             "dt_bias", "mix_attn", "mix_ssm")
 
 
 def _tensor(a, device, dtype, key: str) -> torch.Tensor:

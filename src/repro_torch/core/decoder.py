@@ -665,5 +665,7 @@ def _tile_state(state: DecodeState, reps: int) -> DecodeState:
     reference's ``jnp.tile``): rows b0, b1, …, b0, b1, …"""
     if reps == 1:
         return state
-    return [kv._replace(k=kv.k.repeat(reps, 1, 1, 1),
-                        v=kv.v.repeat(reps, 1, 1, 1)) for kv in state]
+
+    def tile(t):                 # (B, total, G, hd), or MLA's (B, total, r)
+        return t.repeat(reps, *(1,) * (t.ndim - 1))
+    return [kv._replace(k=tile(kv.k), v=tile(kv.v)) for kv in state]

@@ -9,15 +9,21 @@
 // the whole sequence), key j at j.  A query row with no key inside its band
 // gets 0, as in the Pallas kernel.  Beyond the Pallas kernel it
 // groups GQA heads natively (kv head = h / (H / G)), so the caller does not
-// expand K/V.  Layout is the reference's: q (B, Lq, H, d), k/v (B, Lk, G, d),
-// out (B, Lq, H, d); f32 or bf16; d a multiple of 16 in [32, 256]
-// (FLASH_HEAD_DIMS below: one instantiation of each kernel per d).
+// expand K/V.  Layout is the reference's: q (B, Lq, H, dqk), k (B, Lk, G,
+// dqk), v (B, Lk, G, dv), out (B, Lq, H, dv); f32 or bf16; the scale is the
+// caller's (dqk^-1/2).  Each kernel is instantiated per (dqk, dv) pair of
+// FLASH_HEAD_DIM_PAIRS below: dqk = dv at every multiple of 16 in [32, 256],
+// and MLA's (192, 128) and (48, 32) (DeepSeek-V2 at full and reduced size:
+// q and k carry 128 + 64 "nope" and rope dims, v 128).  S = Q K^T is sized
+// by dqk; the P V accumulator, V's shared tile and the output by dv: V is
+// never padded to dqk.
 //
-// Bound: the work is 4*B*H*Lq*Lk*d operations (fewer under a band) on
-// 2*B*L*(H+G)*d*2 bytes (bf16, Lq = Lk = L), i.e. at most L/2 operations
-// per byte.  Below the card's ridge of ~295 bf16 operations per byte
-// (L < ~590: the serving shapes, L = 128) the bytes bound it; above (the
-// long-context shape, L = 2048 under Hymba's 1024 band) the tensor cores.
+// Bound: the work is 2*B*H*Lq*Lk*(dqk + dv) operations (fewer under a band)
+// on B*(Lq*H*(dqk + dv) + Lk*G*(dqk + dv))*2 bytes (bf16), i.e. at most
+// ~L/2 operations per byte at Lq = Lk = L.  Below the card's ridge of ~295
+// bf16 operations per byte (L < ~590: the serving shapes, L = 128) the
+// bytes bound it; above (the long-context shape, L = 2048 under Hymba's
+// 1024 band; DeepSeek-V2's L = 4096) the tensor cores.
 //
 // bf16, the serving path: FlashAttention-2 on the tensor cores
 // (`flash_tc_kernel`).  One CTA of 4 warps owns 64 query rows, 16 per
@@ -52,36 +58,41 @@
 // and the output stores keep local row indices.
 //
 // A head dim that is a multiple of 16 fits both designs: m16n8k16 takes
-// d/16 k-steps of Q K^T and d/8 (even) 8-column tiles of P V, a row is d/8
-// (even) 16-byte chunks, 64 rows of them an exact number of 128-thread
+// dqk/16 k-steps of Q K^T and dv/8 (even) 8-column tiles of P V, a row is
+// d/8 (even) 16-byte chunks, 64 rows of them an exact number of 128-thread
 // rounds, and the shared pitch d + 8 is an odd count of 16-byte units, so
 // an ldmatrix phase stays conflict-free (d = 80: 5 k-steps, 10 n-tiles,
-// 10 chunks a row, pitch 88).
+// 10 chunks a row, pitch 88).  Q and K share the pitch dqk + 8, V has its
+// own, dv + 8 (MLA: 200 and 136; Q re-read from shared memory per k-step,
+// as at any dqk > 128).
 //
 // f32, the reference phase's path: the first kernel, plain f32 FMA from
-// shared memory (`flash_kernel<float, D>`), unchanged for d a multiple of
-// 32; other multiples of 16 mask the lanes of the last column round.  The
-// card's f32 decodes of the reduced configs must equal the CPU's token for
-// token; random weights put every max-probability near 1/V, so scores
-// moved by TF32's or bf16's ~1e-3 (the tensor cores' f32 inputs) flip
-// argmaxes.  Design: one CTA of 8 warps per (b*h, 64-query tile); the Q
-// tile and each 64-row K/V tile are staged in shared memory as f32 (K rows
-// padded by 4 words so the per-lane 16-byte reads hit distinct banks);
+// shared memory (`flash_kernel<float, DQ, DV>`), unchanged for dv a
+// multiple of 32; other multiples of 16 mask the lanes of the last column
+// round.  The card's f32 decodes of the reduced configs must equal the
+// CPU's token for token; random weights put every max-probability near
+// 1/V, so scores moved by TF32's or bf16's ~1e-3 (the tensor cores' f32
+// inputs) flip argmaxes.  Design: one CTA of 8 warps per (b*h, 64-query
+// tile); the Q tile and each 64-row K/V tile are staged in shared memory
+// as f32 (K rows padded by 4 words so the per-lane 16-byte reads hit
+// distinct banks);
 // each warp owns 8 query rows, each lane 2 keys of the tile for Q K^T and
-// the output columns lane + 32 t, t < ceil(d/32), for P V (at d = 80 lanes
-// 16..31 idle in the third round: their columns are never stored); P goes
-// through a per-warp shared buffer.
+// the output columns lane + 32 t, t < ceil(dv/32), for P V (at dv = 80
+// lanes 16..31 idle in the third round: their columns are never stored); P
+// goes through a per-warp shared buffer.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <atomic>
 #include <cmath>
 
-// Head dims each kernel is instantiated for: every multiple of 16 in
-// [32, 256].  X(D) expands once per dim (the dispatch's switch cases).
-#define FLASH_HEAD_DIMS(X)                                                  \
-  X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160) X(176) X(192)   \
-  X(208) X(224) X(240) X(256)
+// (dqk, dv) pairs each kernel is instantiated for: dqk = dv at every
+// multiple of 16 in [32, 256], then MLA's two.  X(DQ, DV) expands once per
+// pair (the dispatch's switch cases).
+#define FLASH_HEAD_DIM_PAIRS(X)                                             \
+  X(32, 32) X(48, 48) X(64, 64) X(80, 80) X(96, 96) X(112, 112)             \
+  X(128, 128) X(144, 144) X(160, 160) X(176, 176) X(192, 192) X(208, 208)   \
+  X(224, 224) X(240, 240) X(256, 256) X(192, 128) X(48, 32)
 
 namespace {
 
@@ -136,24 +147,24 @@ __device__ __forceinline__ float elem(float4 a, int i) {
   return i == 0 ? a.x : (i == 1 ? a.y : (i == 2 ? a.z : a.w));
 }
 
-template <int D>
+template <int DQ, int DV>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
-         (kQT * D + kKT * (D + 4) + kKT * D + kWarps * kRPW * kKT);
+         (kQT * DQ + kKT * (DQ + 4) + kKT * DV + kWarps * kRPW * kKT);
 }
 
-template <typename T, int D>
+template <typename T, int DQ, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int Lq, int Lk,
              int H, int G, int window, int q_offset, float scale) {
-  constexpr int DPL = (D + 31) / 32;      // column rounds of P V per lane
-  constexpr int KS = D + 4;
+  constexpr int DPL = (DV + 31) / 32;     // column rounds of P V per lane
+  constexpr int KS = DQ + 4;
   extern __shared__ float4 smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + kQT * D;
+  float* Ks = Qs + kQT * DQ;
   float* Vs = Ks + kKT * KS;
-  float* Ps = Vs + kKT * D;
+  float* Ps = Vs + kKT * DV;
 
   const int q0 = blockIdx.x * kQT;
   const int bh = blockIdx.y;
@@ -161,10 +172,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int g = h / (H / G);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  for (int idx = tid; idx < kQT * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D, i = q0 + r;
+  for (int idx = tid; idx < kQT * DQ; idx += kThreads) {
+    const int r = idx / DQ, c = idx % DQ, i = q0 + r;
     Qs[idx] = i < Lq
-        ? to_f(q[((static_cast<int64_t>(b) * Lq + i) * H + h) * D + c])
+        ? to_f(q[((static_cast<int64_t>(b) * Lq + i) * H + h) * DQ + c])
         : 0.f;
   }
 
@@ -186,26 +197,37 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (dist >= window) continue;          // uniform across the CTA
     }
     __syncthreads();                          // previous tile consumed
-    for (int idx = tid; idx < kKT * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D, j = k0 + r;
-      const int64_t off = ((static_cast<int64_t>(b) * Lk + j) * G + g) * D + c;
-      Ks[r * KS + c] = j < Lk ? to_f(k[off]) : 0.f;
-      Vs[idx] = j < Lk ? to_f(v[off]) : 0.f;
+    // at dqk = dv one loop loads K and V side by side: two loops cost the
+    // equal-dim kernel ~12% of its device time on an H100
+    for (int idx = tid; idx < kKT * DQ; idx += kThreads) {
+      const int r = idx / DQ, c = idx % DQ, j = k0 + r;
+      const int64_t row = (static_cast<int64_t>(b) * Lk + j) * G + g;
+      Ks[r * KS + c] = j < Lk ? to_f(k[row * DQ + c]) : 0.f;
+      if constexpr (DQ == DV)
+        Vs[idx] = j < Lk ? to_f(v[row * DV + c]) : 0.f;
+    }
+    if constexpr (DQ != DV) {
+      for (int idx = tid; idx < kKT * DV; idx += kThreads) {
+        const int r = idx / DV, c = idx % DV, j = k0 + r;
+        const int64_t row = (static_cast<int64_t>(b) * Lk + j) * G + g;
+        Vs[idx] = j < Lk ? to_f(v[row * DV + c]) : 0.f;
+      }
     }
     __syncthreads();
 
     float s[kRPW][2];
 #pragma unroll
     for (int r = 0; r < kRPW; ++r) s[r][0] = s[r][1] = 0.f;
-    const float* q_rows = Qs + warp * kRPW * D;
+    const float* q_rows = Qs + warp * kRPW * DQ;
 #pragma unroll 4
-    for (int c = 0; c < D; c += 4) {
+    for (int c = 0; c < DQ; c += 4) {
       const float4 ka = *reinterpret_cast<const float4*>(Ks + lane * KS + c);
       const float4 kb =
           *reinterpret_cast<const float4*>(Ks + (lane + 32) * KS + c);
 #pragma unroll
       for (int r = 0; r < kRPW; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(q_rows + r * D + c);
+        const float4 qv =
+            *reinterpret_cast<const float4*>(q_rows + r * DQ + c);
         s[r][0] += dot4(qv, ka);
         s[r][1] += dot4(qv, kb);
       }
@@ -242,10 +264,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
         for (int t = 0; t < DPL; ++t) {
-          // past d (d % 32 = 16, last round) a lane reads column 0 and
+          // past dv (dv % 32 = 16, last round) a lane reads column 0 and
           // its sums are never stored
-          const int col = D % 32 == 0 || lane + 32 * t < D ? lane + 32 * t : 0;
-          const float vv = Vs[(j + jj) * D + col];
+          const int col =
+              DV % 32 == 0 || lane + 32 * t < DV ? lane + 32 * t : 0;
+          const float vv = Vs[(j + jj) * DV + col];
 #pragma unroll
           for (int r = 0; r < kRPW; ++r) acc[r][t] += elem(pr[r], jj) * vv;
         }
@@ -260,42 +283,47 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(l, 1e-30f);
     const int i = q0 + warp * kRPW + r;
     if (i < Lq) {
-      T* out = o + ((static_cast<int64_t>(b) * Lq + i) * H + h) * D;
+      T* out = o + ((static_cast<int64_t>(b) * Lq + i) * H + h) * DV;
 #pragma unroll
       for (int t = 0; t < DPL; ++t)
-        if (D % 32 == 0 || lane + 32 * t < D)
+        if (DV % 32 == 0 || lane + 32 * t < DV)
           out[lane + 32 * t] = from_f<T>(acc[r][t] * inv);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQ, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Lq, int Lk, int H, int G, int window,
                    int q_offset, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D>();
+  constexpr size_t bytes = smem_bytes<DQ, DV>();
   static std::atomic<unsigned> smem_set{0};
-  const cudaError_t err = set_smem_once(flash_kernel<T, D>, bytes, smem_set);
+  const cudaError_t err =
+      set_smem_once(flash_kernel<T, DQ, DV>, bytes, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + kQT - 1) / kQT, B * H), block(kThreads);
-  flash_kernel<T, D><<<grid, block, bytes, stream>>>(
+  flash_kernel<T, DQ, DV><<<grid, block, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Lq, Lk, H, G, window,
       q_offset, scale);
   return cudaGetLastError();
 }
 
+// the dispatch's switch key of a (dqk, dv) pair
+constexpr int pair_key(int dqk, int dv) { return dqk * 1024 + dv; }
+
 template <typename T>
-cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
-                     void* o, int B, int Lq, int Lk, int H, int G,
-                     int window, int q_offset, float scale, cudaStream_t s) {
+cudaError_t dispatch(int dqk, int dv, const void* q, const void* k,
+                     const void* v, void* o, int B, int Lq, int Lk, int H,
+                     int G, int window, int q_offset, float scale,
+                     cudaStream_t s) {
   auto go = [&](auto launcher) {
     return launcher(q, k, v, o, B, Lq, Lk, H, G, window, q_offset, scale, s);
   };
-  switch (d) {
-#define FLASH_CASE(D) \
-    case D: return go(launch<T, D>);
-    FLASH_HEAD_DIMS(FLASH_CASE)
+  switch (pair_key(dqk, dv)) {
+#define FLASH_CASE(DQ, DV) \
+    case pair_key(DQ, DV): return go(launch<T, DQ, DV>);
+    FLASH_HEAD_DIM_PAIRS(FLASH_CASE)
 #undef FLASH_CASE
     default: return cudaErrorInvalidValue;
   }
@@ -321,9 +349,10 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;                // bf16 of padding per shared row
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int DQ, int DV>
 constexpr size_t smem_bytes() {         // Q, then 2 K and 2 V buffers
-  return sizeof(bf16) * static_cast<size_t>(kRows + 4 * kKeys) * (D + kPad);
+  return sizeof(bf16) * (static_cast<size_t>(kRows + 2 * kKeys) * (DQ + kPad)
+                         + static_cast<size_t>(2 * kKeys) * (DV + kPad));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -394,17 +423,18 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-template <int D>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, int Lq,
                 int Lk, int H, int G, int window, int q_offset,
                 float scale_log2) {
-  constexpr int P = D + kPad;            // shared row pitch, elements
-  constexpr int KD = D / 16;             // k-steps of Q K^T
-  constexpr int ND = D / 8;              // 8-column tiles of O
+  constexpr int P = DQ + kPad;           // Q's and K's shared pitch, elements
+  constexpr int PV = DV + kPad;          // V's
+  constexpr int KD = DQ / 16;            // k-steps of Q K^T
+  constexpr int ND = DV / 8;             // 8-column tiles of O
   constexpr int NS = kKeys / 8;          // 8-column tiles of S
-  constexpr bool kQInRegs = D <= 128;
+  constexpr bool kQInRegs = DQ <= 128;
   extern __shared__ uint4 tc_smem[];
   bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
   bf16* Ks = Qs + kRows * P;
@@ -414,11 +444,12 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int g = h / (H / G);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int64_t q_stride = static_cast<int64_t>(H) * D;
-  const int64_t kv_stride = static_cast<int64_t>(G) * D;
-  const bf16* qb = q + (static_cast<int64_t>(b) * Lq * H + h) * D;
-  const bf16* kb = k + (static_cast<int64_t>(b) * Lk * G + g) * D;
-  const bf16* vb = v + (static_cast<int64_t>(b) * Lk * G + g) * D;
+  const int64_t q_stride = static_cast<int64_t>(H) * DQ;
+  const int64_t k_stride = static_cast<int64_t>(G) * DQ;
+  const int64_t v_stride = static_cast<int64_t>(G) * DV;
+  const bf16* qb = q + (static_cast<int64_t>(b) * Lq * H + h) * DQ;
+  const bf16* kb = k + (static_cast<int64_t>(b) * Lk * G + g) * DQ;
+  const bf16* vb = v + (static_cast<int64_t>(b) * Lk * G + g) * DV;
 
   // Live key tiles [lo, hi): a tile works iff the closest approach of the
   // two tiles is inside the band (an interval, since the distance is
@@ -435,10 +466,10 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     while (hi > lo && dist(hi - 1) >= window) --hi;
   }
 
-  load_tile<D>(Qs, qb, q_stride, q0, Lq, tid);
+  load_tile<DQ>(Qs, qb, q_stride, q0, Lq, tid);
   if (lo < hi) {
-    load_tile<D>(Ks, kb, kv_stride, lo * kKeys, Lk, tid);
-    load_tile<D>(Vs, vb, kv_stride, lo * kKeys, Lk, tid);
+    load_tile<DQ>(Ks, kb, k_stride, lo * kKeys, Lk, tid);
+    load_tile<DV>(Vs, vb, v_stride, lo * kKeys, Lk, tid);
   }
   cp_async_commit();
 
@@ -449,7 +480,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t q_addr =
       smem_addr(Qs + (warp * 16 + lane % 16) * P + (lane / 16) * 8);
   const int k_off = ((lane / 16) * 8 + lane % 8) * P + ((lane / 8) % 2) * 8;
-  const int v_off = (((lane / 8) % 2) * 8 + lane % 8) * P + (lane / 16) * 8;
+  const int v_off = (((lane / 8) % 2) * 8 + lane % 8) * PV + (lane / 16) * 8;
   const int i0 = q0 + warp * 16 + lane / 4;     // this lane's rows i0, i0+8
 
   float acc[ND][4];
@@ -463,10 +494,10 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = lo; t < hi; ++t) {
     const int buf = (t - lo) & 1;
     if (t + 1 < hi) {                         // next tile into the other buffer
-      load_tile<D>(Ks + (buf ^ 1) * kKeys * P, kb, kv_stride,
-                   (t + 1) * kKeys, Lk, tid);
-      load_tile<D>(Vs + (buf ^ 1) * kKeys * P, vb, kv_stride,
-                   (t + 1) * kKeys, Lk, tid);
+      load_tile<DQ>(Ks + (buf ^ 1) * kKeys * P, kb, k_stride,
+                    (t + 1) * kKeys, Lk, tid);
+      load_tile<DV>(Vs + (buf ^ 1) * kKeys * PV, vb, v_stride,
+                    (t + 1) * kKeys, Lk, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -560,13 +591,13 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // O += P V
-    const uint32_t v_tile = smem_addr(Vs + buf * kKeys * P + v_off);
+    const uint32_t v_tile = smem_addr(Vs + buf * kKeys * PV + v_off);
 #pragma unroll
     for (int kc = 0; kc < kKeys / 16; ++kc) {
 #pragma unroll
       for (int n = 0; n < ND; n += 2) {
         uint32_t vf[4];
-        ldsm_x4_trans(v_tile + (kc * 16 * P + n * 8) * 2, vf);
+        ldsm_x4_trans(v_tile + (kc * 16 * PV + n * 8) * 2, vf);
         mma_bf16(acc[n], pa[kc], vf[0], vf[1]);
         mma_bf16(acc[n + 1], pa[kc], vf[2], vf[3]);
       }
@@ -582,7 +613,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     const int i = i0 + r * 8;
     if (i < Lq) {
-      bf16* out = o + ((static_cast<int64_t>(b) * Lq + i) * H + h) * D +
+      bf16* out = o + ((static_cast<int64_t>(b) * Lq + i) * H + h) * DV +
                   (lane % 4) * 2;
 #pragma unroll
       for (int n = 0; n < ND; ++n)
@@ -592,25 +623,27 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int DQ, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Lq, int Lk, int H, int G, int window,
                    int q_offset, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D>();
+  constexpr size_t bytes = smem_bytes<DQ, DV>();
   static std::atomic<unsigned> smem_set{0};
-  const cudaError_t err = set_smem_once(flash_tc_kernel<D>, bytes, smem_set);
+  const cudaError_t err =
+      set_smem_once(flash_tc_kernel<DQ, DV>, bytes, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + kRows - 1) / kRows, B * H), block(kThreads);
-  flash_tc_kernel<D><<<grid, block, bytes, stream>>>(
+  flash_tc_kernel<DQ, DV><<<grid, block, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), Lq, Lk, H, G,
       window, q_offset, scale * kLog2e);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
-                     void* o, int B, int Lq, int Lk, int H, int G, int window,
-                     int q_offset, float scale, cudaStream_t s) {
+cudaError_t dispatch(int dqk, int dv, const void* q, const void* k,
+                     const void* v, void* o, int B, int Lq, int Lk, int H,
+                     int G, int window, int q_offset, float scale,
+                     cudaStream_t s) {
   // cp.async moves 16-byte chunks: every base address must be aligned
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
@@ -618,10 +651,10 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
   auto go = [&](auto launcher) {
     return launcher(q, k, v, o, B, Lq, Lk, H, G, window, q_offset, scale, s);
   };
-  switch (d) {
-#define FLASH_CASE(D) \
-    case D: return go(launch<D>);
-    FLASH_HEAD_DIMS(FLASH_CASE)
+  switch (pair_key(dqk, dv)) {
+#define FLASH_CASE(DQ, DV) \
+    case pair_key(DQ, DV): return go(launch<DQ, DV>);
+    FLASH_HEAD_DIM_PAIRS(FLASH_CASE)
 #undef FLASH_CASE
     default: return cudaErrorInvalidValue;
   }
@@ -632,26 +665,27 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core
-// kernel; q, k, v and o 16-byte aligned).  q_offset >= 0 is the position of
-// query row 0 for the band.  Returns cudaGetLastError() after
-// the launch (0 = launched).
+// kernel; q, k, v and o 16-byte aligned).  dqk is q's and k's head dim, dv
+// v's and the output's; a pair outside FLASH_HEAD_DIM_PAIRS is refused.
+// q_offset >= 0 is the position of query row 0 for the band.  Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int Lq,
-                                     int Lk, int H, int G, int d, int window,
-                                     int q_offset, float scale, int dtype,
-                                     void* stream) {
+                                     int Lk, int H, int G, int dqk, int dv,
+                                     int window, int q_offset, float scale,
+                                     int dtype, void* stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0 || H <= 0 || G <= 0 || H % G != 0 ||
-      d % 16 != 0 || d < 32 || d > 256 || window < 0 || q_offset < 0) {
+      window < 0 || q_offset < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch<float>(d, q, k, v, o, B, Lq, Lk, H, G, window, q_offset,
-                          scale, s);
+    err = dispatch<float>(dqk, dv, q, k, v, o, B, Lq, Lk, H, G, window,
+                          q_offset, scale, s);
   } else if (dtype == 1) {
-    err = tc::dispatch(d, q, k, v, o, B, Lq, Lk, H, G, window, q_offset,
-                       scale, s);
+    err = tc::dispatch(dqk, dv, q, k, v, o, B, Lq, Lk, H, G, window,
+                       q_offset, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

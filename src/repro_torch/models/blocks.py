@@ -7,14 +7,15 @@
                    layer of a config with no experts, are dense);
 * hybrid (Hymba):  norm → [attention ∥ Mamba], fused mean → norm → SwiGLU;
 
-with residuals.  The dense and MoE blocks also have the fixed-shape block
-cache's two entry points (``block_capture``, ``block_cached``); a hybrid
-config never reaches them, since the decoder refuses its cache policies
-first.  MoE blocks run; their aux loss is returned on request
-(``return_aux``) but not trained yet (ROADMAP.md queue 1 item 10).  The
-other families (SSM/xLSTM, encoder-decoder, VLM, MLA and shared experts)
-raise ``NotImplementedError`` until their slice (ROADMAP.md queue 1
-item 9).
+with residuals.  Attention is GQA/MHA or DeepSeek-V2's MLA
+(``models/attention.py``); an MoE layer may add shared experts.  The dense
+and MoE blocks also have the fixed-shape block cache's two entry points
+(``block_capture``, ``block_cached``); a hybrid config never reaches
+them, since the decoder refuses its cache policies first.  MoE blocks
+run; their aux loss is returned on request (``return_aux``) but not
+trained yet (ROADMAP.md queue 1 item 10).  The other families
+(SSM/xLSTM, encoder-decoder, VLM) raise ``NotImplementedError`` until
+their slice (ROADMAP.md queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -29,20 +30,20 @@ from repro_torch.models.attention import (KVCache, attention_cached,
                                           attention_capture,
                                           attention_forward, init_attention)
 from repro_torch.models.layers import (Params, Rope, apply_mlp, apply_norm,
-                                       init_mlp, init_norm, rope_tables,
-                                       rotary_dim)
+                                       init_mlp, init_norm, model_rotary_dim,
+                                       rope_tables)
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a block family not ported yet."""
     if cfg.arch_type not in ("dense", "hybrid", "moe") \
             or cfg.is_encdec or not cfg.d_ff \
-            or (cfg.arch_type == "hybrid" and cfg.ssm is None) \
-            or cfg.attention == "mla" or cfg.moe.num_shared_experts:
+            or (cfg.arch_type == "hybrid" and cfg.ssm is None):
         raise NotImplementedError(
             f"{cfg.name!r} (arch_type={cfg.arch_type!r}): the port runs the "
-            f"dense and hybrid blocks only so far, and MoE feed-forwards "
-            f"without shared experts or MLA (ROADMAP.md queue 1 item 9)")
+            f"dense and hybrid blocks only so far, MoE feed-forwards (with "
+            f"or without shared experts) and MLA (ROADMAP.md queue 1 "
+            f"item 9)")
 
 
 def _is_moe_layer(cfg: ModelConfig, idx: int) -> bool:
@@ -90,8 +91,7 @@ def block_forward(p: Params, x: torch.Tensor, rope, cfg: ModelConfig,
     the forward's ``Rope`` tables, or the (B, L) positions to build them
     from.  An MoE layer dispatches at capacity factor 1.25."""
     if isinstance(rope, torch.Tensor):
-        rope = rope_tables(rope, rotary_dim(cfg, cfg.head_dim), cfg,
-                           x.dtype)
+        rope = rope_tables(rope, model_rotary_dim(cfg), cfg, x.dtype)
     h = apply_norm(p["norm1"], x, cfg)
     attn_out = attention_forward(p["attn"], h, rope, cfg)
     if cfg.arch_type == "hybrid":

@@ -113,6 +113,15 @@ def rotary_dim(cfg: ModelConfig, head_dim: int) -> int:
     return head_dim // 2 if cfg.rope == "half" else head_dim
 
 
+def model_rotary_dim(cfg: ModelConfig) -> int:
+    """The rotary dim of the model's RoPE tables: ``rotary_dim`` of its
+    heads, which for MLA are the rope part of q and k alone
+    (``mla.qk_rope_head_dim``; the "nope" dims never turn)."""
+    hd = cfg.mla.qk_rope_head_dim if cfg.attention == "mla" \
+        else cfg.head_dim
+    return rotary_dim(cfg, hd)
+
+
 def rope_tables(positions: torch.Tensor, rot_dim: int, cfg: ModelConfig,
                 dtype: torch.dtype) -> Rope:
     """cos/sin of ``positions`` (B, L) over ``rot_dim`` rotary dims
@@ -149,12 +158,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
 # MLP (SwiGLU)
 # --------------------------------------------------------------------------
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig, device,
-             dtype) -> Params:
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, device, dtype,
+             d_ff: Optional[int] = None) -> Params:
+    """A SwiGLU of hidden width ``d_ff`` (default ``cfg.d_ff``)."""
     if cfg.act != "silu":
         raise NotImplementedError(
             f"act={cfg.act!r}: only SwiGLU is ported (ROADMAP.md)")
-    d, ff = cfg.d_model, cfg.d_ff
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     return {"gate": dense_init(gen, (d, ff), device, dtype),
             "up": dense_init(gen, (d, ff), device, dtype),
             "down": dense_init(gen, (ff, d), device, dtype)}

@@ -28,7 +28,7 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (Params, Rope, apply_norm,
                                        compute_dtype, embed_tokens,
                                        init_embed, init_norm, lm_head,
-                                       rope_tables, rotary_dim)
+                                       model_rotary_dim, rope_tables)
 
 
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -60,11 +60,10 @@ def forward_rope(cfg: ModelConfig, length: int, offset: int = 0,
                  device="cuda") -> Rope:
     """The RoPE tables of one forward over ``length`` positions from
     ``offset``, (1, L, 1, rot/2) in the compute dtype (rot: the rotary
-    dim, ``rotary_dim``): built once and shared by every layer (they
-    broadcast over the batch)."""
+    dim, ``model_rotary_dim``: MLA's rope dims alone): built once and
+    shared by every layer (they broadcast over the batch)."""
     return rope_tables(make_positions(cfg, 1, length, offset, device),
-                       rotary_dim(cfg, cfg.head_dim), cfg,
-                       compute_dtype(cfg))
+                       model_rotary_dim(cfg), cfg, compute_dtype(cfg))
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -107,7 +106,7 @@ def _requires_grad(tree) -> bool:
 
 
 # the block cache's state: one KVCache per layer, each covering the whole
-# canvas (B, total, G, hd)
+# canvas: (B, total, G, hd) K and V, or MLA's latents (``KVCache``)
 DecodeState = List[KVCache]
 
 

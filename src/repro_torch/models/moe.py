@@ -22,6 +22,9 @@ stacked expert weights.
 The expert products are ``torch.bmm`` over the stacked weights (the
 reference's einsums, outside any Pallas kernel): f32 accumulation, the
 result rounded to the compute dtype, ``silu(gate) · up`` in that dtype.
+DeepSeek-style shared experts (``moe.num_shared_experts``) are one
+always-on SwiGLU of width ``moe_d_ff × num_shared_experts`` over every
+token, added to the routed output.
 Only the reference's global dispatch is ported: its grouped (``vmap``)
 dispatch runs only under a mesh of more than one shard.
 """
@@ -33,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import Params, dense_init
+from repro_torch.models.layers import (Params, apply_mlp, dense_init,
+                                       init_mlp)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -54,17 +58,21 @@ def capacity(num_tokens: int, cfg: ModelConfig, factor: float = 1.25) -> int:
 def init_moe(gen: torch.Generator, cfg: ModelConfig, device,
              dtype) -> Params:
     """The router (d, E) and the stacked SwiGLU experts (E, d, ff),
-    (E, d, ff), (E, ff, d); no shared experts (``blocks.check_ported``
-    refuses a config with them).  ``dense_init`` takes the fan-in from
-    ``shape[0]``, so the experts are drawn with σ = 1/√E, as the
-    reference's are: kept on purpose, so both packages' random weights
-    share one distribution."""
+    (E, d, ff), (E, ff, d); with shared experts also ``shared``, one
+    SwiGLU of width ff × ``num_shared_experts``.  ``dense_init`` takes the
+    fan-in from ``shape[0]``, so the experts are drawn with σ = 1/√E, as
+    the reference's are: kept on purpose, so both packages' random
+    weights share one distribution."""
     m = cfg.moe
     d, ff, e = cfg.d_model, m.moe_d_ff, m.num_experts
-    return {"router": dense_init(gen, (d, e), device, dtype, scale=0.02),
-            "w_gate": dense_init(gen, (e, d, ff), device, dtype),
-            "w_up": dense_init(gen, (e, d, ff), device, dtype),
-            "w_down": dense_init(gen, (e, ff, d), device, dtype)}
+    p = {"router": dense_init(gen, (d, e), device, dtype, scale=0.02),
+         "w_gate": dense_init(gen, (e, d, ff), device, dtype),
+         "w_up": dense_init(gen, (e, d, ff), device, dtype),
+         "w_down": dense_init(gen, (e, ff, d), device, dtype)}
+    if m.num_shared_experts:
+        p["shared"] = init_mlp(gen, cfg, device, dtype,
+                               d_ff=ff * m.num_shared_experts)
+    return p
 
 
 # --------------------------------------------------------------------------
@@ -165,9 +173,12 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 capacity_factor: float = 1.25, need_aux: bool = True
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x (B, L, d) -> (out (B, L, d), aux loss f32 scalar); the dispatch is
-    global over all B·L tokens.  ``need_aux=False`` skips the aux loss
-    (a decode never reads it) and returns ``None`` in its place."""
+    global over all B·L tokens; the shared experts, if any, see the same
+    input as the router.  ``need_aux=False`` skips the aux loss (a decode
+    never reads it) and returns ``None`` in its place."""
     b, l, d = x.shape
-    out, aux = _dispatch(p, x.reshape(b * l, d), cfg, capacity_factor,
-                         need_aux)
+    tokens = x.reshape(b * l, d)
+    out, aux = _dispatch(p, tokens, cfg, capacity_factor, need_aux)
+    if cfg.moe.num_shared_experts:
+        out = out + apply_mlp(p["shared"], tokens, cfg)
     return out.reshape(b, l, d), aux

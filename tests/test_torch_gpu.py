@@ -1076,3 +1076,90 @@ def test_mixtral_graph_decode_matches_eager(cuda, policy):
     assert torch.equal(got, want)
     assert (gs.steps, gs.forward_equivalents) == (ws.steps,
                                                   ws.forward_equivalents)
+
+
+# MLA's heads, q/k dqk wide and v dv wide (B, Lq, Lk, H, G, dqk, dv, window,
+# q_offset): DeepSeek-V2 at full width (192, 128; 128 heads) at the scoring
+# and K-candidate batches and the dual window at a q offset, and reduced
+# (48, 32) at a ragged L, a window at an offset, a band and a GQA group
+MLA_FLASH_CASES = [(2, 128, 128, 128, 128, 192, 128, 0, 0),
+                   (4, 128, 128, 128, 128, 192, 128, 0, 0),
+                   (2, 32, 128, 128, 128, 192, 128, 0, 96),
+                   (1, 130, 130, 4, 4, 48, 32, 0, 0),
+                   (2, 16, 48, 4, 4, 48, 32, 0, 16),
+                   (1, 200, 200, 4, 2, 48, 32, 17, 0),
+                   (1, 70, 300, 8, 8, 192, 128, 40, 100)]
+
+
+@pytest.mark.parametrize("b,lq,lk,h,g,dqk,dv,w,qo", MLA_FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_mla_heads_match_plain(cuda, b, lq, lk, h, g, dqk, dv,
+                                            w, qo, dtype):
+    """v narrower than q and k: the kernel computes the dv-wide product
+    itself (one launch, output (B, Lq, H, dv)), scale dqk^-½."""
+    gen = torch.Generator(device=cuda).manual_seed(lq + lk + dqk + qo)
+    q = torch.randn(b, lq, h, dqk, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, lk, g, dqk, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, lk, g, dv, generator=gen, device=cuda).to(dtype)
+    before = fa_mod.launches
+    got = fa_mod.flash_attention(q, k, v, w, qo)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == before + 1
+    assert got.shape == (b, lq, h, dv) and got.dtype == dtype
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(
+        got.float(), fa_mod.attention_ref(q, k, v, w, qo).float(),
+        rtol=tol, atol=tol)
+
+
+def test_flash_refuses_unbuilt_mixed_head_dims(cuda):
+    q, k, _ = _bf16_qkv(cuda, 1, 64, 64, 2, 2, 128, seed=8)
+    v = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa_mod.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,g,dqk,dv,w,qo,dtype", [
+    (2, 48, 48, 4, 4, 48, 32, 0, 0, torch.float32),
+    (2, 16, 48, 4, 4, 48, 32, 0, 16, torch.float32),
+    (2, 48, 48, 4, 4, 48, 32, 0, 0, torch.bfloat16),
+    (2, 128, 128, 16, 16, 192, 128, 0, 0, torch.bfloat16)])
+def test_flash_gradient_mla_heads_matches_plain(cuda, b, lq, lk, h, g, dqk,
+                                                dv, w, qo, dtype):
+    """dq, dk (dqk wide) and dv (dv wide) through ``FlashAttention``
+    against autograd of the plain version: within 1e-4 (f32) or 2e-2
+    (bf16) of the largest gradient."""
+    gen = torch.Generator(device=cuda).manual_seed(lq + dqk)
+    q, k, v = (torch.randn(*s, generator=gen, device=cuda).to(dtype)
+               for s in ((b, lq, h, dqk), (b, lk, g, dqk), (b, lk, g, dv)))
+    dout = torch.randn(b, lq, h, dv, generator=gen, device=cuda).to(dtype)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa_mod.flash_attention(*ins, w, qo)
+    got = torch.autograd.grad(out, ins, dout)
+    ref_ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(fa_mod.attention_ref(*ref_ins, w, qo),
+                               ref_ins, dout)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for gt, wt in zip(got, want):
+        assert gt.dtype == dtype and gt.shape == wt.shape
+        assert _rel(gt, wt) <= tol
+
+
+@pytest.mark.parametrize("policy", ["none", "prefix", "dual"])
+def test_deepseek_graph_decode_matches_eager(cuda, policy):
+    """Reduced DeepSeek-V2 (MLA at (48, 32), a dense first layer, shared
+    experts; the block cache keeps MLA's latents): the whole-request
+    graph driver decodes the eager driver's tokens, steps and
+    forward-equivalents on the card."""
+    import dataclasses
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder
+    cfg, params, prompt = _reduced(cuda, "deepseek-v2-236b")
+    dcfg = DecodeConfig(gen_length=32, block_size=8, steps=32,
+                        strategy="fdm", gamma=0.0, cache_policy=policy)
+    want, ws = Decoder(params, cfg, dataclasses.replace(
+        dcfg, fused_loop=False), device=cuda).generate(None, prompt)
+    got, gs = Decoder(params, cfg, dcfg, device=cuda).generate(None, prompt)
+    assert torch.equal(got, want)
+    assert (gs.steps, gs.forward_equivalents) == (ws.steps,
+                                                  ws.forward_equivalents)
