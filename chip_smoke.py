@@ -35,7 +35,12 @@ Phases, in order; any failure raises and the script exits non-zero:
              (``MLA_ATTN_SHAPES``: 128 heads with q/k 192 and v 128 wide,
              at the serving batch, the K-candidate batch, the ``dual``
              window and one 4096-token row, bf16 and f32;
-             ``DEEPSEEK_CONF_SHAPES``: 256 x 102400, f32 and bf16);
+             ``DEEPSEEK_CONF_SHAPES``: 256 x 102400, f32 and bf16); and
+             whisper-medium's (``WHISPER_ATTN_SHAPES``: 16 heads at d=64
+             over its encoder's 1500 frames at B=2 and at the K-candidate
+             fold's B=4, and the cross shape, 128 queries over the 1500
+             frames, bf16 and f32; ``WHISPER_CONF_SHAPES``: 256 x 51865,
+             f32 and bf16);
 4. reference — decodes reduced LLaDA and Hymba configs on the card
              (kernels) and on the CPU (plain versions) from the same
              weights, on the card by the eager, the per-block graph and
@@ -64,7 +69,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              the experts' bytes); then reduced deepseek-v2-236b (MLA at
              (48, 32), a dense first layer, shared experts; the block
              cache keeps MLA's latents) under every policy with
-             ``ARCH_CASES``;
+             ``ARCH_CASES``; then reduced whisper-medium conditioned by
+             seeded frame embeddings (``enc_embeds``) under ``none`` with
+             every case, and unconditioned under ``prefix`` and ``dual``
+             with ``ARCH_CASES``;
 5. serving — full-width, full-depth LLaDA-8B, then Hymba-1.5B (random
              bf16 weights from a seed; LLaDA's weights and graphs are
              freed first) behind ``ServingEngine`` on the graph drivers
@@ -99,7 +107,15 @@ Phases, in order; any failure raises and the script exits non-zero:
              60 layers (the dense layer 0 and 5 MoE layers of 160 routed
              experts top-6 and 2 shared; MLA in every layer) likewise
              (``moe_model_phase`` again), its long forward over 4096
-             tokens;
+             tokens; then full-width, full-depth whisper-medium (24
+             encoder and 24 decoder layers) decoding with seeded bf16
+             frame embeddings of 1500 frames through ``Decoder.generate``
+             on the graph drivers (``whisper_phase``: one B=2 request per
+             strategy, fdm, fdm_a, probability, captured on a first pass,
+             measured on a second; 72 flash launches a forward call; one
+             profiled fdm request by kernel group, and eager forwards
+             split into the encoder, the cross K/V projections and the
+             rest);
 6. KV A/B  — (between LLaDA's serving and Hymba's) one B=2 request at the
              reference's ``BENCH_kv_cache.json`` geometry (prompt 128,
              gen 128, block 32, probability) on full-width LLaDA-8B under
@@ -141,7 +157,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. train step — one f32 step of the ``sum`` testbed on the card against
              the same step on the CPU (loss, every gradient leaf, the
              updated params); then the same for Hymba-tiny (the
-             scan's gradient from ``SelectiveScan``);
+             scan's gradient from ``SelectiveScan``), and for
+             Mixtral-tiny and DeepSeek-V2-tiny (the objective adds the
+             router's aux loss, equal on both);
 9. testbed — the testbed trained on the card (batch 64, up to 600 steps),
              then decoded with fdm under each cache policy on the graph
              drivers (EM, forward-equivalents, tokens equal to a CPU
@@ -154,7 +172,15 @@ Phases, in order; any failure raises and the script exits non-zero:
              (the path's launch count), and one step's device profile;
              then full-width, full-depth Hymba-1.5B likewise
              (all 32 layers: 2 flash and 2 scan launches per layer and
-             step, the path ``hymba-1.5b-train``);
+             step, the path ``hymba-1.5b-train``); then full-width
+             Mixtral-8x22B cut to 1 of its 56 layers and DeepSeek-V2 cut
+             to 1 of its 60 (its dense MLA layer) likewise (the paths
+             ``mixtral-8x22b-train`` and ``deepseek-v2-236b-train``; each
+             step's aux loss; the expert GEMMs apart in Mixtral's
+             profile); then the MoE gradient phase (``moe_grad_phase``):
+             one full-width MoE layer of each at T = 1024, forward and
+             backward with its aux loss, device ms against its bound,
+             peak memory, the router's gradient moved by the aux term;
 11. http serving — the async stack (``ServerThread`` → ``ModelRouter`` →
              ``AsyncScheduler`` → ``ServingEngine``, every decode on the
              card's worker thread) over real sockets: full-width LLaDA-8B
@@ -296,6 +322,22 @@ MLA_ATTN_SHAPES = tuple(
     for dt in ("bfloat16", "float32"))
 DEEPSEEK_CONF_SHAPES = ((MAX_BATCH * CANVAS, 102400, "float32"),
                         (MAX_BATCH * CANVAS, 102400, "bfloat16"))
+# whisper-medium (24 encoder and 24 decoder layers, d=1024, 16 MHA heads at
+# d=64, V=51865) over WHISPER_FRAMES encoder frames: its attention (B, Lq,
+# Lk, H, G, d, window, q_offset, dtype) at the encoder's shape (1500 =
+# 23·64 + 28: the ragged key tail is live), at the K-candidate fold (B=4)
+# and at the cross shape (the 128-token canvas over the frames), each in
+# bf16 and f32; its confidence at the serving batch's 256 rows x V = 51865
+# (odd: rows start off the 16-byte boundary)
+WHISPER_FRAMES = 1500
+WHISPER_ATTN_SHAPES = tuple(
+    (*shape, dt) for shape in (
+        (MAX_BATCH, WHISPER_FRAMES, WHISPER_FRAMES, 16, 16, 64, 0, 0),
+        (K * MAX_BATCH, WHISPER_FRAMES, WHISPER_FRAMES, 16, 16, 64, 0, 0),
+        (MAX_BATCH, CANVAS, WHISPER_FRAMES, 16, 16, 64, 0, 0))
+    for dt in ("bfloat16", "float32"))
+WHISPER_CONF_SHAPES = ((MAX_BATCH * CANVAS, 51865, "float32"),
+                       (MAX_BATCH * CANVAS, 51865, "bfloat16"))
 # selective-scan shapes of the kernel phase, (B, L, di, N, x dtype), Δ/B/C
 # f32: Hymba-1.5B's Mamba branch at the scoring and K-candidate batches, a
 # ragged L and di in f32, and one 2048-token row (Hymba's window is 1024)
@@ -663,7 +705,7 @@ def _same_conf(got, want, tol: float = 1e-5) -> bool:
 
 
 def reference_phase(torch, name: str, policies, over=None,
-                    cases=REFERENCE_CASES):
+                    cases=REFERENCE_CASES, conditioned: bool = False):
     """The port on the card (kernels, f32) against the port on the CPU
     (plain versions) on a reduced config (with ``over``): same weights,
     same prompts.  On the card each case runs under the eager, the
@@ -671,7 +713,9 @@ def reference_phase(torch, name: str, policies, over=None,
     must give identical tokens, steps, forward-equivalents, phase counts,
     revocations, skipped forwards and trace (its commit confidences within
     1e-5).  A q/k norm's scales (and MLA's latent norms') are drawn from
-    the seed in [0.5, 1.5], so that a scale the card dropped would show."""
+    the seed in [0.5, 1.5], so that a scale the card dropped would show.
+    ``conditioned``: an encoder-decoder decodes with seeded frame
+    embeddings (``enc_embeds``) of its encoder's length."""
     import dataclasses
     from repro_torch.configs import DecodeConfig, get_config
     from repro_torch.core import Decoder
@@ -688,15 +732,22 @@ def reference_phase(torch, name: str, policies, over=None,
     label = name + "".join(f" {k}={v}" for k, v in (over or {}).items())
     gen = torch.Generator().manual_seed(SEED)
     prompt = torch.randint(0, cfg.vocab_size - 1, (2, 16), generator=gen)
+    frames = torch.randn(2, cfg.encdec.encoder_seq, cfg.d_model,
+                         generator=gen) if conditioned else None
+    cpu_kw = {"enc_embeds": frames} if conditioned else {}
+    card_kw = {"enc_embeds": frames.cuda()} if conditioned else {}
+    label += " conditioned" if conditioned else ""
     for policy in policies:
         for kw in cases:
             dcfg = DecodeConfig(gen_length=32, block_size=16, steps=32,
                                 **REFERENCE_POLICIES[policy], **kw)
             x_cpu, s_cpu = Decoder(cpu_params, cfg, dcfg,
-                                   device="cpu").generate(None, prompt)
+                                   device="cpu").generate(None, prompt,
+                                                          **cpu_kw)
             for driver, over in DRIVERS.items():
                 x, st = Decoder(gpu_params, cfg, dataclasses.replace(
-                    dcfg, **over), device="cuda").generate(None, prompt)
+                    dcfg, **over), device="cuda").generate(None, prompt,
+                                                           **card_kw)
                 same = torch.equal(x.cpu(), x_cpu) and \
                     _stats_key(st) == _stats_key(s_cpu) and \
                     _same_conf(st, s_cpu)
@@ -715,6 +766,7 @@ def reference_phase(torch, name: str, policies, over=None,
             # (only LLaDA's and Hymba's reduced weights are known to take
             # every FDM-A phase at this geometry)
             if kw is FDM_A_PHASES and cases is REFERENCE_CASES and \
+                    name in ("llada-8b", "hymba-1.5b") and \
                     not all(s_cpu.phase_counts.values()):
                 raise AssertionError(f"{name} {policy}: the FDM-A phases "
                                      f"case missed a phase: "
@@ -966,7 +1018,8 @@ def device_profile(torch, label: str, fn, reps: int = 2,
     the summed kernel time, the kernel count, the share of the wall the
     card was busy, and the ``top`` kernels by device time; with
     ``groups`` (label -> name substrings, first match wins) also the
-    device ms per call of each group and of the rest."""
+    device ms per call of each group and of the rest, which it returns
+    (label -> ms per call; None without ``groups``)."""
     from collections import defaultdict
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1000,6 +1053,9 @@ def device_profile(torch, label: str, fn, reps: int = 2,
         log(f"device profile {label} by group (ms per call, kernels): " +
             "; ".join(f"{g} {t / reps / 1e3:.3f} ({n // reps})"
                       for g, (n, t) in by_group(by_name, groups).items()))
+        return {g: t / reps / 1e3
+                for g, (n, t) in by_group(by_name, groups).items()}
+    return None
 
 
 def by_group(by_name: dict, groups: dict) -> dict:
@@ -2410,7 +2466,8 @@ def _testbed(torch):
 def train_step_phase(torch, cfg=None) -> None:
     """One f32 train step of ``cfg`` (the testbed by default) on the ``sum``
     task on the card against the same step on the CPU: same params, batch
-    and corruption.  Loss within rel
+    and corruption.  Loss (and an MoE config's aux loss, which the
+    objective adds) within rel
     1e-5, every gradient leaf's max abs error within 1e-4 of its max |g|,
     and the updated params within two f32 spacings plus 1e-2 of the
     step's learning rate wherever the gradient lies above that tolerance
@@ -2445,11 +2502,11 @@ def train_step_phase(torch, cfg=None) -> None:
         grads, met = step.grads(params, *on_dev)
         g = {k: v.copy() for k, v in to_flat(grads).items()}
         params, _, _ = step.apply(params, adamw_init(params), *on_dev)
-        out[dev] = float(met["loss"]), g, to_flat(params)
+        out[dev] = float(met["loss"]), float(met["aux"]), g, to_flat(params)
     before = to_flat(init)
     lr = step.sched(1)
-    (cpu_loss, cpu_g, cpu_p), (gpu_loss, gpu_g, gpu_p) = out["cpu"], \
-        out["cuda"]
+    (cpu_loss, cpu_aux, cpu_g, cpu_p), (gpu_loss, gpu_aux, gpu_g, gpu_p) = \
+        out["cpu"], out["cuda"]
     g_err = {k: float(np.abs(gpu_g[k] - v).max() / np.abs(v).max())
              for k, v in cpu_g.items()}
     p_err, bad = {}, []
@@ -2461,13 +2518,16 @@ def train_step_phase(torch, cfg=None) -> None:
         if p_err[k] > 1e-2:
             bad.append(k)
     log(f"train step card vs cpu ({label} f32, B={TESTBED_BATCH}, "
-        f"L={ds.seq_len}): loss {gpu_loss} / {cpu_loss}; gradient max abs "
+        f"L={ds.seq_len}): loss {gpu_loss} / {cpu_loss}; aux {gpu_aux} / "
+        f"{cpu_aux}; gradient max abs "
         f"error over max |g|, worst leaf {max(g_err.values()):.3e} "
         f"({max(g_err, key=g_err.get)}); updated params beyond two f32 "
         f"spacings, in units of lr = {lr:.3e}: worst leaf "
         f"{max(p_err.values()):.3e} ({max(p_err, key=p_err.get)}); off "
         f"the rule in {bad or 'no'} leaves")
     if abs(gpu_loss - cpu_loss) > 1e-5 * abs(cpu_loss) or \
+            abs(gpu_aux - cpu_aux) > 1e-5 * abs(cpu_aux) or \
+            (cpu_aux > 0) != cfg.is_moe or \
             max(g_err.values()) > 1e-4 or bad:
         raise AssertionError("the card's train step differs from the CPU's")
 
@@ -2598,7 +2658,11 @@ def full_train_phase(torch, mods: dict, name: str = "llada-8b",
     set to 0 just before and read just after: exactly 2 × layers per step
     each (the forward and the checkpoint's recomputation; the backwards
     launch none).  Prints ms/step, tokens/s, peak memory and the first
-    loss (≈ ln V at random init).  Returns the path's launches."""
+    loss (≈ ln V at random init); for an MoE config also each step's aux
+    loss, which must lie between 0.9 × its balanced value (the number of
+    MoE layers × ``router_aux_coef``: E·Σ f·P is 1 for a balanced router)
+    and E times that (all tokens on the same k experts), and the step's
+    profile splits the expert GEMMs from the others.  Returns the path's launches."""
     import dataclasses
     import math
     import numpy as np
@@ -2641,7 +2705,7 @@ def full_train_phase(torch, mods: dict, name: str = "llada-8b",
         f"V={cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}; {n} "
         f"parameters, f32 masters; B={FULL_TRAIN_B}, L={FULL_TRAIN_L}): "
         f"{FULL_TRAIN_STEPS} steps in {total:.2f} s with init; losses "
-        f"{[round(x, 4) for x in hist['loss']]} (ln V = "
+        f"{[round(x, 4) for x in hist['loss']]}, aux {hist['aux']} (ln V = "
         f"{math.log(cfg.vocab_size):.4f}); step ms "
         f"{[round(1e3 * x, 2) for x in step_s]}, median {ms:.2f} ms, tokens/s "
         f"{FULL_TRAIN_B * FULL_TRAIN_L / (ms / 1e3):.1f}; peak allocated "
@@ -2651,8 +2715,21 @@ def full_train_phase(torch, mods: dict, name: str = "llada-8b",
     log(f"full-width training: initial masked NLL {nll:.4f} (ln V + 1/2 = "
         f"{math.log(cfg.vocab_size) + 0.5:.4f}); first weighted loss "
         f"{hist['loss'][0]:.4f}")
-    train_step_profile(torch, cfg, tcfg, params, next(batches()))
+    n_moe = sum(i >= cfg.moe.first_k_dense for i in range(cfg.num_layers)) \
+        if cfg.is_moe else 0
+    train_step_profile(torch, cfg, tcfg, params, next(batches()),
+                       moe_train_groups(torch, cfg) if n_moe
+                       else TRAIN_GROUPS)
     want = 2 * cfg.num_layers * FULL_TRAIN_STEPS
+    # E·Σ f·P is 1 for a balanced router and at most E (every token on the
+    # same k experts); the z-loss adds 1e-3 · mean logsumexp²
+    balanced = n_moe * cfg.moe.router_aux_coef
+    if not all(math.isfinite(a) for a in hist["aux"]) or (
+            not 0.9 * balanced <= min(hist["aux"])
+            <= max(hist["aux"]) <= cfg.moe.num_experts * balanced if n_moe
+            else any(hist["aux"])):
+        raise AssertionError(f"full-width training {cfg.name}: aux "
+                             f"{hist['aux']}, balanced {balanced}")
     if any(n != want for n in launches.values()):
         raise AssertionError(f"full-width training {cfg.name}: launches "
                              f"{launches}, want {want} of each")
@@ -2675,10 +2752,11 @@ TRAIN_GROUPS = {"GEMMs (cuBLAS)": ("gemm", "xmma", "nvjet", "cutlass"),
                 "elementwise": ("elementwise",)}
 
 
-def train_step_profile(torch, cfg, tcfg, params, batch) -> None:
+def train_step_profile(torch, cfg, tcfg, params, batch,
+                       groups=TRAIN_GROUPS) -> None:
     """Where a full-width training step's device time goes: the trained
     params as masters with fresh AdamW state, two profiled steps after
-    two warm ones, kernels grouped by ``TRAIN_GROUPS``."""
+    two warm ones, kernels grouped by ``groups``."""
     from repro_torch.training import adamw_init, make_train_step
     from repro_torch.training.trainer import masters, to_device_batch
     state = {"p": masters(params)}
@@ -2692,7 +2770,7 @@ def train_step_profile(torch, cfg, tcfg, params, batch) -> None:
                                            batch)
     device_profile(torch, f"{cfg.name} ({cfg.num_layers} layers) training "
                    f"step B={FULL_TRAIN_B} L={FULL_TRAIN_L}", one, top=10,
-                   groups=TRAIN_GROUPS)
+                   groups=groups)
 
 
 def initial_nll(torch, cfg, batch) -> float:
@@ -2712,6 +2790,267 @@ def initial_nll(torch, cfg, batch) -> float:
                                        torch.ones(len(tokens),
                                                   device="cuda"))
     return float(loss)
+
+
+# --------------------------------------------------------------------------
+# MoE training (the router's aux loss in the objective) and the
+# encoder-decoder (whisper-medium)
+# --------------------------------------------------------------------------
+
+# Mixtral-8x22B trained at full width cut to 1 of its 56 layers (2.91 B
+# parameters by ``param_count()``: 46.5 GB of f32 masters, gradients and
+# AdamW's two moments; 2 layers would be 86.6 GB), DeepSeek-V2 at 1 of its
+# 60 (its dense MLA layer: 1.39 B, 22.2 GB); one MoE layer of each alone
+# in the gradient phase (DeepSeek-V2's MoE layer with AdamW's state would
+# be 63.6 GB before the embedding and head)
+MIXTRAL_TRAIN_LAYERS, DEEPSEEK_TRAIN_LAYERS = 1, 1
+MOE_GRAD_MODELS = ("mixtral-8x22b", "deepseek-v2-236b")
+GEMM_PATTERNS = ("gemm", "xmma", "nvjet", "cutlass", "splitKreduce")
+
+
+def moe_train_groups(torch, cfg) -> dict:
+    """``TRAIN_GROUPS`` with the expert GEMMs apart, and the dispatch's
+    sorts: the expert GEMMs are the GEMM kernels cuBLAS runs for the
+    experts' batched products at the step's capacity, forward and
+    backward, traced alone, and not for a plain product of the step's
+    tokens (names shared by both are a group of their own)."""
+    from repro_torch.models import moe
+    t = FULL_TRAIN_B * FULL_TRAIN_L
+    e, d, ff = cfg.moe.num_experts, cfg.d_model, cfg.moe.moe_d_ff
+    cap, bf = moe.capacity(t, cfg), torch.bfloat16
+
+    def grad_of(*shapes, op):
+        ins = [torch.zeros(*sh, dtype=bf, device="cuda", requires_grad=True)
+               for sh in shapes]
+        y = op(*ins)
+        torch.autograd.grad(y, ins, torch.zeros_like(y))
+
+    expert = traced_kernel_names(torch, lambda: grad_of(
+        (e, cap, d), (e, d, ff), (e, ff, d),
+        op=lambda x, w1, w2: torch.bmm(torch.bmm(x, w1), w2)))
+    other = traced_kernel_names(torch, lambda: grad_of(
+        (t, d), (d, d), op=lambda x, w: x @ w))
+
+    def gemms(names):
+        return tuple(n for n in names if any(p in n for p in GEMM_PATTERNS))
+    return {"expert GEMMs (cuBLAS, batched over the experts)":
+            gemms(expert - other),
+            "GEMMs whose kernel runs expert and other products":
+            gemms(expert & other), **TRAIN_GROUPS,
+            "sort (the dispatch's)": ("sort", "Sort", "radix", "Radix")}
+
+
+def moe_grad_phase(torch, name: str) -> None:
+    """One full-width MoE layer of ``name`` (Mixtral-8x22B: 8 experts
+    top-2; DeepSeek-V2: 160 routed experts top-6 and 2 shared) with f32
+    masters that the dispatch casts to bf16 at each product, as the
+    trainer's forward does, over T = FULL_TRAIN_B × FULL_TRAIN_L bf16
+    hidden states of unit RMS: forward and backward of a seeded
+    projection of its output (over its mean magnitude) plus its aux loss, every gradient (the
+    masters' and the hidden states') finite; the router's gradient with
+    the aux term differs from the one without it; device ms against the
+    bound (the masters read and their gradients written in f32, the
+    hidden states and their gradient in bf16; the routed pairs' and
+    shared experts' products, forward and two backward GEMMs each, at the
+    bf16 peak) and the peak memory."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.training.optimizer import leaves
+    cfg = get_config(name)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    p = moe.init_moe(gen, cfg, "cuda", torch.float32)
+    ws = leaves(p)
+    for w in ws:
+        w.requires_grad_(True)
+    b, l, d = FULL_TRAIN_B, FULL_TRAIN_L, cfg.d_model
+    t, k = b * l, cfg.moe.num_experts_per_tok
+    x = torch.randn(b, l, d, generator=gen, device="cuda") \
+        .to(torch.bfloat16).requires_grad_(True)
+    r = torch.randn(d, generator=gen, device="cuda") / d ** 0.5
+    # the projection over the output's mean |out| (of order 10²: σ = 1/√E
+    # experts): its gradient into the router's bf16 logits stays within a
+    # bf16 rounding of the aux term's, which would otherwise vanish in it
+    with torch.no_grad():
+        scale = float(moe.moe_forward(p, x, cfg, 1.25, need_aux=False)[0]
+                      .float().abs().mean())
+
+    def objective(with_aux: bool):
+        out, aux = moe.moe_forward(p, x, cfg, 1.25, need_aux=True)
+        obj = (out.float() * r).sum() / (t * scale)
+        return (obj + aux if with_aux else obj), aux
+
+    def step():
+        return torch.autograd.grad(objective(True)[0], ws + [x])
+
+    grads = step()
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    del grads
+    obj, aux = objective(True)
+    (with_aux,) = torch.autograd.grad(obj, [p["router"]])
+    aux = aux.detach()
+    (without,) = torch.autograd.grad(objective(False)[0], [p["router"]])
+    diff = float((with_aux - without).abs().max() / without.abs().max())
+    del with_aux, without, obj
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = device_ms(step, reps=3, inner=3)
+    n = sum(w.numel() for w in ws)
+    ff, shared = cfg.moe.moe_d_ff, cfg.moe.num_shared_experts
+    nbytes = 2 * 4 * n + 2 * 2 * x.numel()
+    # forward 2·m·n·k a product, backward twice that: 3 × (SwiGLU's three
+    # products over the routed pairs and the shared width, the router)
+    ops = 3 * 2 * (3 * d * ff * (t * k + t * shared)
+                   + t * d * cfg.moe.num_experts)
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    bound = 1e3 * max(t_bytes, t_ops)
+    log(f"moe gradient {name} (one full-width layer: d={d}, "
+        f"{cfg.moe.num_experts} experts top-{k} at moe_d_ff {ff}, {shared} "
+        f"shared; {n} f32 master parameters; T={t} bf16, capacity "
+        f"{moe.capacity(t, cfg)}; output mean |out| {scale:.2f}): aux "
+        f"{float(aux):.6f} "
+        f"({float(aux) / cfg.moe.router_aux_coef:.4f} x router_aux_coef); "
+        f"gradients finite {finite}; the router's gradient with the aux term "
+        f"differs from the one without by {diff:.3e} of its max; forward + "
+        f"backward on the device alone {ms:.3f} ms, bound {bound:.3f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+        f"{nbytes / 1e9:.2f} GB, {ops / 1e12:.3f} TFLOP), share "
+        f"{bound / ms:.3f}; peak allocated {peak / 2**30:.2f} GiB; "
+        f"{nvidia_smi()}")
+    if not finite or not diff > 0 or not math.isfinite(float(aux)):
+        raise AssertionError(f"moe gradient {name}: finite {finite}, "
+                             f"router difference {diff}, aux {float(aux)}")
+    del p, ws, x, r
+    torch.cuda.empty_cache()
+
+
+# whisper-medium's decode: prompt length per strategy (B=2 each)
+WHISPER_PROMPTS = {"fdm": 64, "fdm_a": 48, "probability": 41}
+WHISPER_GROUPS = {"flash attention (hand-written)": ("flash_",),
+                  "confidence (hand-written)": ("confidence_kernel",),
+                  "GEMMs (cuBLAS)": GEMM_PATTERNS}
+
+
+def whisper_phase(torch, mods: dict) -> dict:
+    """Full-width, full-depth whisper-medium (random bf16 weights from the
+    seed) decoding with seeded bf16 frame embeddings ``enc_embeds`` (B=2,
+    WHISPER_FRAMES frames) through ``Decoder.generate`` on the graph
+    drivers under ``none``: one B=2 request per strategy
+    (``WHISPER_PROMPTS``: prompts 41-64, gen 64, block 32, 64 steps,
+    K=K₁=2), captured on a first pass, measured on a second (launch
+    counts set to 0 just before it and read just after).  Every forward
+    re-encodes the frames, as the reference's does, so each forward call
+    launches flash once per encoder layer and twice per decoder layer
+    (self and cross: 72 times); tokens in vocab, no mask left.  Then one
+    profiled graph-driven fdm request by kernel group, and eager forwards
+    split into the encoder, the cross K/V projections and the rest.
+    Returns the path's launches."""
+    import dataclasses
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder, clear_decode_cache, decode_cache_scope
+    from repro_torch.models import encode, forward
+    cfg, params = make_model(torch, "whisper-medium")
+    per_forward = cfg.encdec.encoder_layers + 2 * cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    frames = torch.randn(MAX_BATCH, WHISPER_FRAMES, cfg.d_model,
+                         generator=gen, device="cuda").to(torch.bfloat16)
+    prompts = {s: torch.randint(0, cfg.vocab_size - 1, (MAX_BATCH, lp),
+                                generator=gen, device="cuda")
+               for s, lp in WHISPER_PROMPTS.items()}
+    dcfg = DecodeConfig(gen_length=GEN, block_size=BLOCK, steps=GEN, k=K,
+                        k1=K)
+    scopes, decs = {}, {}
+    t0 = time.perf_counter()
+    for s, prompt in prompts.items():
+        with decode_cache_scope() as scopes[s]:
+            decs[s] = Decoder(params, cfg, dataclasses.replace(
+                dcfg, strategy=s))
+            decs[s].generate(None, prompt, enc_embeds=frames)
+    torch.cuda.synchronize()
+    runs = {s: list(sc.values()) for s, sc in scopes.items()}
+    stats = graph_stats(torch, [r for rs in runs.values() for r in rs])
+    log(f"whisper-medium warm pass (captures): "
+        f"{time.perf_counter() - t0:.2f} s; {stats}")
+    all_runs = [r for rs in runs.values() for r in rs]
+    reset_launches(all_runs, mods)
+    results, total_s = {}, 0.0
+    for s, prompt in prompts.items():        # each Decoder keeps its scope
+        t0 = time.perf_counter()
+        out, st = decs[s].generate(None, prompt, enc_embeds=frames)
+        torch.cuda.synchronize()
+        results[s] = (out, st, time.perf_counter() - t0)
+        total_s += results[s][2]
+    launches = executed_launches(all_runs, mods)
+    for s, (out, st, sec) in results.items():
+        flash = sum(r.graphs.executed_launches()["flash_attention"]
+                    for r in runs[s])
+        replays = sum(r.graphs.replays() for r in runs[s])
+        calls = flash / (per_forward * max(replays, 1))
+        gen_tokens = out[:, -GEN:]
+        ok = tuple(out.shape) == (MAX_BATCH, WHISPER_PROMPTS[s] + GEN) and \
+            bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size)
+                  & (gen_tokens != cfg.mask_token_id)).all())
+        log(f"whisper-medium {s} (B={MAX_BATCH}, prompt "
+            f"{WHISPER_PROMPTS[s]}, gen {GEN}, {WHISPER_FRAMES} frames): "
+            f"{sec:.3f} s, {MAX_BATCH * GEN / sec:.2f} tokens/s; steps "
+            f"{st.steps}, forward_equivalents {st.forward_equivalents}, "
+            f"phases {st.phase_counts}; {replays} step replays, flash "
+            f"launches {flash} = {per_forward} x {calls} "
+            f"forward calls a replay; tokens valid {ok}")
+        if not ok or calls != int(calls) or calls not in (1, 2):
+            raise AssertionError(f"whisper-medium {s}: tokens valid {ok}, "
+                                 f"{calls} forward calls a replay")
+    log(f"whisper-medium decode: {len(results) * MAX_BATCH * GEN / total_s:.2f}"
+        f" tokens/s over the three requests ({total_s:.3f} s), latency "
+        f"per request {[round(r[2], 3) for r in results.values()]} s; "
+        f"executed launches {launches}; {nvidia_smi()}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel was not launched on the "
+                             f"whisper-medium path: {launches}")
+    (run,) = runs["fdm"]
+    graph_profile(torch, f"whisper-medium graph-driven request none "
+                  f"B={MAX_BATCH} fdm gen {GEN}",
+                  lambda: decs["fdm"].generate(None, prompts["fdm"],
+                                               enc_embeds=frames),
+                  run, mods, WHISPER_GROUPS)
+    gemm = "GEMMs (cuBLAS)"
+    for b in (MAX_BATCH, K * MAX_BATCH):
+        tiled = frames.repeat(b // MAX_BATCH, 1, 1)
+        tokens = torch.randint(0, cfg.vocab_size - 1, (b, CANVAS),
+                               generator=gen, device="cuda")
+        enc_out = encode(params, tiled, cfg)
+
+        def cross_kv():
+            for layer in params["blocks"]:
+                enc_out @ layer["xattn"]["wk"]
+                enc_out @ layer["xattn"]["wv"]
+        parts = {}
+        with torch.no_grad():
+            for part, fn in (
+                    ("forward", lambda: forward(params, tokens, cfg,
+                                                enc_embeds=tiled)),
+                    ("encoder", lambda: encode(params, tiled, cfg)),
+                    ("cross K/V projections", cross_kv)):
+                parts[part] = device_profile(
+                    torch, f"whisper-medium {part} B={b} (canvas {CANVAS}, "
+                    f"{WHISPER_FRAMES} frames)", fn, top=4,
+                    groups=WHISPER_GROUPS)
+        fwd = parts["forward"]
+        log(f"whisper-medium forward B={b} by part (ms on the device): "
+            f"total {sum(fwd.values()):.3f}; encoder GEMMs "
+            f"{parts['encoder'].get(gemm, 0):.3f} (encoder total "
+            f"{sum(parts['encoder'].values()):.3f}); cross K/V GEMMs "
+            f"{parts['cross K/V projections'].get(gemm, 0):.3f}; other "
+            f"GEMMs {fwd.get(gemm, 0) - parts['encoder'].get(gemm, 0) - parts['cross K/V projections'].get(gemm, 0):.3f}; "
+            f"flash {fwd.get('flash attention (hand-written)', 0):.3f}; "
+            f"elementwise and the rest {fwd.get('other', 0):.3f}")
+    del scopes, decs, run
+    clear_decode_cache()
+    del params
+    torch.cuda.empty_cache()
+    return {"whisper-medium": launches}
 
 
 def main() -> None:
@@ -2802,6 +3141,15 @@ def main() -> None:
             f"{r['plain_ms']:.4f} ms library none bound {r['bound_ms']:.4f} "
             f"ms (bytes); share of the bound on the device alone "
             f"{r['bound_ms'] / r['device_ms']:.3f}")
+    for rows, vocab, dtype in WHISPER_CONF_SHAPES:
+        r = check_confidence(conf_mod, torch, rows, vocab, dtype)
+        conf_errs.append(r["max_abs_err"])
+        log(f"confidence (whisper) rows={rows} V={vocab} {dtype}: "
+            f"max_abs_err {r['max_abs_err']} kernel {r['ms']:.4f} ms, on "
+            f"the device alone {r['device_ms']:.4f} ms; plain "
+            f"{r['plain_ms']:.4f} ms library none bound {r['bound_ms']:.4f} "
+            f"ms (bytes); share of the bound on the device alone "
+            f"{r['bound_ms'] / r['device_ms']:.3f}")
     conf_entry["max_abs_err"] = max(conf_errs)
     attn_errs = []
     attn_runs = [(shape, "bfloat16") for shape in ATTN_SHAPES] + \
@@ -2855,6 +3203,17 @@ def main() -> None:
             f"{r['device_ms'] / r['library_device_ms']:.3f}); bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of the bound "
             f"on the device alone {r['bound_ms'] / r['device_ms']:.3f}")
+    for b, lq, lk, h, g, d, w, qo, dt in WHISPER_ATTN_SHAPES:
+        r = check_attention(fa_mod, torch, b, lq, lk, h, g, d, w, qo, dt)
+        attn_errs.append(r["max_abs_err"])
+        log(f"attention (whisper) B={b} Lq={lq} Lk={lk} H={h} G={g} d={d} "
+            f"{dt}: max_abs_err {r['max_abs_err']} kernel {r['ms']:.4f} ms "
+            f"plain {r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms; on "
+            f"the device alone kernel {r['device_ms']:.4f} ms sdpa "
+            f"{r['library_device_ms']:.4f} ms (kernel/sdpa "
+            f"{r['device_ms'] / r['library_device_ms']:.3f}); bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of the bound "
+            f"on the device alone {r['bound_ms'] / r['device_ms']:.3f}")
     attn_entry["max_abs_err"] = max(attn_errs)
     scan_errs = []
     for b, l, di, n, xdt in SCAN_SHAPES:
@@ -2890,6 +3249,11 @@ def main() -> None:
     for name, over in DEEPSEEK_REFERENCE:
         reference_phase(torch, name, POLICIES, over, ARCH_CASES)
     log(f"reference phase (deepseek): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    reference_phase(torch, "whisper-medium", ["none"], conditioned=True)
+    reference_phase(torch, "whisper-medium", ["prefix", "dual"],
+                    cases=ARCH_CASES)
+    log(f"reference phase (whisper): {time.perf_counter() - t0:.1f} s")
 
     # 5. the main paths, one model at a time (each frees its weights and
     # its graphs); 6. the KV A/B on LLaDA's weights
@@ -2953,6 +3317,10 @@ def main() -> None:
                                "deepseek-v2-236b", DEEPSEEK_LAYERS,
                                DEEPSEEK_LONG)
     log(f"serving phase deepseek-v2-236b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    whisper = whisper_phase(torch, {"confidence": conf_mod,
+                                    "flash_attention": fa_mod})
+    log(f"decode phase whisper-medium: {time.perf_counter() - t0:.1f} s")
 
     # 7.-10. training: the flash gradient, one step against the CPU, the
     # testbed trained and decoded, full-width LLaDA-8B's steps
@@ -2965,6 +3333,8 @@ def main() -> None:
     t0 = time.perf_counter()
     train_step_phase(torch)
     train_step_phase(torch, get_config("hymba-1.5b").reduced())
+    train_step_phase(torch, get_config("mixtral-8x22b").reduced())
+    train_step_phase(torch, get_config("deepseek-v2-236b").reduced())
     log(f"train step phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     testbed_phase(torch)
@@ -2983,6 +3353,19 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s")
     clear_decode_cache()
     torch.cuda.empty_cache()
+    moe_train = {}
+    for name, layers in (("mixtral-8x22b", MIXTRAL_TRAIN_LAYERS),
+                         ("deepseek-v2-236b", DEEPSEEK_TRAIN_LAYERS)):
+        t0 = time.perf_counter()
+        moe_train[f"{name}-train"] = full_train_phase(
+            torch, {"flash_attention": fa_mod}, name, layers)
+        torch.cuda.empty_cache()
+        log(f"full-width training phase {name}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name in MOE_GRAD_MODELS:
+        moe_grad_phase(torch, name)
+    log(f"moe gradient phase: {time.perf_counter() - t0:.1f} s")
 
     # 11. the async serving stack over HTTP
     http = http_phase(torch, {"confidence": conf_mod,
@@ -2996,7 +3379,8 @@ def main() -> None:
         by_path["llada-8b-train"] = training.get(kernel, 0)
         by_path["llada-8b-http"] = http.get(kernel, 0)
         by_path["llada-8b-carry"] = carry.get(kernel, 0)
-        for path, counts in {**archs, **mixtral, **deepseek}.items():
+        for path, counts in {**archs, **mixtral, **deepseek, **whisper,
+                             **moe_train}.items():
             by_path[path] = counts.get(kernel, 0)
         by_path["hymba-1.5b-train"] = hymba_train.get(kernel, 0)
         return {"launches": sum(by_path.values()),

@@ -24,6 +24,7 @@ _MODULES: Dict[str, str] = {
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
 }
 
 

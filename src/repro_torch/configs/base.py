@@ -105,6 +105,20 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.encdec is not None and self.encdec.encoder_layers > 0
 
+    @property
+    def subquadratic(self) -> bool:
+        """True iff long-context decode (long_500k) is admissible."""
+        return self.arch_type in ("ssm", "hybrid") or self.sliding_window > 0
+
+    def param_count(self) -> int:
+        """Analytic total parameter count (embeddings included once; norm
+        scales counted as the reference counts them)."""
+        return _param_count(self)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: shared + top-k experts only)."""
+        return _param_count(self, active_only=True)
+
     def reduced(self, **over) -> "ModelConfig":
         """The smoke-test variant: same family, tiny dims (identical to the
         reference's ``ModelConfig.reduced``)."""
@@ -156,6 +170,53 @@ class ModelConfig:
             small["mrope_sections"] = (hd // 4, hd // 8, hd // 8)
         small.update(over)
         return dataclasses.replace(self, **small)
+
+
+def _param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """The reference's ``_param_count``, term for term."""
+    d, hd = cfg.d_model, cfg.head_dim
+    n_q, n_kv = cfg.num_heads, cfg.num_kv_heads
+    embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    if cfg.attention == "mla" and cfg.mla is not None:
+        m = cfg.mla
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        attn = (d * m.q_lora_rank + m.q_lora_rank * n_q * qk
+                + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                + m.kv_lora_rank * n_q * (m.qk_nope_head_dim + m.v_head_dim)
+                + n_q * m.v_head_dim * d)
+    else:
+        attn = d * (n_q * hd) + 2 * d * (n_kv * hd) + (n_q * hd) * d
+    if cfg.arch_type == "ssm":
+        # xLSTM: projections and gates, approximated by the expand factor
+        e = cfg.ssm.expand if cfg.ssm else 2
+        per_layer = 2 * d * (e * d) + (e * d) * d + 4 * d
+        return embed + cfg.num_layers * per_layer
+
+    def ffn_params(dff):
+        mult = 3 if cfg.act == "silu" else 2      # SwiGLU: gate, up, down
+        return mult * d * dff
+    per_layer = attn + 2 * d  # norms
+    if cfg.hybrid_ssm_heads and cfg.ssm:
+        e = cfg.ssm.expand
+        per_layer += d * (e * d) + (e * d) * d   # parallel SSM path
+    total = 0
+    for li in range(cfg.num_layers):
+        layer = per_layer
+        if cfg.is_moe and li >= cfg.moe.first_k_dense:
+            n_routed = (cfg.moe.num_experts_per_tok if active_only
+                        else cfg.moe.num_experts)
+            layer += ((n_routed + cfg.moe.num_shared_experts)
+                      * ffn_params(cfg.moe.moe_d_ff))
+            layer += d * cfg.moe.num_experts   # router
+        elif cfg.d_ff:
+            layer += ffn_params(cfg.d_ff)
+        total += layer
+    if cfg.is_encdec and cfg.encdec:
+        # encoder layers (attention, FFN, norms) and each decoder layer's
+        # cross-attention
+        enc = cfg.encdec.encoder_layers * (attn + ffn_params(cfg.d_ff) + 2 * d)
+        total += enc + cfg.num_layers * attn
+    return embed + total
 
 
 CACHE_POLICIES = ("none", "prefix", "dual")

@@ -10,7 +10,11 @@ starts with a dense group.  An MoE layer's ``moe`` group (``router``
 (E, ff, d)) keeps its expert axis: layers are unstacked, experts are not;
 its shared experts (``shared``: ``gate``, ``up``, ``down``) are one SwiGLU.
 MLA's attention tree (``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``,
-``kv_norm``, ``wk_b``, ``wv_b``, ``wo``) goes through leaf for leaf.
+``kv_norm``, ``wk_b``, ``wv_b``, ``wo``) goes through leaf for leaf.  An
+encoder-decoder's ``encoder`` group (``blocks``, stacked like the
+decoder's, and ``norm_f``), its layers' ``norm_x``/``xattn``, LayerNorm's
+``bias``, the GELU MLP's ``fc1``/``fc2`` and the sinusoidal table
+``embed/pos`` go through the same way.
 
 * ``from_jax_params(tree)`` — a reference tree whose leaves are numpy
   arrays (``jax.device_get(params)``) -> the port's params.
@@ -30,12 +34,13 @@ import torch
 
 from repro_torch.device import resolve_device
 
-# the reference's f32 vectors stay f32 under a dtype cast: norm scales, the
-# per-head q/k norm scales (qk_norm), MLA's two latent norm scales, the
-# Mamba head's a_log and dt_bias (used in f32: a bf16 a_log would move
-# every decay) and mix scales
-_KEEP_F32 = ("scale", "q_scale", "k_scale", "q_norm", "kv_norm", "a_log",
-             "dt_bias", "mix_attn", "mix_ssm")
+# the reference's f32 vectors stay f32 under a dtype cast: norm scales and
+# LayerNorm's biases, the per-head q/k norm scales (qk_norm), MLA's two
+# latent norm scales, the sinusoidal position table, the Mamba head's
+# a_log and dt_bias (used in f32: a bf16 a_log would move every decay)
+# and mix scales
+_KEEP_F32 = ("scale", "bias", "q_scale", "k_scale", "q_norm", "kv_norm",
+             "pos", "a_log", "dt_bias", "mix_attn", "mix_ssm")
 
 
 def _tensor(a, device, dtype, key: str) -> torch.Tensor:
@@ -72,17 +77,25 @@ def from_jax_params(tree: dict, device="cuda",
     ``dtype`` casts the matrices (the ``_KEEP_F32`` vectors stay f32);
     ``None`` keeps f32."""
     dev = resolve_device(device)
-    unknown = set(tree) - {"embed", "norm_f", "blocks"}
+    unknown = set(tree) - {"embed", "norm_f", "blocks", "encoder"}
     if unknown:
         raise NotImplementedError(
             f"parameter groups {sorted(unknown)} belong to architectures "
             f"the port does not run yet")
     out = {"embed": _convert(tree["embed"], dev, dtype),
-           "norm_f": _convert(tree["norm_f"], dev, dtype)}
-    out["blocks"] = [layer for group in tree["blocks"]
-                     for layer in _unstack(group, _group_len(group), dev,
-                                           dtype)]
+           "norm_f": _convert(tree["norm_f"], dev, dtype),
+           "blocks": _layers(tree["blocks"], dev, dtype)}
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {"blocks": _layers(enc["blocks"], dev, dtype),
+                          "norm_f": _convert(enc["norm_f"], dev, dtype)}
     return out
+
+
+def _layers(groups: list, device, dtype) -> list:
+    """The reference's stacked layer groups -> one dict per layer."""
+    return [layer for group in groups
+            for layer in _unstack(group, _group_len(group), device, dtype)]
 
 
 def _nest(flat: Dict[str, np.ndarray]) -> dict:
@@ -128,8 +141,19 @@ def to_flat(params: dict) -> Dict[str, np.ndarray]:
     flat: Dict[str, np.ndarray] = {}
     _walk(params["embed"], "embed/", flat)
     _walk(params["norm_f"], "norm_f/", flat)
+    _stack_layers(params["blocks"], "blocks/", flat)
+    if "encoder" in params:
+        _stack_layers(params["encoder"]["blocks"], "encoder/blocks/", flat)
+        _walk(params["encoder"]["norm_f"], "encoder/norm_f/", flat)
+    return flat
+
+
+def _stack_layers(blocks: list, prefix: str,
+                  flat: Dict[str, np.ndarray]) -> None:
+    """One dict per layer -> ``prefix`` + group index + leaf path, each
+    maximal run of layers with the same leaves stacked as one group."""
     groups = []
-    for layer in params["blocks"]:
+    for layer in blocks:
         leaves: Dict[str, np.ndarray] = {}
         _walk(layer, "", leaves)
         if groups and set(groups[-1][0]) == set(leaves):
@@ -138,8 +162,7 @@ def to_flat(params: dict) -> Dict[str, np.ndarray]:
             groups.append([leaves])
     for g, layers in enumerate(groups):
         for key in layers[0]:
-            flat[f"blocks/{g}/{key}"] = np.stack([d[key] for d in layers])
-    return flat
+            flat[f"{prefix}{g}/{key}"] = np.stack([d[key] for d in layers])
 
 
 def _walk(node: dict, prefix: str, out: Dict[str, np.ndarray]) -> None:

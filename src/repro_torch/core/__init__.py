@@ -14,6 +14,7 @@
   graphs      — ``run_masked`` and the CUDA-graph set of a decode runner
   loop        — the eager and the graph block drivers
   decoder     — ``Decoder``, ``SampleStats`` and the runner cache
+  sampler     — ``make_model_fn``: a conditioned forward from params
 """
 from repro_torch.core.confidence import (Scores, global_confidence,
                                          local_confidence, score_logits)
@@ -26,6 +27,7 @@ from repro_torch.core.decoder import (BlockEvent, CacheInfo, Decoder,
 from repro_torch.core.extrapolate import ExtrapolationStrategy
 from repro_torch.core.fdm import fdm_select, fdm_step
 from repro_torch.core.fdm_a import FDMAStrategy, fdm_a_plan
+from repro_torch.core.sampler import make_model_fn
 from repro_torch.core.strategies import (StatelessStrategy, Strategy,
                                          as_strategy, available_strategies,
                                          commit_topn, rank_desc,
@@ -38,6 +40,7 @@ from repro_torch.core.wino import WINORevocationStrategy
 __all__ = [
     "Scores", "score_logits", "local_confidence", "global_confidence",
     "Decoder", "SampleStats", "BlockEvent", "validate_cache_policy",
+    "make_model_fn",
     "RunnerCache", "CacheInfo", "decode_cache_info", "clear_decode_cache",
     "reset_decode_cache_stats", "decode_cache_scope",
     "fdm_select", "fdm_step", "FDMAStrategy", "fdm_a_plan",

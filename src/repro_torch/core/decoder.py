@@ -43,6 +43,14 @@ weights shares them (``ServingEngine`` builds one per batch) and they go
 when the weights go; at most ``max_runners`` runs per weights, least
 recently used dropped first.
 
+Conditioning (``generate(..., enc_embeds=...)``, an encoder-decoder's
+frame embeddings) needs a ``Decoder`` built from params and
+``cache_policy="none"``, as in the reference.  The forward tiles the
+extras candidate-major to a K·B folded batch (``_tiling_forward``).  On
+the graph drivers they are static input buffers of the ``GraphRun``
+(their shapes and dtypes part of its key), copied in per request; the
+tiled copy is made inside the captured forward.
+
 With ``dcfg.trace`` the strategy decodes wrapped by
 ``tracebuffer.tracing`` (memoized, so traced decodes get runs of their
 own in the runner cache) and ``SampleStats.trace`` holds the decode's
@@ -76,6 +84,25 @@ from repro_torch.core.tracebuffer import DecodeTrace, TracingStrategy, tracing
 from repro_torch.device import resolve_device
 from repro_torch.models.model import (DecodeState, capture_cache, forward,
                                       forward_cached)
+
+# the conditioning inputs ``forward`` accepts (the reference's set);
+# ``generate(**extras)`` validates against it, so a misspelt keyword fails
+# at the call
+_CONDITIONING_KEYS = frozenset({"enc_embeds", "patch_embeds"})
+
+
+def _tiling_forward(params, cfg: ModelConfig,
+                    extras: Dict[str, torch.Tensor]) -> Callable:
+    """tokens (B', L) -> logits, with the conditioning inputs tiled
+    candidate-major to a K·B folded batch (rows b0, b1, …, b0, b1, …:
+    ``jnp.tile``, which is ``Tensor.repeat``, not ``repeat_interleave``)."""
+    def mf(t):
+        kw = {}
+        for k, v in extras.items():
+            reps = t.shape[0] // v.shape[0]
+            kw[k] = v.repeat(reps, *(1,) * (v.ndim - 1)) if reps > 1 else v
+        return forward(params, t, cfg, **kw)
+    return mf
 
 
 @dataclass
@@ -385,8 +412,8 @@ class Decoder:
 
     # -- decoding ----------------------------------------------------------
     def generate(self, rng, prompt, strategy=None,
-                 on_block_committed: Optional[Callable] = None
-                 ) -> Tuple[torch.Tensor, SampleStats]:
+                 on_block_committed: Optional[Callable] = None,
+                 **extras) -> Tuple[torch.Tensor, SampleStats]:
         """Decode ``gen_length`` tokens after ``prompt`` (B, Lp).  Returns
         (tokens (B, Lp+gen) on the decoder's device, SampleStats).
 
@@ -395,16 +422,18 @@ class Decoder:
         ``on_block_committed(block_index, lo, hi, x)`` fires after each
         committed block (``x`` a device tensor of its own; on the graph
         drivers the copy may still be queued on the card, so the callback
-        should not sync if it wants none)."""
+        should not sync if it wants none).  ``extras`` (params mode,
+        ``cache_policy="none"``): conditioning tensors forwarded to the
+        model (``enc_embeds`` (B, S, d))."""
         strat = self._strategy(strategy)
-        gen, prompt, geometry = self._inputs(rng, prompt)
+        gen, prompt, geometry, extras = self._inputs(rng, prompt, extras)
         if self._fused(strat):
             blocks = self._graph_blocks_gen(
-                strat, gen, prompt, geometry,
+                strat, gen, prompt, geometry, extras,
                 events=(on_block_committed is not None
                         or not self.dcfg.fused_blocks))
         else:
-            blocks = self._blocks_gen(strat, gen, prompt, geometry)
+            blocks = self._blocks_gen(strat, gen, prompt, geometry, extras)
         while True:
             try:
                 ev = next(blocks)
@@ -413,16 +442,17 @@ class Decoder:
             if on_block_committed is not None:
                 on_block_committed(ev.block, ev.lo, ev.hi, ev.x)
 
-    def generate_blocks(self, rng, prompt, strategy=None):
+    def generate_blocks(self, rng, prompt, strategy=None, **extras):
         """A generator of ``BlockEvent(block, lo, hi, x)``, one per
         committed block; its return value is ``(tokens, stats)``.  Runs
         the per-block graph driver, or the eager one under
-        ``fused_loop=False``."""
+        ``fused_loop=False``.  ``extras`` as in ``generate``."""
         strat = self._strategy(strategy)
-        gen, prompt, geometry = self._inputs(rng, prompt)
+        gen, prompt, geometry, extras = self._inputs(rng, prompt, extras)
         if self._fused(strat):
-            return self._graph_blocks_gen(strat, gen, prompt, geometry)
-        return self._blocks_gen(strat, gen, prompt, geometry)
+            return self._graph_blocks_gen(strat, gen, prompt, geometry,
+                                          extras)
+        return self._blocks_gen(strat, gen, prompt, geometry, extras)
 
     def _strategy(self, strategy) -> Strategy:
         """The decode's strategy, wrapped by the (memoized) tracing adapter
@@ -435,17 +465,40 @@ class Decoder:
         a strategy without a graph-safe step."""
         return self.dcfg.fused_loop and strat.supports_fused
 
-    def _inputs(self, rng, prompt):
-        """(generator, prompt tensor, geometry); geometry and cache-policy
-        errors raise here, before any decoding."""
+    def _inputs(self, rng, prompt, extras: Dict[str, Any]):
+        """(generator, prompt tensor, geometry, extras as device tensors);
+        geometry, cache-policy and conditioning errors raise here, before
+        any decoding, as the reference's do."""
+        unknown = set(extras) - _CONDITIONING_KEYS
+        if unknown:
+            raise TypeError(
+                f"got unexpected keyword argument(s) {sorted(unknown)}; "
+                f"conditioning extras must be one of "
+                f"{sorted(_CONDITIONING_KEYS)}")
+        if "patch_embeds" in extras:
+            raise NotImplementedError(
+                "patch_embeds condition a VLM, which the port does not run "
+                "yet (ROADMAP.md queue 1 item 9)")
         geometry = self._geometry()
-        if self.dcfg.cache_policy != "none" and self._params is None:
-            raise ValueError(
-                "cache_policy != 'none' requires a Decoder built from "
-                "params (a bare model_fn cannot drive the cache capture "
-                "or the windowed forwards)")
+        if self.dcfg.cache_policy != "none":
+            if self._params is None:
+                raise ValueError(
+                    "cache_policy != 'none' requires a Decoder built from "
+                    "params (a bare model_fn cannot drive the cache capture "
+                    "or the windowed forwards)")
+            if extras:
+                raise ValueError(
+                    "conditioning extras (enc_embeds / patch_embeds) are "
+                    "not supported with cache_policy != 'none': the cache "
+                    "capture runs the text stack only — decode uncached, "
+                    "or drop the conditioning")
+        if extras and self._params is None:
+            raise ValueError("extras require a params-mode Decoder (a "
+                             "model_fn already owns its conditioning)")
         prompt = torch.as_tensor(prompt, device=self.device).long()
-        return self._generator(rng), prompt, geometry
+        extras = {k: torch.as_tensor(v, device=self.device)
+                  for k, v in extras.items()}
+        return self._generator(rng), prompt, geometry, extras
 
     def _generator(self, rng) -> torch.Generator:
         if isinstance(rng, torch.Generator):
@@ -480,19 +533,24 @@ class Decoder:
 
     # -- the graph drivers -------------------------------------------------
     def _graph_run(self, strat: Strategy, batch: int, prompt_len: int,
-                   sched: np.ndarray) -> GraphRun:
+                   sched: np.ndarray,
+                   extras: Dict[str, torch.Tensor]) -> GraphRun:
         """A ``GraphRun`` of this decode's key that no other decode holds,
         from the cache; built on a miss (the cached path captures its
-        first cache into it)."""
+        first cache into it; a conditioned decode's run gets a static
+        buffer for each of its extras)."""
         cfg, dcfg, cache = self.cfg, self.dcfg, self._cache
         # the per-block and whole-request drivers share runs and graphs
         subkey = ("graph", strat, cfg, dataclasses.replace(
-            dcfg, fused_blocks=True), batch, prompt_len, str(self.device))
+            dcfg, fused_blocks=True), batch, prompt_len, str(self.device),
+            tuple(sorted((k, tuple(v.shape), v.dtype)
+                         for k, v in extras.items())))
 
         def build():
             run = GraphRun(strat, cfg, dcfg, batch, prompt_len, sched,
                            self.device, cache.note_capture,
                            cache.capture_pool(self.device))
+            run.extras = {k: torch.empty_like(v) for k, v in extras.items()}
             if dcfg.cache_policy != "none":
                 run.tiles[1] = capture_cache(self._params, run.x, cfg)
             return run
@@ -513,20 +571,32 @@ class Decoder:
         return lambda blk: self._timed_refresh(
             blk, lambda: run.graphs.run(("refresh",), body))
 
+    def _run_model_fn(self, run: GraphRun) -> Callable:
+        """The uncached graph drivers' ``model_fn``: the forward reading
+        ``run``'s static extras, when it has any."""
+        if not run.extras:
+            return self._model_fn
+        return _tiling_forward(self._params, self.cfg, run.extras)
+
     def _graph_start(self, strat: Strategy, gen: torch.Generator,
-                     prompt: torch.Tensor, geometry):
-        """Take a free run of this key, warm it on first use, and reset it
-        for ``prompt``.  Returns ``(run, lease, t0)``: the decode holds
-        the run while it keeps the lease."""
+                     prompt: torch.Tensor, geometry,
+                     extras: Dict[str, torch.Tensor]):
+        """Take a free run of this key, copy the request's extras into its
+        static buffers, warm it on first use, and reset it for ``prompt``.
+        Returns ``(run, lease, t0)``: the decode holds the run while it
+        keeps the lease."""
         b, lp = prompt.shape
-        run = self._graph_run(strat, b, lp, geometry[3])
+        run = self._graph_run(strat, b, lp, geometry[3], extras)
         lease = run.take()
+        for k, v in extras.items():
+            run.extras[k].copy_(v)
         if self.dcfg.cache_policy != "none":
             lo0 = run.win_los[0]
             warm_run(strat, lambda w: self._cached_fn(w, lo0, run.tiles),
                      self.cfg, self.dcfg, run, self._refresh_body(run))
         else:
-            warm_run(strat, self._model_fn, self.cfg, self.dcfg, run)
+            warm_run(strat, self._run_model_fn(run), self.cfg, self.dcfg,
+                     run)
         t0 = time.perf_counter()
         run.start(prompt, strat.init_carry_shaped(
             self.cfg, self.dcfg, b, lp + self.dcfg.gen_length, self.device),
@@ -535,6 +605,7 @@ class Decoder:
 
     def _graph_blocks_gen(self, strat: Strategy, gen: torch.Generator,
                           prompt: torch.Tensor, geometry,
+                          extras: Dict[str, torch.Tensor],
                           events: bool = True):
         """The graph drivers' block loop, the cache's prefill and
         refreshes included; with ``events`` it yields a ``BlockEvent``
@@ -543,9 +614,11 @@ class Decoder:
         cached = dcfg.cache_policy != "none"
         # the lease holds the run until the decode returns, or until its
         # generator is dropped
-        run, lease, t0 = self._graph_start(strat, gen, prompt, geometry)
+        run, lease, t0 = self._graph_start(strat, gen, prompt, geometry,
+                                           extras)
         lp, bs = prompt.shape[1], geometry[1]
         refresh = self._graph_refresh(run) if cached else None
+        model_fn = self._run_model_fn(run)
         refreshes = 0
         for blk in range(geometry[2]):
             if cached:
@@ -555,7 +628,7 @@ class Decoder:
                 graph_cached_block(strat, self._cached_fn, cfg, dcfg, run,
                                    blk)
             else:
-                graph_block(strat, self._model_fn, cfg, dcfg, run, blk)
+                graph_block(strat, model_fn, cfg, dcfg, run, blk)
             if events:
                 yield BlockEvent(blk, lp + blk * bs, lp + (blk + 1) * bs,
                                  run.x.clone())
@@ -582,8 +655,11 @@ class Decoder:
 
     # -- the eager driver --------------------------------------------------
     def _blocks_gen(self, strat: Strategy, gen: torch.Generator,
-                    prompt: torch.Tensor, geometry):
+                    prompt: torch.Tensor, geometry,
+                    extras: Dict[str, torch.Tensor]):
         cfg, dcfg = self.cfg, self.dcfg
+        model_fn = _tiling_forward(self._params, cfg, extras) if extras \
+            else self._model_fn
         cached = dcfg.cache_policy != "none"
         b, lp = prompt.shape
         gen_len, bs, num_blocks, sched = geometry
@@ -616,7 +692,7 @@ class Decoder:
             else:
                 in_block = (pos >= lo) & (pos < hi)
                 x, carry, steps, stats.forward_equivalents = run_block(
-                    strat, self._model_fn, cfg, dcfg, sched[blk], x, gen,
+                    strat, model_fn, cfg, dcfg, sched[blk], x, gen,
                     in_block, carry, stats.forward_equivalents)
             stats.steps += steps
             yield BlockEvent(blk, lo, hi, x)

@@ -11,8 +11,9 @@ Two families, which decode identically:
 * **graph** — ``graph_block`` (counterpart of the reference's
   ``drive_block``) and ``graph_cached_block`` (``drive_cached_block``).
   Their state lives in the static device buffers of a ``GraphRun``:
-  canvas, step counters, forward-equivalents, the strategy's carry and
-  the block's schedule row and column mask.  One step is one captured
+  canvas, step counters, forward-equivalents, the strategy's carry,
+  the block's schedule row and column mask, and a conditioned decode's
+  inputs (``GraphRun.extras``, copied in per request).  One step is one captured
   CUDA graph: the commit width ``sched[min(i, S−1)]`` indexed on the
   device, the strategy's ``device_step``, and every write masked by
   ``live = any(active) & (steps_in_block < block_size·4)`` (the
@@ -270,6 +271,10 @@ class GraphRun:
         # the cached path's K/V: ``tiles[1]`` the capture, ``tiles[K]`` it
         # tiled K times candidate-major for a K-candidate forward
         self.tiles: Dict[int, list] = {}
+        # a conditioned decode's inputs (``enc_embeds``): static buffers
+        # the decoder allocates and copies each request's into; the
+        # captured forward reads them (and tiles them inside the graph)
+        self.extras: Dict[str, torch.Tensor] = {}
         self.warmed = False
         self._lease: Optional[weakref.ref] = None
 

@@ -34,13 +34,14 @@ def main(argv=None) -> None:
     tcfg = TrainConfig(batch_size=args.batch, seq_len=ds.seq_len,
                        steps=args.steps, lr=args.lr, seed=args.seed,
                        ckpt_dir=args.ckpt)
-    print(f"training {cfg.name} on task '{args.task}' for {tcfg.steps} "
-          f"steps on {args.device}")
+    print(f"training {cfg.name} ({cfg.param_count() / 1e6:.1f} M params) "
+          f"on task '{args.task}' for {tcfg.steps} steps on {args.device}")
     params, history = train(cfg, tcfg, ds.batches(tcfg.batch_size),
                             device=args.device)
     n = sum(p.numel() for p in leaves(params))
-    print(f"final loss {history['loss'][-1]:.4f} "
-          f"masked-acc {history['acc'][-1]:.3f} ({n / 1e6:.1f} M params)")
+    print(f"final loss {history['loss'][-1]:.4f} aux "
+          f"{history['aux'][-1]:.4f} masked-acc {history['acc'][-1]:.3f} "
+          f"({n / 1e6:.1f} M params)")
 
 
 

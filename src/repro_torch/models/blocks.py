@@ -6,16 +6,19 @@
                    ``moe.first_k_dense`` on (the layers before it, and every
                    layer of a config with no experts, are dense);
 * hybrid (Hymba):  norm → [attention ∥ Mamba], fused mean → norm → SwiGLU;
+* encdec decoder:  norm → self-attention → norm → cross-attention over the
+                   encoder's output → norm → MLP (whisper: LayerNorm, GELU);
+                   the cross path runs only when the forward is given the
+                   encoder's output, as in the reference;
 
 with residuals.  Attention is GQA/MHA or DeepSeek-V2's MLA
 (``models/attention.py``); an MoE layer may add shared experts.  The dense
 and MoE blocks also have the fixed-shape block cache's two entry points
 (``block_capture``, ``block_cached``); a hybrid config never reaches
-them, since the decoder refuses its cache policies first.  MoE blocks
-run; their aux loss is returned on request (``return_aux``) but not
-trained yet (ROADMAP.md queue 1 item 10).  The other families
-(SSM/xLSTM, encoder-decoder, VLM) raise ``NotImplementedError`` until
-their slice (ROADMAP.md queue 1 item 9).
+them, since the decoder refuses its cache policies first.  An MoE
+block's aux loss is returned on request (``return_aux``: the trainer's
+objective).  The other families (SSM/xLSTM, VLM) raise
+``NotImplementedError`` until their slice (ROADMAP.md queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.attention import (KVCache, attention_cached,
                                           attention_capture,
                                           attention_forward, init_attention)
@@ -36,14 +40,14 @@ from repro_torch.models.layers import (Params, Rope, apply_mlp, apply_norm,
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a block family not ported yet."""
-    if cfg.arch_type not in ("dense", "hybrid", "moe") \
-            or cfg.is_encdec or not cfg.d_ff \
+    if cfg.arch_type not in ("dense", "hybrid", "moe", "encdec") \
+            or not cfg.d_ff \
             or (cfg.arch_type == "hybrid" and cfg.ssm is None):
         raise NotImplementedError(
             f"{cfg.name!r} (arch_type={cfg.arch_type!r}): the port runs the "
             f"dense and hybrid blocks only so far, MoE feed-forwards (with "
-            f"or without shared experts) and MLA (ROADMAP.md queue 1 "
-            f"item 9)")
+            f"or without shared experts), MLA and the encoder-decoder "
+            f"(ROADMAP.md queue 1 item 9)")
 
 
 def _is_moe_layer(cfg: ModelConfig, idx: int) -> bool:
@@ -68,7 +72,27 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, idx: int, device,
         p["moe"] = moe_lib.init_moe(gen, cfg, device, dtype)
     else:
         p["mlp"] = init_mlp(gen, cfg, device, dtype)
+    if cfg.is_encdec:
+        p["norm_x"] = init_norm(cfg, device)
+        p["xattn"] = init_attention(gen, cfg, device, dtype)
     return p
+
+
+def cross_attention(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """The decoder's queries x (B, Lq, d) over the encoder's output
+    enc_out (B, Lk, d): no RoPE, no band, scale head_dim^-½, through the
+    flash kernel at Lq ≠ Lk."""
+    dt = x.dtype
+    b, lq, _ = x.shape
+    lk = enc_out.shape[1]
+    hd, nq, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    enc = enc_out.to(dt)
+    q = (x @ p["wq"].to(dt)).reshape(b, lq, nq, hd)
+    k = (enc @ p["wk"].to(dt)).reshape(b, lk, nkv, hd)
+    v = (enc @ p["wv"].to(dt)).reshape(b, lk, nkv, hd)
+    out = flash_attention(q, k, v)
+    return out.reshape(b, lq, -1) @ p["wo"].to(dt)
 
 
 def _feed_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, idx: int,
@@ -85,11 +109,14 @@ def _feed_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, idx: int,
 
 
 def block_forward(p: Params, x: torch.Tensor, rope, cfg: ModelConfig,
-                  idx: int, return_aux: bool = False):
+                  idx: int, return_aux: bool = False,
+                  enc_out: Optional[torch.Tensor] = None):
     """x (B, L, d) -> x', or (x', aux) with ``return_aux``: an MoE layer's
     aux loss (f32 scalar), None for a dense or hybrid layer.  ``rope``:
-    the forward's ``Rope`` tables, or the (B, L) positions to build them
-    from.  An MoE layer dispatches at capacity factor 1.25."""
+    the forward's ``Rope`` tables (None: sinusoidal positions), or the
+    (B, L) positions to build them from.  An MoE layer dispatches at
+    capacity factor 1.25.  An encoder-decoder's layer attends over
+    ``enc_out`` (B, S, d) when it is given."""
     if isinstance(rope, torch.Tensor):
         rope = rope_tables(rope, model_rotary_dim(cfg), cfg, x.dtype)
     h = apply_norm(p["norm1"], x, cfg)
@@ -100,17 +127,22 @@ def block_forward(p: Params, x: torch.Tensor, rope, cfg: ModelConfig,
                        + ssm_out * p["mix_ssm"].to(x.dtype))
     else:
         x = x + attn_out
+    if cfg.is_encdec and enc_out is not None:
+        x = x + cross_attention(p["xattn"], apply_norm(p["norm_x"], x, cfg),
+                                enc_out, cfg)
     x, aux = _feed_forward(p, x, cfg, idx, 1.25, return_aux)
     return (x, aux) if return_aux else x
 
 
 # --------------------------------------------------------------------------
-# fixed-shape block cache (cache_policy = prefix | dual; dense and MoE
-# blocks, whose MoE dispatches at capacity factor 2.0, as the reference's)
+# fixed-shape block cache (cache_policy = prefix | dual; dense, MoE and
+# unconditioned encoder-decoder blocks (the decoder refuses conditioning
+# extras under a cache policy, as the reference's does); MoE dispatches at
+# capacity factor 2.0, as the reference's)
 # --------------------------------------------------------------------------
 
 def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "moe"):
+    if cfg.arch_type not in ("dense", "moe", "encdec"):
         raise ValueError(
             f"{cfg.name!r} (arch_type={cfg.arch_type!r}): the block cache "
             f"needs an attention-only block")

@@ -1,10 +1,11 @@
-"""Shared layers: RMSNorm (and per head, for q/k), standard and half
-RoPE, SwiGLU, embedding and LM head.
+"""Shared layers: RMSNorm (and per head, for q/k) and LayerNorm,
+standard and half RoPE and sinusoidal positions, SwiGLU and the GELU MLP,
+embedding and LM head (its own matrix, or tied to the embedding).
 
 Functional style like the reference (``src/repro/models/layers.py``):
 ``init_*`` builds a dict of tensors, the matching apply function reads it.
-Matrices are stored in the compute dtype (``cfg.dtype``); norm scales stay
-float32.  Every projection casts its operands to the compute dtype and
+Matrices are stored in the compute dtype (``cfg.dtype``); norm scales and
+biases and the sinusoidal table stay float32.  Every projection casts its operands to the compute dtype and
 accumulates in float32 (cuBLAS does for bf16; the CPU runs f32 configs),
 rounding the result back to the compute dtype, as the reference's
 ``matmul`` does.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -55,19 +57,28 @@ def matmul(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype):
 # --------------------------------------------------------------------------
 
 def init_norm(cfg: ModelConfig, device) -> Params:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"norm={cfg.norm!r}: the port has RMSNorm only so far "
-            f"(LayerNorm comes with the other architectures, ROADMAP.md)")
-    return {"scale": torch.ones(cfg.d_model, dtype=torch.float32,
-                                device=device)}
+    """RMSNorm's f32 scale; LayerNorm (``cfg.norm == "layernorm"``) adds
+    an f32 bias."""
+    p = {"scale": torch.ones(cfg.d_model, dtype=torch.float32,
+                             device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(cfg.d_model, dtype=torch.float32,
+                                device=device)
+    return p
 
 
 def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig,
                eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in f32, cast back to x's dtype."""
+    """RMSNorm, or LayerNorm where the params have a bias (the
+    reference's test): in f32, cast back to x's dtype.  LayerNorm takes
+    the population variance and the reference's eps of 1e-6 (not
+    torch's 1e-5)."""
     if "bias" in p:
-        raise NotImplementedError("LayerNorm is not ported yet (ROADMAP.md)")
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"]
+                + p["bias"]).to(x.dtype)
     return rms_norm_headwise(x, p["scale"], eps)
 
 
@@ -99,17 +110,21 @@ class Rope(NamedTuple):
 
 
 def _check_rope(cfg: ModelConfig) -> None:
-    if cfg.rope not in ("standard", "half"):
+    if cfg.rope not in ("standard", "half", "sinusoidal"):
         raise NotImplementedError(
             f"rope={cfg.rope!r}: only 'standard' and 'half' RoPE are "
-            f"ported; the other modes come with the other architectures "
-            f"(ROADMAP.md queue 1 item 9)")
+            f"ported (and sinusoidal positions, which add to the "
+            f"embedding and turn nothing); the other modes come with the "
+            f"other architectures (ROADMAP.md queue 1 item 9)")
 
 
 def rotary_dim(cfg: ModelConfig, head_dim: int) -> int:
-    """The dims of a head that RoPE turns: all of them ('standard'), or
-    the first half ('half': ChatGLM's 2d RoPE; the rest pass through)."""
+    """The dims of a head that RoPE turns: all of them ('standard'), the
+    first half ('half': ChatGLM's 2d RoPE; the rest pass through), or
+    none ('sinusoidal': the positions are added at the embedding)."""
     _check_rope(cfg)
+    if cfg.rope == "sinusoidal":
+        return 0
     return head_dim // 2 if cfg.rope == "half" else head_dim
 
 
@@ -123,21 +138,27 @@ def model_rotary_dim(cfg: ModelConfig) -> int:
 
 
 def rope_tables(positions: torch.Tensor, rot_dim: int, cfg: ModelConfig,
-                dtype: torch.dtype) -> Rope:
+                dtype: torch.dtype) -> Optional[Rope]:
     """cos/sin of ``positions`` (B, L) over ``rot_dim`` rotary dims
     (``rotary_dim``) in f32, cast to ``dtype``: built once per forward
-    and shared by every layer's q and k."""
+    and shared by every layer's q and k.  None under sinusoidal
+    positions, which turn nothing (``rotate`` passes x through)."""
     _check_rope(cfg)
+    if cfg.rope == "sinusoidal":
+        return None
     inv = rope_frequencies(rot_dim, cfg.rope_theta, positions.device)
     ang = positions.float()[..., None] * inv                   # (B, L, rot/2)
     return Rope(torch.cos(ang)[:, :, None, :].to(dtype),
                 torch.sin(ang)[:, :, None, :].to(dtype))
 
 
-def rotate(x: torch.Tensor, rope: Rope) -> torch.Tensor:
+def rotate(x: torch.Tensor, rope: Optional[Rope]) -> torch.Tensor:
     """x (B, L, H, hd) rotated by the tables, split halves (not
     interleaved pairs) of its first rot = 2 × the tables' width dims; the
-    dims past rot pass through ('half' RoPE)."""
+    dims past rot pass through ('half' RoPE).  No tables (sinusoidal
+    positions): x as it is."""
+    if rope is None:
+        return x
     hd, rot = x.shape[-1], 2 * rope.cos.shape[-1]
     xr = x if rot == hd else x[..., :rot]
     x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]
@@ -154,27 +175,46 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
                                  cfg, x.dtype))
 
 
+def sinusoidal_embedding(length: int, dim: int) -> torch.Tensor:
+    """The absolute position table (length, dim): sin ‖ cos of pos /
+    10000^(2i/dim), computed in float64 numpy and then cast to f32, as
+    the reference computes it."""
+    pos = np.arange(length)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / dim)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(emb.astype(np.float32))
+
+
 # --------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU / GELU)
 # --------------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, device, dtype,
              d_ff: Optional[int] = None) -> Params:
-    """A SwiGLU of hidden width ``d_ff`` (default ``cfg.d_ff``)."""
-    if cfg.act != "silu":
-        raise NotImplementedError(
-            f"act={cfg.act!r}: only SwiGLU is ported (ROADMAP.md)")
+    """A SwiGLU (``act="silu"``: gate, up, down) or a GELU MLP (fc1, fc2;
+    no biases, as the reference's) of hidden width ``d_ff`` (default
+    ``cfg.d_ff``)."""
     d, ff = cfg.d_model, d_ff or cfg.d_ff
-    return {"gate": dense_init(gen, (d, ff), device, dtype),
-            "up": dense_init(gen, (d, ff), device, dtype),
-            "down": dense_init(gen, (ff, d), device, dtype)}
+    if cfg.act == "silu":
+        return {"gate": dense_init(gen, (d, ff), device, dtype),
+                "up": dense_init(gen, (d, ff), device, dtype),
+                "down": dense_init(gen, (ff, d), device, dtype)}
+    return {"fc1": dense_init(gen, (d, ff), device, dtype),
+            "fc2": dense_init(gen, (ff, d), device, dtype)}
 
 
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """SwiGLU, or GELU in the tanh approximation (``jax.nn.gelu``'s
+    default), in the compute dtype."""
     dt = x.dtype
-    h = torch.nn.functional.silu(matmul(x, p["gate"], dt)) \
-        * matmul(x, p["up"], dt)
-    return matmul(h, p["down"], dt)
+    if "gate" in p:
+        h = torch.nn.functional.silu(matmul(x, p["gate"], dt)) \
+            * matmul(x, p["up"], dt)
+        return matmul(h, p["down"], dt)
+    h = torch.nn.functional.gelu(matmul(x, p["fc1"], dt),
+                                 approximate="tanh")
+    return matmul(h, p["fc2"], dt)
 
 
 # --------------------------------------------------------------------------
@@ -183,18 +223,35 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def init_embed(gen: torch.Generator, cfg: ModelConfig, device,
                dtype) -> Params:
-    if cfg.tie_embeddings or cfg.rope == "sinusoidal":
-        raise NotImplementedError(
-            "tied or sinusoidal embeddings are not ported yet (ROADMAP.md)")
-    return {"tok": dense_init(gen, (cfg.vocab_size, cfg.d_model), device,
-                              dtype, scale=0.02),
-            "head": dense_init(gen, (cfg.d_model, cfg.vocab_size), device,
-                               dtype)}
+    """The token table; the head (d, V) unless ``tie_embeddings`` (then
+    the head is ``tok``ᵀ); the f32 sinusoidal table ``pos``
+    (``max_seq_len`` rows) under ``rope="sinusoidal"``."""
+    p = {"tok": dense_init(gen, (cfg.vocab_size, cfg.d_model), device,
+                           dtype, scale=0.02)}
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), device,
+                               dtype)
+    if cfg.rope == "sinusoidal":
+        p["pos"] = sinusoidal_embedding(cfg.max_seq_len,
+                                        cfg.d_model).to(device)
+    return p
 
 
-def embed_tokens(p: Params, tokens: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
-    return p["tok"][tokens].to(compute_dtype(cfg))
+def embed_tokens(p: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                 offset: int = 0) -> torch.Tensor:
+    """tokens (B, L) -> (B, L, d) in the compute dtype; with a sinusoidal
+    table, plus its rows ``offset .. offset + L`` (the tokens' positions:
+    a cached window's start its offset in the canvas)."""
+    x = p["tok"][tokens].to(compute_dtype(cfg))
+    if "pos" in p:
+        length = tokens.shape[1]
+        if offset + length > p["pos"].shape[0]:
+            raise ValueError(
+                f"positions {offset}..{offset + length} run past the "
+                f"sinusoidal table's {p['pos'].shape[0]} rows "
+                f"(max_seq_len)")
+        x = x + p["pos"][offset:offset + length].to(x.dtype)
+    return x
 
 
 class HeadMatmul(torch.autograd.Function):
@@ -222,9 +279,10 @@ def lm_head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     round the logits to bf16 and move argmaxes and margins, so on the card
     the product goes through cuBLAS's f32-output bf16 GEMM
     (``HeadMatmul``); on the CPU the operands are widened to f32, which
-    computes the same exact products."""
+    computes the same exact products.  A tied head is the token table
+    transposed (a view: cuBLAS reads it transposed)."""
     dt = compute_dtype(cfg)
-    w = p["head"].to(dt)
+    w = p["tok"].to(dt).t() if cfg.tie_embeddings else p["head"].to(dt)
     x2 = x.to(dt).reshape(-1, x.shape[-1])
     if dt == torch.float32:
         logits = x2 @ w

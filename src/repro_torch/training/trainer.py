@@ -7,7 +7,11 @@ recomputes the probabilities in its backward
 (``kernels/flash_attention.py``), and the bf16 LM head's f32-output GEMM
 (``models/layers.py:HeadMatmul``), and for Hymba the selective-scan
 kernel, whose ``autograd.Function`` recomputes the state chunk by chunk
-in its backward (``kernels/selective_scan.py``).  The confidence kernel
+in its backward (``kernels/selective_scan.py``).  An MoE model's
+objective is the masked cross-entropy plus its layers' router aux loss,
+as the reference's: autograd reaches the experts through the dispatch's
+gathers and the router through the sorted gates and the aux term
+(``models/moe.py``).  The confidence kernel
 is never on a training path (it raises under grad).  Master weights are
 f32; the forward casts them to the compute dtype at each matmul.
 
@@ -38,17 +42,6 @@ from repro_torch.training.optimizer import (AdamWState, adamw_init,
 Corruption = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for an MoE config: the reference adds
-    the router's aux loss to the objective, which the port does not train
-    yet, and it never trains an MoE model without it."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name!r}: MoE training needs the router's aux loss in the "
-            f"objective, which the port does not train yet (ROADMAP.md "
-            f"queue 1 item 10)")
-
-
 def corrupt(generator: torch.Generator, tokens: torch.Tensor,
             maskable: torch.Tensor, cfg: ModelConfig) -> Corruption:
     """Draw a step's corruption: t per row, then the masked positions."""
@@ -59,8 +52,12 @@ def corrupt(generator: torch.Generator, tokens: torch.Tensor,
 
 class TrainStep:
     """``step(params, opt_state, generator, batch) -> (params, opt_state,
-    metrics)``; ``batch`` = {tokens (B, L) int, maskable (B, L) bool}, on
-    the params' device.
+    metrics)``; ``batch`` = {tokens (B, L) int, maskable (B, L) bool,
+    and each key of ``extra_inputs``}, on the params' device.  The
+    objective is ``loss + aux`` (the MoE layers' aux loss, 0 without
+    them); the metrics are the masked cross-entropy ``loss`` alone, ``aux``
+    and ``acc``.  ``extra_inputs`` names the batch's conditioning inputs
+    that go to the forward (an encoder-decoder's ``("enc_embeds",)``).
 
     ``bf16_params=True`` casts the f32 masters to bf16 once at the top of
     the loss (the reference's mixed-precision ZeRO option); the optimizer
@@ -69,30 +66,36 @@ class TrainStep:
     and the metrics."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
+                 extra_inputs: Tuple[str, ...] = (),
                  bf16_params: bool = False, microbatch: int = 1):
-        check_trainable(cfg)
         self.cfg, self.tcfg = cfg, tcfg
+        self.extra_inputs = tuple(extra_inputs)
         self.bf16_params, self.microbatch = bf16_params, microbatch
         self.sched = cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.steps)
 
     def loss(self, params, batch: Dict[str, torch.Tensor],
              corruption: Corruption):
-        """(loss, metrics) of one (micro)batch under ``corruption``."""
+        """(objective, metrics) of one (micro)batch under ``corruption``:
+        the objective is the masked cross-entropy plus the aux loss."""
         tokens = batch["tokens"]
         if self.bf16_params:
             params = tree_map(lambda p: p.to(torch.bfloat16)
                               if p.dtype == torch.float32 else p, params)
         corrupted, masked, t = corruption
-        logits = forward(params, corrupted, self.cfg)
+        kw = {k: batch[k] for k in self.extra_inputs}
+        logits, aux = forward(params, corrupted, self.cfg, return_aux=True,
+                              **kw)
         loss, _ = masked_cross_entropy(logits, tokens, masked, t)
         acc = token_accuracy(logits.detach(), tokens, masked)
-        # no MoE aux loss: MoE blocks run, but their aux loss is not
-        # trained yet (check_trainable refuses an MoE config)
-        return loss, {"loss": loss.detach(), "acc": acc}
+        return loss + aux, {"loss": loss.detach(), "aux": aux.detach(),
+                            "acc": acc}
 
     def grads(self, params, batch: Dict[str, torch.Tensor],
               corruption: Corruption):
-        """(gradients in the tree of ``params``, metrics)."""
+        """(gradients of the objective in the tree of ``params``, metrics).
+        With ``microbatch > 1`` each slice is a forward of its own (an MoE
+        layer's capacity is reckoned from the slice's tokens, as in the
+        reference), and the gradients and metrics are the slices' means."""
         leaf = leaves(params)
         n = self.microbatch
         if n == 1:
@@ -136,9 +139,10 @@ class TrainStep:
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    extra_inputs: Tuple[str, ...] = (),
                     bf16_params: bool = False,
                     microbatch: int = 1) -> TrainStep:
-    return TrainStep(cfg, tcfg, bf16_params=bf16_params,
+    return TrainStep(cfg, tcfg, extra_inputs, bf16_params=bf16_params,
                      microbatch=microbatch)
 
 
@@ -168,12 +172,11 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
     ``device``.  ``params`` (default: ``init_model`` from ``tcfg.seed``)
     are copied to f32 masters.  Returns the trained f32 params, with
     ``requires_grad`` off (ready for ``Decoder`` and ``ServingEngine``),
-    and a history of ``loss``, ``acc`` and ``seconds`` (since the first
-    step) at each logged step (``step`` 1, every ``tcfg.log_every``-th and
+    and a history of ``loss``, ``aux``, ``acc`` and ``seconds`` (since the
+    first step) at each logged step (``step`` 1, every ``tcfg.log_every``-th and
     the last).  ``eval_fn(params, step)`` runs every
     ``tcfg.eval_every`` steps.  With ``tcfg.ckpt_dir`` the result is saved
     to ``final.npz`` there, in the reference's layout."""
-    check_trainable(cfg)
     dev = resolve_device(device)
     generator = torch.Generator(device=dev).manual_seed(tcfg.seed)
     if params is None:
@@ -181,7 +184,7 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
     params = masters(params)
     opt_state = adamw_init(params)
     step_fn = make_train_step(cfg, tcfg)
-    history = {"step": [], "loss": [], "acc": [], "seconds": []}
+    history = {"step": [], "loss": [], "aux": [], "acc": [], "seconds": []}
     t0 = time.perf_counter()
     for step in range(1, tcfg.steps + 1):
         batch = to_device_batch(next(batches), dev)
@@ -191,6 +194,7 @@ def train(cfg: ModelConfig, tcfg: TrainConfig,
             loss, acc = float(metrics["loss"]), float(metrics["acc"])
             history["step"].append(step)
             history["loss"].append(loss)
+            history["aux"].append(float(metrics["aux"]))
             history["acc"].append(acc)
             history["seconds"].append(time.perf_counter() - t0)
             if log:

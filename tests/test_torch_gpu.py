@@ -1163,3 +1163,149 @@ def test_deepseek_graph_decode_matches_eager(cuda, policy):
     assert torch.equal(got, want)
     assert (gs.steps, gs.forward_equivalents) == (ws.steps,
                                                   ws.forward_equivalents)
+
+
+# --------------------------------------------------------------------------
+# MoE training and the encoder-decoder (whisper) on the card
+# --------------------------------------------------------------------------
+
+# (B, Lq, Lk, H, G, dqk, dv, dtype): DeepSeek-V2's MLA heads (q/k 192, v
+# 128) and whisper's cross-attention (128 queries over 1500 frames)
+NEW_FLASH_GRAD_CASES = [(2, 128, 128, 128, 128, 192, 128, torch.bfloat16),
+                        (2, 128, 1500, 16, 16, 64, 64, torch.bfloat16),
+                        (2, 128, 1500, 16, 16, 64, 64, torch.float32)]
+
+
+@pytest.mark.parametrize("b,lq,lk,h,g,d,dv,dtype", NEW_FLASH_GRAD_CASES)
+def test_flash_gradient_at_mla_and_cross_shapes(cuda, b, lq, lk, h, g, d,
+                                                dv, dtype):
+    """As ``test_flash_gradient_matches_plain``, at MLA's (192, 128) and
+    at whisper's cross shape (Lq != Lk, a ragged key tail: 1500 = 23·64 +
+    28)."""
+    gen = torch.Generator(device=cuda).manual_seed(lk + d)
+    q, k, v = (torch.randn(*s, generator=gen, device=cuda).to(dtype)
+               for s in ((b, lq, h, d), (b, lk, g, d), (b, lk, g, dv)))
+    dout = torch.randn(b, lq, h, dv, generator=gen, device=cuda).to(dtype)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = fa_mod.launches
+    got = torch.autograd.grad(fa_mod.flash_attention(*ins), ins, dout)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == before + 1
+    ref_ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(fa_mod.attention_ref(*ref_ins), ref_ins,
+                               dout)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for gt, wt in zip(got, want):
+        assert gt.dtype == dtype and gt.shape == wt.shape
+        assert _rel(gt, wt) <= tol
+
+
+# whisper-medium's attention (16 MHA heads at d=64): the encoder's 1500
+# frames at B=2 and at the K·B fold, and the cross shape
+@pytest.mark.parametrize("b,lq,lk", [(2, 1500, 1500), (4, 1500, 1500),
+                                     (2, 128, 1500)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_whisper_shapes(cuda, b, lq, lk, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(lq)
+    q = torch.randn(b, lq, 16, 64, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(b, lk, 16, 64, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    got = fa_mod.flash_attention(q, k, v)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(),
+                               fa_mod.attention_ref(q, k, v).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_confidence_kernel_at_whisper_shape(cuda, dtype):
+    """256 rows of V = 51865 (odd: rows start off the 16-byte
+    boundary)."""
+    _check_conf_kernel(_conf_logits(cuda, 256, 51865, dtype, 51865))
+
+
+WHISPER_STRATS = [dict(strategy="probability"),
+                  dict(strategy="fdm", gamma=0.0),
+                  dict(strategy="fdm_a", eta1=0.0235, eta2=0.0231,
+                       gamma1=0.0, n_max=3)]
+
+
+@pytest.mark.parametrize("kw", WHISPER_STRATS, ids=lambda kw: kw["strategy"])
+def test_whisper_conditioned_graph_decode_matches_eager(cuda, kw):
+    """whisper-tiny (f32) decoding with ``enc_embeds``: the whole-request
+    and the per-block graph drivers (the frames a static buffer of the
+    run, tiled inside the captured forward) equal the eager driver, twice
+    (the second decode reuses the graphs with other frames copied in);
+    and the CPU's eager decode of the same weights."""
+    import dataclasses
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder
+    cfg, params, prompt = _reduced(cuda, "whisper-medium")
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    frames = [torch.randn(2, cfg.encdec.encoder_seq, cfg.d_model,
+                          generator=gen, device=cuda) for _ in range(2)]
+    dcfg = DecodeConfig(gen_length=32, block_size=8, steps=32, **kw)
+    want = [Decoder(params, cfg, dataclasses.replace(dcfg, fused_loop=False),
+                    device=cuda).generate(None, prompt, enc_embeds=f)
+            for f in frames]
+    assert not torch.equal(want[0][0], want[1][0])
+    for over in (dict(fused_blocks=False), {}):
+        dec = Decoder(params, cfg, dataclasses.replace(dcfg, **over),
+                      device=cuda)
+        for f, (out, st) in zip(frames, want):
+            got, gst = dec.generate(None, prompt, enc_embeds=f)
+            assert torch.equal(got, out)
+            assert gst.steps == st.steps and gst.phase_counts == \
+                st.phase_counts
+            assert gst.forward_equivalents == st.forward_equivalents
+    out, _ = Decoder(_tree_to(params, "cpu"), cfg, dataclasses.replace(dcfg, fused_loop=False),
+                     device="cpu").generate(None, prompt.cpu(),
+                                            enc_embeds=frames[0].cpu())
+    assert torch.equal(out, want[0][0].cpu())
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "deepseek-v2-236b"])
+def test_moe_train_step_on_card_matches_cpu(cuda, name):
+    """One f32 MoE train step (the objective: loss + the router's aux
+    loss) on the card against the CPU's, same weights, batch and
+    corruption: loss and aux within rel 1e-5, every gradient leaf within
+    1e-4 of its max |g| (the router's included)."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.convert import to_flat
+    from repro_torch.data import CharTokenizer, TaskDataset
+    from repro_torch.models import init_model
+    from repro_torch.training import make_train_step
+    from repro_torch.training.trainer import corrupt, masters, to_device_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(name).reduced()
+    ds = TaskDataset("sum", CharTokenizer(cfg.vocab_size))
+    tcfg = TrainConfig(batch_size=16, seq_len=ds.seq_len, steps=10)
+    batch = to_device_batch(next(ds.batches(16)), "cpu")
+    corruption = corrupt(torch.Generator().manual_seed(0), batch["tokens"],
+                         batch["maskable"], cfg)
+    init = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    step = make_train_step(cfg, tcfg)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = masters(_tree_to(init, dev))
+        grads, met = step.grads(params, {k: v.to(dev) for k, v in
+                                         batch.items()},
+                                tuple(c.to(dev) for c in corruption))
+        out[str(dev)] = (float(met["loss"]), float(met["aux"]),
+                         to_flat(grads))
+    (loss, aux, g), (card_loss, card_aux, card_g) = out["cpu"], \
+        out[str(cuda)]
+    assert aux > 0
+    assert card_loss == pytest.approx(loss, rel=1e-5)
+    assert card_aux == pytest.approx(aux, rel=1e-5)
+    for key, want in g.items():
+        scale = max(abs(want).max(), 1e-30)
+        assert abs(card_g[key] - want).max() <= 1e-4 * scale, key
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)

@@ -207,10 +207,27 @@ def test_entry_points_default_to_the_card():
     (dict(arch_type="vlm"), "dense and hybrid blocks only"),
     (dict(arch_type="ssm"), "dense and hybrid blocks only"),
     (dict(rope="mrope"), "only 'standard' and 'half' RoPE"),
-    (dict(norm="layernorm"), "RMSNorm only"),
+    # LayerNorm is ported now: the id of its old refusal stays, and the
+    # case checks that a LayerNorm config builds and matches the reference
+    pytest.param(dict(norm="layernorm"), None, id="over3-RMSNorm only"),
 ])
 def test_unported_architectures_raise(over, match):
     cfg = dataclasses.replace(get_config("llada-8b-tiny"), **over)
+    if match is None:
+        jcfg = dataclasses.replace(jax_get_config("llada-8b-tiny"), **over)
+        jp = jax.device_get(jax_init_model(jax.random.PRNGKey(0), jcfg))
+        tp = from_jax_params(jp, device="cpu")
+        ours = init_model(cfg, device="cpu")
+        assert "bias" in ours["blocks"][0]["norm1"]
+        assert {k: v.shape for k, v in to_flat(ours).items()} == \
+            {k: v.shape for k, v in _flatten(jp).items()}
+        tokens = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 10)).astype(np.int32)
+        want = jax_forward(jp, jnp.asarray(tokens), jcfg)[0]
+        got = forward(tp, torch.from_numpy(tokens).long(), cfg)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-4)
+        return
     with pytest.raises(NotImplementedError, match=match):
         params = init_model(cfg, device="cpu")
         forward(params, torch.zeros(1, 4, dtype=torch.long), cfg)

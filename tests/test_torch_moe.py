@@ -3,7 +3,7 @@ the CPU: the config, ``capacity``, the router's top k on tied
 probabilities, the dispatch with and without overflow, the aux loss, the
 weights bridge with the per-layer ``moe`` group, the forwards with the
 sliding-window band live, the block cache, decodes on every driver, and
-the trainer's refusal.
+training.
 
 Same weights (the reference's ``init_model``, bridged), same inputs
 (numpy).  Tolerances: routing (ids, counts, slots, drops) exact; MoE
@@ -13,7 +13,9 @@ and f32 sums in another order differ by ~1e-4 absolute) and the aux
 loss 1e-6 in f32; logits
 atol = rtol = 1e-4, as ``test_torch_archs.py``; tokens, steps,
 forward-equivalents and FDM-A phase counts exact against the
-reference's host driver.
+reference's host driver.  The trainer's step on an MoE config (its
+reference parity is in ``test_torch_train.py``), the parameter counts of
+every registered config and the launcher on ``mixtral-8x22b-tiny``.
 """
 import dataclasses
 
@@ -356,16 +358,66 @@ def test_decodes_match_reference_on_every_driver(strategy, policy):
 
 
 def test_trainer_refuses_an_moe_config():
-    """The reference trains MoE with the aux loss in the objective; the
-    port refuses rather than train without it.  (Shared experts are
-    ported; an SSM/xLSTM stack is still refused at init.)"""
+    """The id of the test that held the old refusal: the trainer now
+    trains an MoE config with the router's aux loss in the objective, so
+    each of its three entry points builds and takes a step (the reference
+    parity of that step is ``test_torch_train.py``'s); an SSM/xLSTM stack
+    is still refused at init, and the card is still the default."""
     _, cfg, _, tp = _model("reduced")
-    for make in (lambda: TrainStep(cfg, TrainConfig()),
-                 lambda: make_train_step(cfg, TrainConfig()),
-                 lambda: train(cfg, TrainConfig(steps=1), iter(()),
-                               params=tp, device="cpu")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            make()
+    tcfg = TrainConfig(batch_size=2, seq_len=12, steps=1)
+    tokens = torch.randint(0, cfg.vocab_size - 1, (2, 12),
+                           generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": tokens, "maskable": torch.ones(2, 12, dtype=bool)}
+    gen = torch.Generator().manual_seed(0)
+    from repro_torch.training import adamw_init
+    from repro_torch.training.trainer import masters
+    for make in (lambda: TrainStep(cfg, tcfg),
+                 lambda: make_train_step(cfg, tcfg)):
+        params = masters(tp)
+        params, opt, met = make()(params, adamw_init(params), gen, batch)
+        assert opt.step == 1 and float(met["aux"]) > 0
+        assert np.isfinite(float(met["loss"]))
+    params, hist = train(cfg, tcfg, iter([{k: v.numpy() for k, v in
+                                           batch.items()}]),
+                         params=tp, device="cpu", log=None)
+    assert hist["step"] == [1] and hist["aux"][0] > 0
     with pytest.raises(NotImplementedError,
                        match="dense and hybrid blocks only"):
         init_model(dataclasses.replace(cfg, arch_type="ssm"), device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train(cfg, tcfg, iter(()), params=tp)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_param_counts_match_reference_for_every_config(reduced):
+    """``param_count``/``active_param_count``/``subquadratic`` equal the
+    reference's for every registered config and its ``.reduced()``."""
+    for name in list_configs():
+        jc, tc = jax_get_config(name), get_config(name)
+        if reduced:
+            jc, tc = jc.reduced(), tc.reduced()
+        assert tc.param_count() == jc.param_count(), name
+        assert tc.active_param_count() == jc.active_param_count(), name
+        assert tc.subquadratic == jc.subquadratic, name
+    full = get_config(NAME)
+    assert full.active_param_count() < full.param_count()
+    assert dataclasses.replace(full, num_layers=1).param_count() == \
+        2_906_714_112
+
+
+def test_launch_train_runs_an_moe_config_on_the_cpu():
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parents[1]
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         f"{NAME}-tiny", "--steps", "2", "--batch", "4", "--device",
+         "cpu"], env=dict(os.environ, PYTHONPATH=str(repo / "src")),
+        capture_output=True, text=True, timeout=300, cwd=repo)
+    assert res.returncode == 0, res.stderr
+    params = get_config(f"{NAME}-tiny").param_count()
+    assert f"({params / 1e6:.1f} M params)" in res.stdout
+    assert "final loss" in res.stdout and " aux " in res.stdout

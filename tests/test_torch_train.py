@@ -22,6 +22,7 @@ two packages' generators cannot draw the same bits).  Tolerances:
 * attention's backward: 1e-5 × max |g| against autograd of the plain
   version and ``jax.grad`` of the reference's ``_sdpa``.
 """
+import functools
 import os
 import subprocess
 import sys
@@ -72,10 +73,16 @@ CASES = {"llada": ("llada-8b", TESTBED, {}),
          "llada-microbatch": ("llada-8b", TESTBED, dict(microbatch=2)),
          "llada-bf16-params": ("llada-8b", TESTBED,
                                dict(bf16_params=True)),
-         "hymba-tiny": ("hymba-1.5b", {}, {})}
+         "hymba-tiny": ("hymba-1.5b", {}, {}),
+         # MoE: the objective is loss + the router's aux loss
+         "mixtral-tiny": ("mixtral-8x22b", {}, {}),
+         "mixtral-microbatch": ("mixtral-8x22b", {}, dict(microbatch=2)),
+         "mixtral-bf16-params": ("mixtral-8x22b", {},
+                                 dict(bf16_params=True)),
+         "deepseek-tiny": ("deepseek-v2-236b", {}, {})}
 # rows of the batch per case: the reference's chunked Mamba scan takes
 # seconds per row-batch of 32 on the CPU, so Hymba's step runs on 8
-ROWS = {"hymba-tiny": 8}
+ROWS = {"hymba-tiny": 8, "deepseek-tiny": 8}
 
 
 def _jflat(tree) -> dict:
@@ -120,6 +127,7 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_init(jcfg, seed: int = 0):
     """The reference's ``init_model``, compiled once (op by op it
     compiles every primitive of every leaf shape)."""
@@ -269,21 +277,25 @@ def _reference_step(jcfg, tcfg, jp, batch, corruption, bf16_params,
                                   if p.dtype == jnp.float32 else p, params)
         logits, aux = jax_forward(params, corrupted, jcfg)
         loss, _ = jax_mce(logits, tokens, masked, t)
-        return loss + aux, loss
+        return loss + aux, (loss, aux)
 
     grad_fn = jax.jit(jax.grad(loss_fn, has_aux=True))
     n = tokens.shape[0] // microbatch
-    grads, losses = None, []
+    grads, losses, auxes = None, [], []
     for i in range(microbatch):
         sl = slice(i * n, (i + 1) * n)
-        g, loss = grad_fn(jp, corrupted[sl], tokens[sl], masked[sl], t[sl])
+        g, (loss, aux) = grad_fn(jp, corrupted[sl], tokens[sl], masked[sl],
+                                 t[sl])
         grads = g if grads is None else jax.tree.map(jnp.add, grads, g)
         losses.append(float(loss))
+        auxes.append(float(aux))
     grads = jax.tree.map(lambda a: a / microbatch, grads)
     new_p, opt = _jax_adamw(tcfg)(grads, jax_adamw_init(jp), jp)
-    return float(np.mean(losses)), grads, new_p, opt
+    return (float(np.mean(losses)), float(np.mean(auxes)), grads, new_p,
+            opt)
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_adamw(tcfg):
     """The reference's ``adamw_update`` under ``tcfg``, compiled once (op
     by op it compiles every primitive of every leaf shape)."""
@@ -333,7 +345,7 @@ def _step_matches_reference(task, case):
     t = jax_sample_mask_ratio(r1, rows)
     corrupted, masked = jax_apply_mask(r2, jnp.asarray(batch["tokens"]), t,
                                        jcfg, jnp.asarray(batch["maskable"]))
-    want_loss, want_g, want_p, want_opt = _reference_step(
+    want_loss, want_aux, want_g, want_p, want_opt = _reference_step(
         jcfg, JaxTrainConfig(**vars(tcfg)), jp, batch,
         (corrupted, masked, t), kw.get("bf16_params", False),
         kw.get("microbatch", 1))
@@ -346,6 +358,10 @@ def _step_matches_reference(task, case):
                        (corrupted, masked, t))
     grads, metrics = step.grads(params, tb, corruption)
     assert float(metrics["loss"]) == pytest.approx(want_loss, rel=1e-5)
+    # the aux term: 0 without MoE layers, else near its balanced value
+    # of router_aux_coef (plus the z-loss) in both packages
+    assert float(metrics["aux"]) == pytest.approx(want_aux, rel=1e-6)
+    assert (want_aux > 0) == cfg.is_moe
     got_g, ref_g = to_flat(grads), _jflat(want_g)
     assert sorted(got_g) == sorted(ref_g)
     for key, ref in ref_g.items():
