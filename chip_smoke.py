@@ -40,7 +40,11 @@ Phases, in order; any failure raises and the script exits non-zero:
              over its encoder's 1500 frames at B=2 and at the K-candidate
              fold's B=4, and the cross shape, 128 queries over the 1500
              frames, bf16 and f32; ``WHISPER_CONF_SHAPES``: 256 x 51865,
-             f32 and bf16);
+             f32 and bf16); and qwen2-vl-72b's (``VLM_ATTN_SHAPES``: 64
+             heads over 8 at d=128 over 1024 patches + 128 text positions,
+             bf16 and f32; ``VLM_CONF_SHAPES``: 256 x 152064) and
+             xlstm-125m's confidence (``XLSTM_CONF_SHAPES``: 256 x 50304),
+             f32 and bf16;
 4. reference — decodes reduced LLaDA and Hymba configs on the card
              (kernels) and on the CPU (plain versions) from the same
              weights, on the card by the eager, the per-block graph and
@@ -72,7 +76,11 @@ Phases, in order; any failure raises and the script exits non-zero:
              ``ARCH_CASES``; then reduced whisper-medium conditioned by
              seeded frame embeddings (``enc_embeds``) under ``none`` with
              every case, and unconditioned under ``prefix`` and ``dual``
-             with ``ARCH_CASES``;
+             with ``ARCH_CASES``; then reduced qwen2-vl-72b (M-RoPE)
+             conditioned by 16 seeded patch embeddings (``patch_embeds``)
+             under ``none`` and text-only under ``prefix`` and ``dual``,
+             and reduced xlstm-125m with the pattern "ms" (an mLSTM and an
+             sLSTM layer) under ``none``, each with ``ARCH_CASES``;
 5. serving — full-width, full-depth LLaDA-8B, then Hymba-1.5B (random
              bf16 weights from a seed; LLaDA's weights and graphs are
              freed first) behind ``ServingEngine`` on the graph drivers
@@ -115,7 +123,17 @@ Phases, in order; any failure raises and the script exits non-zero:
              measured on a second; 72 flash launches a forward call; one
              profiled fdm request by kernel group, and eager forwards
              split into the encoder, the cross K/V projections and the
-             rest);
+             rest); then full-width qwen2-vl-72b cut to ``VLM_LAYERS`` (8)
+             of its 80 layers decoding with 1024 seeded bf16 patch
+             embeddings through ``Decoder.generate`` on the graph drivers
+             (``vlm_phase``: one B=2 request per strategy, captured on a
+             first pass, measured on a second; 8 flash launches a forward
+             call; one profiled fdm request by kernel group; the
+             conditioned forwards on the card's clock), then served
+             text-only under ``none``, ``prefix`` and ``dual``; then
+             full-width, full-depth xlstm-125m (``xlstm_phase``: 12 layers,
+             layer 6 the sLSTM) served under ``none``, its forwards timed
+             and one profiled fdm request by kernel group;
 6. KV A/B  — (between LLaDA's serving and Hymba's) one B=2 request at the
              reference's ``BENCH_kv_cache.json`` geometry (prompt 128,
              gen 128, block 32, probability) on full-width LLaDA-8B under
@@ -212,6 +230,7 @@ of JAX or of the reference package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -338,6 +357,20 @@ WHISPER_ATTN_SHAPES = tuple(
     for dt in ("bfloat16", "float32"))
 WHISPER_CONF_SHAPES = ((MAX_BATCH * CANVAS, 51865, "float32"),
                        (MAX_BATCH * CANVAS, 51865, "bfloat16"))
+# qwen2-vl-72b (64 heads over 8 at d=128, M-RoPE, V=152064) served cut to
+# VLM_LAYERS of its 80 layers, conditioned by VLM_PATCHES seeded patch
+# embeddings in front of the text: its attention (B, Lq, Lk, H, G, d,
+# window, q_offset, dtype) over the longest canvas (1024 patches + 128
+# text positions) in bf16 and f32; its confidence at the serving batch's
+# 256 rows x V = 152064, and xlstm-125m's at V = 50304, f32 and bf16
+VLM_LAYERS, VLM_PATCHES = 8, 1024
+VLM_ATTN_SHAPES = tuple(
+    (MAX_BATCH, VLM_PATCHES + CANVAS, VLM_PATCHES + CANVAS, 64, 8, 128, 0, 0,
+     dt) for dt in ("bfloat16", "float32"))
+VLM_CONF_SHAPES = ((MAX_BATCH * CANVAS, 152064, "float32"),
+                   (MAX_BATCH * CANVAS, 152064, "bfloat16"))
+XLSTM_CONF_SHAPES = ((MAX_BATCH * CANVAS, 50304, "float32"),
+                     (MAX_BATCH * CANVAS, 50304, "bfloat16"))
 # selective-scan shapes of the kernel phase, (B, L, di, N, x dtype), Δ/B/C
 # f32: Hymba-1.5B's Mamba branch at the scoring and K-candidate batches, a
 # ragged L and di in f32, and one 2048-token row (Hymba's window is 1024)
@@ -715,7 +748,8 @@ def reference_phase(torch, name: str, policies, over=None,
     1e-5).  A q/k norm's scales (and MLA's latent norms') are drawn from
     the seed in [0.5, 1.5], so that a scale the card dropped would show.
     ``conditioned``: an encoder-decoder decodes with seeded frame
-    embeddings (``enc_embeds``) of its encoder's length."""
+    embeddings (``enc_embeds``) of its encoder's length, a VLM with seeded
+    patch embeddings (``patch_embeds``) of its reduced count (16)."""
     import dataclasses
     from repro_torch.configs import DecodeConfig, get_config
     from repro_torch.core import Decoder
@@ -732,10 +766,14 @@ def reference_phase(torch, name: str, policies, over=None,
     label = name + "".join(f" {k}={v}" for k, v in (over or {}).items())
     gen = torch.Generator().manual_seed(SEED)
     prompt = torch.randint(0, cfg.vocab_size - 1, (2, 16), generator=gen)
-    frames = torch.randn(2, cfg.encdec.encoder_seq, cfg.d_model,
-                         generator=gen) if conditioned else None
-    cpu_kw = {"enc_embeds": frames} if conditioned else {}
-    card_kw = {"enc_embeds": frames.cuda()} if conditioned else {}
+    cpu_kw = {}
+    if conditioned:
+        vision = cfg.encdec.frontend == "vision_stub"
+        key = "patch_embeds" if vision else "enc_embeds"
+        rows = cfg.encdec.num_patch_tokens if vision else \
+            cfg.encdec.encoder_seq
+        cpu_kw[key] = torch.randn(2, rows, cfg.d_model, generator=gen)
+    card_kw = {k: v.cuda() for k, v in cpu_kw.items()}
     label += " conditioned" if conditioned else ""
     for policy in policies:
         for kw in cases:
@@ -2926,39 +2964,27 @@ def moe_grad_phase(torch, name: str) -> None:
     torch.cuda.empty_cache()
 
 
-# whisper-medium's decode: prompt length per strategy (B=2 each)
-WHISPER_PROMPTS = {"fdm": 64, "fdm_a": 48, "probability": 41}
-WHISPER_GROUPS = {"flash attention (hand-written)": ("flash_",),
+# the conditioned decodes (whisper-medium, qwen2-vl-72b): prompt length per
+# strategy (B=2 each)
+COND_PROMPTS = {"fdm": 64, "fdm_a": 48, "probability": 41}
+DECODE_GROUPS = {"flash attention (hand-written)": ("flash_",),
                   "confidence (hand-written)": ("confidence_kernel",),
                   "GEMMs (cuBLAS)": GEMM_PATTERNS}
 
 
-def whisper_phase(torch, mods: dict) -> dict:
-    """Full-width, full-depth whisper-medium (random bf16 weights from the
-    seed) decoding with seeded bf16 frame embeddings ``enc_embeds`` (B=2,
-    WHISPER_FRAMES frames) through ``Decoder.generate`` on the graph
-    drivers under ``none``: one B=2 request per strategy
-    (``WHISPER_PROMPTS``: prompts 41-64, gen 64, block 32, 64 steps,
-    K=K₁=2), captured on a first pass, measured on a second (launch
-    counts set to 0 just before it and read just after).  Every forward
-    re-encodes the frames, as the reference's does, so each forward call
-    launches flash once per encoder layer and twice per decoder layer
-    (self and cross: 72 times); tokens in vocab, no mask left.  Then one
-    profiled graph-driven fdm request by kernel group, and eager forwards
-    split into the encoder, the cross K/V projections and the rest.
-    Returns the path's launches."""
+def conditioned_decodes(torch, cfg, params, mods: dict, prompts: dict,
+                        extras: dict, per_forward: int, label: str):
+    """One B=2 request per strategy of ``prompts`` (strategy -> prompt)
+    conditioned by ``extras`` through ``Decoder.generate`` on the graph
+    drivers under ``none`` (gen 64, block 32, 64 steps, K=K₁=2), each
+    strategy in a runner cache of its own: captured on a first pass,
+    measured on a second (launch counts set to 0 just before it and read
+    just after).  Each forward call launches flash ``per_forward`` times,
+    and a step replay makes one or two forward calls; tokens in vocab, no
+    mask left.  Returns (decoders, runs, launches), by strategy."""
     import dataclasses
     from repro_torch.configs import DecodeConfig
-    from repro_torch.core import Decoder, clear_decode_cache, decode_cache_scope
-    from repro_torch.models import encode, forward
-    cfg, params = make_model(torch, "whisper-medium")
-    per_forward = cfg.encdec.encoder_layers + 2 * cfg.num_layers
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    frames = torch.randn(MAX_BATCH, WHISPER_FRAMES, cfg.d_model,
-                         generator=gen, device="cuda").to(torch.bfloat16)
-    prompts = {s: torch.randint(0, cfg.vocab_size - 1, (MAX_BATCH, lp),
-                                generator=gen, device="cuda")
-               for s, lp in WHISPER_PROMPTS.items()}
+    from repro_torch.core import Decoder, decode_cache_scope
     dcfg = DecodeConfig(gen_length=GEN, block_size=BLOCK, steps=GEN, k=K,
                         k1=K)
     scopes, decs = {}, {}
@@ -2967,18 +2993,18 @@ def whisper_phase(torch, mods: dict) -> dict:
         with decode_cache_scope() as scopes[s]:
             decs[s] = Decoder(params, cfg, dataclasses.replace(
                 dcfg, strategy=s))
-            decs[s].generate(None, prompt, enc_embeds=frames)
+            decs[s].generate(None, prompt, **extras)
     torch.cuda.synchronize()
     runs = {s: list(sc.values()) for s, sc in scopes.items()}
     stats = graph_stats(torch, [r for rs in runs.values() for r in rs])
-    log(f"whisper-medium warm pass (captures): "
+    log(f"{label} warm pass (captures): "
         f"{time.perf_counter() - t0:.2f} s; {stats}")
     all_runs = [r for rs in runs.values() for r in rs]
     reset_launches(all_runs, mods)
     results, total_s = {}, 0.0
     for s, prompt in prompts.items():        # each Decoder keeps its scope
         t0 = time.perf_counter()
-        out, st = decs[s].generate(None, prompt, enc_embeds=frames)
+        out, st = decs[s].generate(None, prompt, **extras)
         torch.cuda.synchronize()
         results[s] = (out, st, time.perf_counter() - t0)
         total_s += results[s][2]
@@ -2989,32 +3015,58 @@ def whisper_phase(torch, mods: dict) -> dict:
         replays = sum(r.graphs.replays() for r in runs[s])
         calls = flash / (per_forward * max(replays, 1))
         gen_tokens = out[:, -GEN:]
-        ok = tuple(out.shape) == (MAX_BATCH, WHISPER_PROMPTS[s] + GEN) and \
+        lp = prompts[s].shape[1]
+        ok = tuple(out.shape) == (MAX_BATCH, lp + GEN) and \
             bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size)
                   & (gen_tokens != cfg.mask_token_id)).all())
-        log(f"whisper-medium {s} (B={MAX_BATCH}, prompt "
-            f"{WHISPER_PROMPTS[s]}, gen {GEN}, {WHISPER_FRAMES} frames): "
+        log(f"{label} {s} (B={MAX_BATCH}, prompt {lp}, gen {GEN}): "
             f"{sec:.3f} s, {MAX_BATCH * GEN / sec:.2f} tokens/s; steps "
             f"{st.steps}, forward_equivalents {st.forward_equivalents}, "
             f"phases {st.phase_counts}; {replays} step replays, flash "
             f"launches {flash} = {per_forward} x {calls} "
             f"forward calls a replay; tokens valid {ok}")
         if not ok or calls != int(calls) or calls not in (1, 2):
-            raise AssertionError(f"whisper-medium {s}: tokens valid {ok}, "
+            raise AssertionError(f"{label} {s}: tokens valid {ok}, "
                                  f"{calls} forward calls a replay")
-    log(f"whisper-medium decode: {len(results) * MAX_BATCH * GEN / total_s:.2f}"
+    log(f"{label} decode: {len(results) * MAX_BATCH * GEN / total_s:.2f}"
         f" tokens/s over the three requests ({total_s:.3f} s), latency "
         f"per request {[round(r[2], 3) for r in results.values()]} s; "
         f"executed launches {launches}; {nvidia_smi()}")
     if not all(launches.values()):
-        raise AssertionError(f"a kernel was not launched on the "
-                             f"whisper-medium path: {launches}")
+        raise AssertionError(f"a kernel was not launched on the {label} "
+                             f"path: {launches}")
+    return decs, runs, launches
+
+
+def whisper_phase(torch, mods: dict) -> dict:
+    """Full-width, full-depth whisper-medium (random bf16 weights from the
+    seed) decoding with seeded bf16 frame embeddings ``enc_embeds`` (B=2,
+    WHISPER_FRAMES frames) through ``conditioned_decodes``
+    (``COND_PROMPTS``: prompts 41-64).  Every forward re-encodes the
+    frames, as the reference's does, so each forward call launches flash
+    once per encoder layer and twice per decoder layer (self and cross:
+    72 times).  Then one profiled graph-driven fdm request by kernel
+    group, and eager forwards split into the encoder, the cross K/V
+    projections and the rest.  Returns the path's launches."""
+    from repro_torch.core import clear_decode_cache
+    from repro_torch.models import encode, forward
+    cfg, params = make_model(torch, "whisper-medium")
+    per_forward = cfg.encdec.encoder_layers + 2 * cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    frames = torch.randn(MAX_BATCH, WHISPER_FRAMES, cfg.d_model,
+                         generator=gen, device="cuda").to(torch.bfloat16)
+    prompts = {s: torch.randint(0, cfg.vocab_size - 1, (MAX_BATCH, lp),
+                                generator=gen, device="cuda")
+               for s, lp in COND_PROMPTS.items()}
+    decs, runs, launches = conditioned_decodes(
+        torch, cfg, params, mods, prompts, {"enc_embeds": frames},
+        per_forward, "whisper-medium")
     (run,) = runs["fdm"]
     graph_profile(torch, f"whisper-medium graph-driven request none "
                   f"B={MAX_BATCH} fdm gen {GEN}",
                   lambda: decs["fdm"].generate(None, prompts["fdm"],
                                                enc_embeds=frames),
-                  run, mods, WHISPER_GROUPS)
+                  run, mods, DECODE_GROUPS)
     gemm = "GEMMs (cuBLAS)"
     for b in (MAX_BATCH, K * MAX_BATCH):
         tiled = frames.repeat(b // MAX_BATCH, 1, 1)
@@ -3036,7 +3088,7 @@ def whisper_phase(torch, mods: dict) -> dict:
                 parts[part] = device_profile(
                     torch, f"whisper-medium {part} B={b} (canvas {CANVAS}, "
                     f"{WHISPER_FRAMES} frames)", fn, top=4,
-                    groups=WHISPER_GROUPS)
+                    groups=DECODE_GROUPS)
         fwd = parts["forward"]
         log(f"whisper-medium forward B={b} by part (ms on the device): "
             f"total {sum(fwd.values()):.3f}; encoder GEMMs "
@@ -3046,11 +3098,101 @@ def whisper_phase(torch, mods: dict) -> dict:
             f"GEMMs {fwd.get(gemm, 0) - parts['encoder'].get(gemm, 0) - parts['cross K/V projections'].get(gemm, 0):.3f}; "
             f"flash {fwd.get('flash attention (hand-written)', 0):.3f}; "
             f"elementwise and the rest {fwd.get('other', 0):.3f}")
-    del scopes, decs, run
+    del decs, runs, run
     clear_decode_cache()
     del params
     torch.cuda.empty_cache()
     return {"whisper-medium": launches}
+
+
+def vlm_phase(torch, mods: dict) -> dict:
+    """Full-width qwen2-vl-72b cut to VLM_LAYERS of its 80 layers (random
+    bf16 weights from the seed, the projector included) decoding with
+    VLM_PATCHES seeded bf16 patch embeddings (``patch_embeds``) in front
+    of the text through ``conditioned_decodes`` (``COND_PROMPTS``: the
+    canvas 1024 + 105 to 1024 + 128 positions under M-RoPE; every forward
+    re-runs the patch rows, as the reference's does: one flash launch a
+    layer and forward call); one profiled graph-driven fdm request by
+    kernel group; the conditioned forwards on the card's clock; then
+    served text-only like the others (``serving_phase``) under ``none``,
+    ``prefix`` and ``dual``, each a path of its own.  Frees the weights
+    and graphs.  Returns the launches by path."""
+    from repro_torch.core import clear_decode_cache, decode_cache_scope
+    from repro_torch.models import forward
+    cfg, params = make_model(torch, "qwen2-vl-72b", VLM_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    patches = torch.randn(MAX_BATCH, VLM_PATCHES, cfg.d_model,
+                          generator=gen, device="cuda").to(torch.bfloat16)
+    prompts = {s: torch.randint(0, cfg.vocab_size - 1, (MAX_BATCH, lp),
+                                generator=gen, device="cuda")
+               for s, lp in COND_PROMPTS.items()}
+    label = f"{cfg.name} with {VLM_PATCHES} patches"
+    decs, runs, launches = conditioned_decodes(
+        torch, cfg, params, mods, prompts, {"patch_embeds": patches},
+        cfg.num_layers, label)
+    (run,) = runs["fdm"]
+    graph_profile(torch, f"{label} graph-driven request none B={MAX_BATCH} "
+                  f"fdm gen {GEN}",
+                  lambda: decs["fdm"].generate(None, prompts["fdm"],
+                                               patch_embeds=patches),
+                  run, mods, DECODE_GROUPS)
+    del decs, runs, run
+    clear_decode_cache()
+    calls = {}
+    for b in (MAX_BATCH, K * MAX_BATCH):
+        tokens = torch.randint(0, cfg.vocab_size - 1, (b, CANVAS),
+                               generator=gen, device="cuda")
+        tiled = patches.repeat(b // MAX_BATCH, 1, 1)
+        calls[f"{cfg.name} B={b} L={CANVAS} + {VLM_PATCHES} patches"] = \
+            lambda t=tokens, pe=tiled: forward(params, t, cfg,
+                                               patch_embeds=pe)
+    with torch.no_grad():
+        card_vs_host(torch, calls)
+    counts = {f"{cfg.name}-patches": launches}
+    for policy in POLICIES:
+        with decode_cache_scope() as scope:
+            counts[cfg.name + ("" if policy == "none" else f"-{policy}")] = \
+                serving_phase(torch, cfg, params, mods, scope, policy)
+    del scope
+    clear_decode_cache()
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def xlstm_phase(torch, mods: dict) -> dict:
+    """Full-width, full-depth xlstm-125m (12 layers, layer 6 the sLSTM;
+    random bf16 weights from the seed, the gate weights and biases f32)
+    served like the others (``serving_phase``) under ``none`` (its only
+    policy); its forwards on the card's clock and by where the host's time
+    goes; one profiled graph-driven fdm request by kernel group (the
+    sLSTM's time loop: a few small launches a step of the canvas, replayed
+    from the graph).  Returns the launches of the path."""
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder, clear_decode_cache, decode_cache_scope
+    cfg, params = make_model(torch, "xlstm-125m")
+    with decode_cache_scope() as scope:
+        launches = serving_phase(torch, cfg, params, mods, scope)
+    del scope
+    forward_phase(torch, cfg, params)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    prompt = torch.randint(0, cfg.vocab_size - 1, (MAX_BATCH, CANVAS - GEN),
+                           generator=gen, device="cuda")
+    dcfg = DecodeConfig(gen_length=GEN, block_size=BLOCK, steps=GEN,
+                        strategy="fdm", k=K)
+    with decode_cache_scope() as scope:
+        dec = Decoder(params, cfg, dcfg)
+        dec.generate(None, prompt)                    # captures
+        (run,) = scope.values()
+        graph_profile(torch, f"{cfg.name} graph-driven request none "
+                      f"B={MAX_BATCH} fdm gen {GEN}",
+                      lambda: dec.generate(None, prompt), run, mods,
+                      DECODE_GROUPS)
+    del scope, dec, run
+    clear_decode_cache()
+    del params
+    torch.cuda.empty_cache()
+    return {cfg.name: launches}
 
 
 def main() -> None:
@@ -3150,6 +3292,17 @@ def main() -> None:
             f"{r['plain_ms']:.4f} ms library none bound {r['bound_ms']:.4f} "
             f"ms (bytes); share of the bound on the device alone "
             f"{r['bound_ms'] / r['device_ms']:.3f}")
+    for label, shapes in (("qwen2-vl", VLM_CONF_SHAPES),
+                          ("xlstm", XLSTM_CONF_SHAPES)):
+        for rows, vocab, dtype in shapes:
+            r = check_confidence(conf_mod, torch, rows, vocab, dtype)
+            conf_errs.append(r["max_abs_err"])
+            log(f"confidence ({label}) rows={rows} V={vocab} {dtype}: "
+                f"max_abs_err {r['max_abs_err']} kernel {r['ms']:.4f} ms, "
+                f"on the device alone {r['device_ms']:.4f} ms; plain "
+                f"{r['plain_ms']:.4f} ms library none bound "
+                f"{r['bound_ms']:.4f} ms (bytes); share of the bound on the "
+                f"device alone {r['bound_ms'] / r['device_ms']:.3f}")
     conf_entry["max_abs_err"] = max(conf_errs)
     attn_errs = []
     attn_runs = [(shape, "bfloat16") for shape in ATTN_SHAPES] + \
@@ -3214,6 +3367,17 @@ def main() -> None:
             f"{r['device_ms'] / r['library_device_ms']:.3f}); bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of the bound "
             f"on the device alone {r['bound_ms'] / r['device_ms']:.3f}")
+    for b, lq, lk, h, g, d, w, qo, dt in VLM_ATTN_SHAPES:
+        r = check_attention(fa_mod, torch, b, lq, lk, h, g, d, w, qo, dt)
+        attn_errs.append(r["max_abs_err"])
+        log(f"attention (qwen2-vl) B={b} Lq={lq} Lk={lk} H={h} G={g} d={d} "
+            f"{dt}: max_abs_err {r['max_abs_err']} kernel {r['ms']:.4f} ms "
+            f"plain {r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms; on "
+            f"the device alone kernel {r['device_ms']:.4f} ms sdpa "
+            f"{r['library_device_ms']:.4f} ms (kernel/sdpa "
+            f"{r['device_ms'] / r['library_device_ms']:.3f}); bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of the bound "
+            f"on the device alone {r['bound_ms'] / r['device_ms']:.3f}")
     attn_entry["max_abs_err"] = max(attn_errs)
     scan_errs = []
     for b, l, di, n, xdt in SCAN_SHAPES:
@@ -3254,6 +3418,19 @@ def main() -> None:
     reference_phase(torch, "whisper-medium", ["prefix", "dual"],
                     cases=ARCH_CASES)
     log(f"reference phase (whisper): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    reference_phase(torch, "qwen2-vl-72b", ["none"], cases=ARCH_CASES,
+                    conditioned=True)
+    reference_phase(torch, "qwen2-vl-72b", ["prefix", "dual"],
+                    cases=ARCH_CASES)
+    # the reduced pattern "mmmmmms" puts both reduced layers on the mLSTM:
+    # the variant "ms" makes layer 1 an sLSTM
+    xlstm_ms = dataclasses.replace(get_config("xlstm-125m").reduced().ssm,
+                                   xlstm_pattern="ms")
+    reference_phase(torch, "xlstm-125m", ["none"], dict(ssm=xlstm_ms),
+                    ARCH_CASES)
+    log(f"reference phase (qwen2-vl, xlstm): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # 5. the main paths, one model at a time (each frees its weights and
     # its graphs); 6. the KV A/B on LLaDA's weights
@@ -3321,6 +3498,12 @@ def main() -> None:
     whisper = whisper_phase(torch, {"confidence": conf_mod,
                                     "flash_attention": fa_mod})
     log(f"decode phase whisper-medium: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vlm = vlm_phase(torch, {"confidence": conf_mod, "flash_attention": fa_mod})
+    log(f"serving phase qwen2-vl-72b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    xlstm = xlstm_phase(torch, {"confidence": conf_mod})
+    log(f"serving phase xlstm-125m: {time.perf_counter() - t0:.1f} s")
 
     # 7.-10. training: the flash gradient, one step against the CPU, the
     # testbed trained and decoded, full-width LLaDA-8B's steps
@@ -3380,7 +3563,7 @@ def main() -> None:
         by_path["llada-8b-http"] = http.get(kernel, 0)
         by_path["llada-8b-carry"] = carry.get(kernel, 0)
         for path, counts in {**archs, **mixtral, **deepseek, **whisper,
-                             **moe_train}.items():
+                             **vlm, **xlstm, **moe_train}.items():
             by_path[path] = counts.get(kernel, 0)
         by_path["hymba-1.5b-train"] = hymba_train.get(kernel, 0)
         return {"launches": sum(by_path.values()),

@@ -1,7 +1,8 @@
 """Config registry of the port: ``get_config(name)``.
 
-Only the architectures the port runs are listed; the others arrive with
-the slices that port their layers.
+Every architecture of the reference's registry, each a copy of its
+config module; ``ASSIGNED_ARCHS`` is the reference's list (all but the
+paper's own LLaDA), in its order.
 """
 from __future__ import annotations
 
@@ -25,7 +26,14 @@ _MODULES: Dict[str, str] = {
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "whisper-medium": "repro_torch.configs.whisper_medium",
+    "qwen2-vl-72b": "repro_torch.configs.qwen2_vl_72b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
 }
+
+ASSIGNED_ARCHS: List[str] = [
+    "whisper-medium", "mixtral-8x22b", "stablelm-12b", "stablelm-3b",
+    "qwen3-14b", "xlstm-125m", "chatglm3-6b", "deepseek-v2-236b",
+    "hymba-1.5b", "qwen2-vl-72b"]
 
 
 def get_config(name: str) -> ModelConfig:
@@ -45,5 +53,5 @@ __all__ = [
     "ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig", "EncDecConfig",
     "DecodeConfig", "ExecutionConfig", "TrainConfig", "default_block_size",
     "SupervisorConfig", "LadderRung", "DegradeConfig", "ServerConfig",
-    "RouterConfig", "get_config", "list_configs",
+    "RouterConfig", "get_config", "list_configs", "ASSIGNED_ARCHS",
 ]

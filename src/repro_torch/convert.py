@@ -14,7 +14,12 @@ MLA's attention tree (``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``,
 encoder-decoder's ``encoder`` group (``blocks``, stacked like the
 decoder's, and ``norm_f``), its layers' ``norm_x``/``xattn``, LayerNorm's
 ``bias``, the GELU MLP's ``fc1``/``fc2`` and the sinusoidal table
-``embed/pos`` go through the same way.
+``embed/pos`` go through the same way, as do a VLM's ``projector``
+(``w`` (d, d)) and an xLSTM layer's ``mixer`` (the mLSTM's ``w_up``,
+``w_q``/``w_k``/``w_v``, ``w_i``/``w_f``, ``b_i``/``b_f``, ``w_down``,
+``skip_scale``; the sLSTM's ``w_up``, ``w_gates``, ``r_gates``,
+``b_gates``, ``w_down``), its mLSTM and sLSTM layers each a group of
+their own.
 
 * ``from_jax_params(tree)`` — a reference tree whose leaves are numpy
   arrays (``jax.device_get(params)``) -> the port's params.
@@ -38,9 +43,12 @@ from repro_torch.device import resolve_device
 # LayerNorm's biases, the per-head q/k norm scales (qk_norm), MLA's two
 # latent norm scales, the sinusoidal position table, the Mamba head's
 # a_log and dt_bias (used in f32: a bf16 a_log would move every decay)
-# and mix scales
+# and mix scales, the sLSTM's gate weights and bias (its recurrence
+# multiplies by them in f32) and the mLSTM's gate biases (added to f32
+# pre-activations)
 _KEEP_F32 = ("scale", "bias", "q_scale", "k_scale", "q_norm", "kv_norm",
-             "pos", "a_log", "dt_bias", "mix_attn", "mix_ssm")
+             "pos", "a_log", "dt_bias", "mix_attn", "mix_ssm", "w_gates",
+             "r_gates", "b_gates", "b_i", "b_f")
 
 
 def _tensor(a, device, dtype, key: str) -> torch.Tensor:
@@ -77,14 +85,15 @@ def from_jax_params(tree: dict, device="cuda",
     ``dtype`` casts the matrices (the ``_KEEP_F32`` vectors stay f32);
     ``None`` keeps f32."""
     dev = resolve_device(device)
-    unknown = set(tree) - {"embed", "norm_f", "blocks", "encoder"}
+    unknown = set(tree) - {"embed", "norm_f", "blocks", "encoder",
+                           "projector"}
     if unknown:
-        raise NotImplementedError(
-            f"parameter groups {sorted(unknown)} belong to architectures "
-            f"the port does not run yet")
+        raise ValueError(f"unknown parameter groups {sorted(unknown)}")
     out = {"embed": _convert(tree["embed"], dev, dtype),
            "norm_f": _convert(tree["norm_f"], dev, dtype),
            "blocks": _layers(tree["blocks"], dev, dtype)}
+    if "projector" in tree:
+        out["projector"] = _convert(tree["projector"], dev, dtype)
     if "encoder" in tree:
         enc = tree["encoder"]
         out["encoder"] = {"blocks": _layers(enc["blocks"], dev, dtype),
@@ -142,6 +151,8 @@ def to_flat(params: dict) -> Dict[str, np.ndarray]:
     _walk(params["embed"], "embed/", flat)
     _walk(params["norm_f"], "norm_f/", flat)
     _stack_layers(params["blocks"], "blocks/", flat)
+    if "projector" in params:
+        _walk(params["projector"], "projector/", flat)
     if "encoder" in params:
         _stack_layers(params["encoder"]["blocks"], "encoder/blocks/", flat)
         _walk(params["encoder"]["norm_f"], "encoder/norm_f/", flat)

@@ -44,8 +44,9 @@ when the weights go; at most ``max_runners`` runs per weights, least
 recently used dropped first.
 
 Conditioning (``generate(..., enc_embeds=...)``, an encoder-decoder's
-frame embeddings) needs a ``Decoder`` built from params and
-``cache_policy="none"``, as in the reference.  The forward tiles the
+frame embeddings, or ``patch_embeds=...``, a VLM's patch embeddings)
+needs a ``Decoder`` built from params and ``cache_policy="none"``, as in
+the reference.  The forward tiles the
 extras candidate-major to a K·B folded batch (``_tiling_forward``).  On
 the graph drivers they are static input buffers of the ``GraphRun``
 (their shapes and dtypes part of its key), copied in per request; the
@@ -424,7 +425,7 @@ class Decoder:
         drivers the copy may still be queued on the card, so the callback
         should not sync if it wants none).  ``extras`` (params mode,
         ``cache_policy="none"``): conditioning tensors forwarded to the
-        model (``enc_embeds`` (B, S, d))."""
+        model (``enc_embeds`` (B, S, d), ``patch_embeds`` (B, P, d))."""
         strat = self._strategy(strategy)
         gen, prompt, geometry, extras = self._inputs(rng, prompt, extras)
         if self._fused(strat):
@@ -475,10 +476,6 @@ class Decoder:
                 f"got unexpected keyword argument(s) {sorted(unknown)}; "
                 f"conditioning extras must be one of "
                 f"{sorted(_CONDITIONING_KEYS)}")
-        if "patch_embeds" in extras:
-            raise NotImplementedError(
-                "patch_embeds condition a VLM, which the port does not run "
-                "yet (ROADMAP.md queue 1 item 9)")
         geometry = self._geometry()
         if self.dcfg.cache_policy != "none":
             if self._params is None:

@@ -6,6 +6,7 @@ The semi-autoregressive block sampler is the ``Decoder``
 
     Decoder(model_fn, cfg, dcfg).generate(rng, prompt)        # plain
     Decoder(params, cfg, dcfg).generate(rng, prompt, enc_embeds=e)
+    Decoder(params, cfg, dcfg).generate(rng, prompt, patch_embeds=p)
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from repro_torch.core.decoder import (Decoder, SampleStats,  # noqa: F401
 
 def make_model_fn(params, cfg: ModelConfig, **extras) -> Callable:
     """tokens (B', L) -> logits, with the conditioning inputs
-    (``enc_embeds``) tiled to match B'.  FDM folds its K candidates into
+    (``enc_embeds``, ``patch_embeds``) tiled to match B'.  FDM folds its K candidates into
     the batch axis (B' = K·B, candidate-major), so the conditioning is
     replicated candidate-major too, as the reference's ``jnp.tile``."""
     return _tiling_forward(params, cfg, {k: torch.as_tensor(v)

@@ -1,10 +1,15 @@
 """Block assembly of the port (reference: ``src/repro/models/blocks.py``):
 
-* dense:           norm → attention → norm → SwiGLU;
+* dense / vlm:     norm → attention → norm → SwiGLU (a VLM's block is the
+                   dense one; its patch stream and M-RoPE live in the
+                   model);
 * moe:             norm → attention → norm → MoE (``models/moe.py``: top-k
                    routed experts), in every layer from
                    ``moe.first_k_dense`` on (the layers before it, and every
                    layer of a config with no experts, are dense);
+* ssm (xLSTM):     norm → {mLSTM | sLSTM} (``models/ssm.py``; the kind of
+                   layer i is ``xlstm_pattern[i % len]``), no second norm
+                   and no MLP;
 * hybrid (Hymba):  norm → [attention ∥ Mamba], fused mean → norm → SwiGLU;
 * encdec decoder:  norm → self-attention → norm → cross-attention over the
                    encoder's output → norm → MLP (whisper: LayerNorm, GELU);
@@ -12,13 +17,12 @@
                    encoder's output, as in the reference;
 
 with residuals.  Attention is GQA/MHA or DeepSeek-V2's MLA
-(``models/attention.py``); an MoE layer may add shared experts.  The dense
-and MoE blocks also have the fixed-shape block cache's two entry points
-(``block_capture``, ``block_cached``); a hybrid config never reaches
-them, since the decoder refuses its cache policies first.  An MoE
-block's aux loss is returned on request (``return_aux``: the trainer's
-objective).  The other families (SSM/xLSTM, VLM) raise
-``NotImplementedError`` until their slice (ROADMAP.md queue 1 item 9).
+(``models/attention.py``); an MoE layer may add shared experts.  The
+attention-only blocks (dense, vlm, MoE, encoder-decoder) also have the
+fixed-shape block cache's two entry points (``block_capture``,
+``block_cached``); a hybrid or xLSTM config never reaches them, since
+the decoder refuses its cache policies first.  An MoE block's aux loss is
+returned on request (``return_aux``: the trainer's objective).
 """
 from __future__ import annotations
 
@@ -35,19 +39,32 @@ from repro_torch.models.attention import (KVCache, attention_cached,
                                           attention_forward, init_attention)
 from repro_torch.models.layers import (Params, Rope, apply_mlp, apply_norm,
                                        init_mlp, init_norm, model_rotary_dim,
-                                       rope_tables)
+                                       mrope_sections_ok, rope_tables)
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a block family not ported yet."""
-    if cfg.arch_type not in ("dense", "hybrid", "moe", "encdec") \
-            or not cfg.d_ff \
-            or (cfg.arch_type == "hybrid" and cfg.ssm is None):
-        raise NotImplementedError(
-            f"{cfg.name!r} (arch_type={cfg.arch_type!r}): the port runs the "
-            f"dense and hybrid blocks only so far, MoE feed-forwards (with "
-            f"or without shared experts), MLA and the encoder-decoder "
-            f"(ROADMAP.md queue 1 item 9)")
+    """Raise ``ValueError`` for a config that no block family of the port
+    (nor of the reference, which fails on them too) can build: a hybrid
+    or xLSTM config without its ``ssm`` config, an attention block
+    without a feed-forward, M-RoPE sections that do not split rot/2."""
+    if cfg.arch_type not in ("dense", "vlm", "hybrid", "moe", "encdec",
+                             "ssm"):
+        raise ValueError(f"{cfg.name!r}: unknown arch_type "
+                         f"{cfg.arch_type!r}")
+    if cfg.arch_type in ("ssm", "hybrid") and cfg.ssm is None:
+        raise ValueError(
+            f"{cfg.name!r} (arch_type={cfg.arch_type!r}) has no ssm config "
+            f"(SSMConfig): its recurrent mixer cannot be built")
+    if cfg.arch_type != "ssm" and not cfg.d_ff:
+        raise ValueError(
+            f"{cfg.name!r} (arch_type={cfg.arch_type!r}): d_ff=0 leaves an "
+            f"attention block without its feed-forward (only an xLSTM "
+            f"block has none)")
+    rot = model_rotary_dim(cfg)
+    if cfg.rope == "mrope" and not mrope_sections_ok(cfg, rot):
+        raise ValueError(
+            f"{cfg.name!r}: mrope_sections {cfg.mrope_sections} must sum "
+            f"to rot/2 = {rot // 2}")
 
 
 def _is_moe_layer(cfg: ModelConfig, idx: int) -> bool:
@@ -57,6 +74,10 @@ def _is_moe_layer(cfg: ModelConfig, idx: int) -> bool:
 def init_block(gen: torch.Generator, cfg: ModelConfig, idx: int, device,
                dtype) -> Params:
     check_ported(cfg)
+    if cfg.arch_type == "ssm":
+        return {"norm1": init_norm(cfg, device),
+                "mixer": ssm_lib.init_xlstm_layer(gen, cfg, idx, device,
+                                                  dtype)}
     p: Params = {"norm1": init_norm(cfg, device),
                  "attn": init_attention(gen, cfg, device, dtype),
                  "norm2": init_norm(cfg, device)}
@@ -112,11 +133,16 @@ def block_forward(p: Params, x: torch.Tensor, rope, cfg: ModelConfig,
                   idx: int, return_aux: bool = False,
                   enc_out: Optional[torch.Tensor] = None):
     """x (B, L, d) -> x', or (x', aux) with ``return_aux``: an MoE layer's
-    aux loss (f32 scalar), None for a dense or hybrid layer.  ``rope``:
-    the forward's ``Rope`` tables (None: sinusoidal positions), or the
-    (B, L) positions to build them from.  An MoE layer dispatches at
-    capacity factor 1.25.  An encoder-decoder's layer attends over
-    ``enc_out`` (B, S, d) when it is given."""
+    aux loss (f32 scalar), None for any other layer.  ``rope``: the
+    forward's ``Rope`` tables (None: no RoPE), or the (B, L) positions
+    (M-RoPE's (3, B, L)) to build them from; an xLSTM layer ignores it.
+    An MoE layer dispatches at capacity factor 1.25.  An
+    encoder-decoder's layer attends over ``enc_out`` (B, S, d) when it
+    is given."""
+    if cfg.arch_type == "ssm":
+        x = x + ssm_lib.xlstm_forward(p["mixer"], apply_norm(p["norm1"], x,
+                                                             cfg), cfg, idx)
+        return (x, None) if return_aux else x
     if isinstance(rope, torch.Tensor):
         rope = rope_tables(rope, model_rotary_dim(cfg), cfg, x.dtype)
     h = apply_norm(p["norm1"], x, cfg)
@@ -135,14 +161,14 @@ def block_forward(p: Params, x: torch.Tensor, rope, cfg: ModelConfig,
 
 
 # --------------------------------------------------------------------------
-# fixed-shape block cache (cache_policy = prefix | dual; dense, MoE and
-# unconditioned encoder-decoder blocks (the decoder refuses conditioning
-# extras under a cache policy, as the reference's does); MoE dispatches at
-# capacity factor 2.0, as the reference's)
+# fixed-shape block cache (cache_policy = prefix | dual; dense, MoE, and
+# unconditioned VLM and encoder-decoder blocks (the decoder refuses
+# conditioning extras under a cache policy, as the reference's does); MoE
+# dispatches at capacity factor 2.0, as the reference's)
 # --------------------------------------------------------------------------
 
 def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "moe", "encdec"):
+    if cfg.arch_type not in ("dense", "vlm", "moe", "encdec"):
         raise ValueError(
             f"{cfg.name!r} (arch_type={cfg.arch_type!r}): the block cache "
             f"needs an attention-only block")

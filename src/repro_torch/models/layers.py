@@ -1,5 +1,5 @@
 """Shared layers: RMSNorm (and per head, for q/k) and LayerNorm,
-standard and half RoPE and sinusoidal positions, SwiGLU and the GELU MLP,
+standard, half and M-RoPE and sinusoidal positions, SwiGLU and the GELU MLP,
 embedding and LM head (its own matrix, or tied to the embedding).
 
 Functional style like the reference (``src/repro/models/layers.py``):
@@ -110,20 +110,21 @@ class Rope(NamedTuple):
 
 
 def _check_rope(cfg: ModelConfig) -> None:
-    if cfg.rope not in ("standard", "half", "sinusoidal"):
+    if cfg.rope not in ("standard", "half", "mrope", "sinusoidal", "none"):
         raise NotImplementedError(
-            f"rope={cfg.rope!r}: only 'standard' and 'half' RoPE are "
-            f"ported (and sinusoidal positions, which add to the "
-            f"embedding and turn nothing); the other modes come with the "
-            f"other architectures (ROADMAP.md queue 1 item 9)")
+            f"rope={cfg.rope!r}: the port knows 'standard', 'half' and "
+            f"'mrope' RoPE, sinusoidal positions and 'none'")
 
 
 def rotary_dim(cfg: ModelConfig, head_dim: int) -> int:
-    """The dims of a head that RoPE turns: all of them ('standard'), the
-    first half ('half': ChatGLM's 2d RoPE; the rest pass through), or
-    none ('sinusoidal': the positions are added at the embedding)."""
+    """The dims of a head that RoPE turns: all of them ('standard', and
+    'mrope', whose frequencies are split into sections driven by three
+    position streams), the first half ('half': ChatGLM's 2d RoPE; the
+    rest pass through), or none ('sinusoidal': the positions are added
+    at the embedding; 'none': an attention-free model has no heads to
+    turn)."""
     _check_rope(cfg)
-    if cfg.rope == "sinusoidal":
+    if cfg.rope in ("sinusoidal", "none"):
         return 0
     return head_dim // 2 if cfg.rope == "half" else head_dim
 
@@ -137,17 +138,41 @@ def model_rotary_dim(cfg: ModelConfig) -> int:
     return rotary_dim(cfg, hd)
 
 
+def mrope_sections_ok(cfg: ModelConfig, rot_dim: int) -> bool:
+    """M-RoPE's (t, h, w) sections split the rot/2 frequencies exactly
+    (the reference asserts it)."""
+    return sum(cfg.mrope_sections) == rot_dim // 2
+
+
 def rope_tables(positions: torch.Tensor, rot_dim: int, cfg: ModelConfig,
                 dtype: torch.dtype) -> Optional[Rope]:
-    """cos/sin of ``positions`` (B, L) over ``rot_dim`` rotary dims
+    """cos/sin of ``positions`` over ``rot_dim`` rotary dims
     (``rotary_dim``) in f32, cast to ``dtype``: built once per forward
-    and shared by every layer's q and k.  None under sinusoidal
-    positions, which turn nothing (``rotate`` passes x through)."""
+    and shared by every layer's q and k.  ``positions`` is (B, L), or
+    M-RoPE's (3, B, L) t/h/w streams (a (B, L) one drives all three):
+    the sections ``cfg.mrope_sections`` lie end to end over the rot/2
+    frequencies, and each frequency takes its angle from its section's
+    stream.
+    None under sinusoidal positions or ``rope="none"``, which turn
+    nothing (``rotate`` passes x through)."""
     _check_rope(cfg)
-    if cfg.rope == "sinusoidal":
+    if cfg.rope in ("sinusoidal", "none"):
         return None
     inv = rope_frequencies(rot_dim, cfg.rope_theta, positions.device)
-    ang = positions.float()[..., None] * inv                   # (B, L, rot/2)
+    if cfg.rope == "mrope":
+        if not mrope_sections_ok(cfg, rot_dim):
+            raise ValueError(
+                f"mrope_sections {cfg.mrope_sections} must sum to rot/2 = "
+                f"{rot_dim // 2}")
+        pos3 = positions if positions.dim() == 3 else \
+            positions[None].expand(3, *positions.shape)
+        # each stream's angles over its own section of the frequencies
+        # (slices of the same products: no index tensor to copy in)
+        ends = np.cumsum((0,) + tuple(cfg.mrope_sections))
+        ang = torch.cat([pos3[s].float()[..., None] * inv[ends[s]:ends[s + 1]]
+                         for s in range(3)], dim=-1)           # (B, L, rot/2)
+    else:
+        ang = positions.float()[..., None] * inv                # (B, L, rot/2)
     return Rope(torch.cos(ang)[:, :, None, :].to(dtype),
                 torch.sin(ang)[:, :, None, :].to(dtype))
 
@@ -156,7 +181,7 @@ def rotate(x: torch.Tensor, rope: Optional[Rope]) -> torch.Tensor:
     """x (B, L, H, hd) rotated by the tables, split halves (not
     interleaved pairs) of its first rot = 2 × the tables' width dims; the
     dims past rot pass through ('half' RoPE).  No tables (sinusoidal
-    positions): x as it is."""
+    positions, ``rope="none"``): x as it is."""
     if rope is None:
         return x
     hd, rot = x.shape[-1], 2 * rope.cos.shape[-1]
@@ -168,9 +193,9 @@ def rotate(x: torch.Tensor, rope: Optional[Rope]) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
-    """x (B, L, H, hd), positions (B, L): tables then rotation, for a
-    caller that has only positions (the model builds its tables once per
-    forward, ``rope_tables``)."""
+    """x (B, L, H, hd), positions (B, L) (or M-RoPE's (3, B, L)): tables
+    then rotation, for a caller that has only positions (the model builds
+    its tables once per forward, ``rope_tables``)."""
     return rotate(x, rope_tables(positions, rotary_dim(cfg, x.shape[-1]),
                                  cfg, x.dtype))
 

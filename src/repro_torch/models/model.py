@@ -19,6 +19,16 @@ the result; without ``enc_embeds`` the cross path is skipped.  Its token
 positions are the sinusoidal table's rows, added at the embedding; the
 encoder adds none.
 
+A VLM (qwen2-vl) adds ``params["projector"]["w"]`` (d, d): ``forward(...,
+patch_embeds=...)`` projects the caller's patch embeddings (B, P, d) (the
+vision encoder being a stub), puts them in front of the token
+embeddings, and slices their rows off after the final norm, so the
+logits stay (B, L, V) over the text.  Its M-RoPE positions are three
+streams (``make_positions``): patches at t = 0 on an h/w grid, text at
+t = h = w = its index past the patches + 1 (so text alone starts at 1,
+in the block cache's passes too).  An xLSTM stack (arch_type ``ssm``)
+has no attention and no positions.
+
 The fixed-shape block cache (DESIGN.md "The KV cache"): ``capture_cache``
 runs one full pass over the canvas and keeps every layer's K/V,
 ``forward_cached`` scores a live window against it.
@@ -53,9 +63,9 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                device="cuda", dtype: Optional[torch.dtype] = None) -> Params:
     """Seeded random weights, made directly on ``device`` in ``dtype``
     (default: the config's compute dtype; norm scales and biases, the
-    sinusoidal table and the Mamba head's a_log, dt_bias and mix scales
-    stay f32, as the reference's).  ``generator`` must live on
-    ``device``; ``None`` seeds one with 0."""
+    sinusoidal table, the Mamba head's a_log, dt_bias and mix scales, and
+    the xLSTM's gate weights and biases stay f32, as the reference's).
+    ``generator`` must live on ``device``; ``None`` seeds one with 0."""
     dev = resolve_device(device)
     dt = dtype or compute_dtype(cfg)
     blocks_lib.check_ported(cfg)
@@ -65,6 +75,11 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                       "norm_f": init_norm(cfg, dev)}
     params["blocks"] = [blocks_lib.init_block(gen, cfg, i, dev, dt)
                         for i in range(cfg.num_layers)]
+    if cfg.encdec is not None and cfg.encdec.frontend == "vision_stub":
+        # the projector from the stub's patch embeddings to d_model
+        params["projector"] = {"w": (torch.randn(
+            cfg.d_model, cfg.d_model, generator=gen, device=dev,
+            dtype=torch.float32) * cfg.d_model ** -0.5).to(dt)}
     if cfg.is_encdec:
         ecfg = encoder_config(cfg)
         params["encoder"] = {
@@ -75,20 +90,36 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def make_positions(cfg: ModelConfig, batch: int, length: int,
-                   offset: int = 0, device="cuda") -> torch.Tensor:
-    """(B, L) int32 position ids (standard RoPE)."""
+                   offset: int = 0, device="cuda",
+                   num_patches: int = 0) -> torch.Tensor:
+    """Position ids of ``length`` positions from ``offset``: (B, L) int32,
+    or under M-RoPE the (3, B, L) t/h/w streams of the reference's
+    ``make_positions``: the first ``num_patches`` positions are patches,
+    t = 0 with h, w on a side × side grid (side = ⌊√num_patches⌋, at
+    least 1; a count that is not square wraps the grid), and text takes
+    t = h = w = position − num_patches + 1."""
     pos = offset + torch.arange(length, dtype=torch.int32, device=device)
-    return pos[None].expand(batch, length)
+    pos = pos[None].expand(batch, length)
+    if cfg.rope != "mrope":
+        return pos
+    side = max(int(num_patches ** 0.5), 1)
+    patch = pos < num_patches
+    t = torch.where(patch, 0, pos - num_patches + 1)
+    hh = torch.where(patch, (pos % (side * side)) // side, t)
+    ww = torch.where(patch, pos % side, t)
+    return torch.stack([t, hh, ww]).to(torch.int32)
 
 
 def forward_rope(cfg: ModelConfig, length: int, offset: int = 0,
-                 device="cuda") -> Optional[Rope]:
+                 device="cuda", num_patches: int = 0) -> Optional[Rope]:
     """The RoPE tables of one forward over ``length`` positions from
-    ``offset``, (1, L, 1, rot/2) in the compute dtype (rot: the rotary
-    dim, ``model_rotary_dim``: MLA's rope dims alone): built once and
-    shared by every layer (they broadcast over the batch).  None under
-    sinusoidal positions."""
-    return rope_tables(make_positions(cfg, 1, length, offset, device),
+    ``offset`` (the first ``num_patches`` of them patches),
+    (1, L, 1, rot/2) in the compute dtype (rot: the rotary dim,
+    ``model_rotary_dim``: MLA's rope dims alone): built once and shared by
+    every layer (they broadcast over the batch, as every row has the same
+    positions).  None under sinusoidal positions or without RoPE."""
+    return rope_tables(make_positions(cfg, 1, length, offset, device,
+                                      num_patches),
                        model_rotary_dim(cfg), cfg, compute_dtype(cfg))
 
 
@@ -134,20 +165,32 @@ def encode(params: Params, enc_embeds: torch.Tensor,
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             return_aux: bool = False,
-            enc_embeds: Optional[torch.Tensor] = None):
+            enc_embeds: Optional[torch.Tensor] = None,
+            patch_embeds: Optional[torch.Tensor] = None):
     """tokens (B, L) -> logits (B, L, V) float32.  Bidirectional: every
     position is scored.  ``return_aux=True`` returns (logits, aux): the
     MoE layers' summed aux loss (f32 scalar; 0 without MoE layers), as
     the reference's ``forward`` does; a decode never asks for it.  An
     encoder-decoder given ``enc_embeds`` (B, S, d) encodes them and
-    cross-attends over the result in every layer."""
+    cross-attends over the result in every layer.  A VLM given
+    ``patch_embeds`` (B, P, d) projects them (in the compute dtype) in
+    front of the text and drops their rows before the head."""
     x = embed_tokens(params["embed"], tokens, cfg)
-    rope = forward_rope(cfg, tokens.shape[1], device=tokens.device)
+    num_patches = 0
+    if patch_embeds is not None:
+        dt = x.dtype
+        proj = patch_embeds.to(dt) @ params["projector"]["w"].to(dt)
+        x = torch.cat([proj, x], dim=1)
+        num_patches = patch_embeds.shape[1]
+    rope = forward_rope(cfg, x.shape[1], device=tokens.device,
+                        num_patches=num_patches)
     enc_out = encode(params, enc_embeds, cfg) \
         if cfg.is_encdec and enc_embeds is not None else None
     x, aux_total = _run_blocks(params["blocks"], x, rope, cfg, return_aux,
                                enc_out)
     x = apply_norm(params["norm_f"], x, cfg)
+    if num_patches:
+        x = x[:, num_patches:]
     logits = lm_head(params["embed"], x, cfg)
     return (logits, aux_total) if return_aux else logits
 
@@ -183,7 +226,9 @@ def forward_cached(params: Params, tokens: torch.Tensor, win_start: int,
     """Score a W-row live window (B, W) at ``win_start`` against the cache
     from ``capture_cache``.  Read-only with respect to the cache: each
     layer writes its fresh window K/V into a copy and attends over all
-    ``total`` keys.  Returns logits (B, W, V) float32."""
+    ``total`` keys.  Its RoPE tables are those of positions ``win_start
+    ..`` of the canvas (under M-RoPE the text-only streams, from 1, as
+    the capture's).  Returns logits (B, W, V) float32."""
     x = embed_tokens(params["embed"], tokens, cfg, win_start)
     rope = forward_rope(cfg, tokens.shape[1], win_start, tokens.device)
     for i, (p, kv) in enumerate(zip(params["blocks"], state)):

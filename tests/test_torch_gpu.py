@@ -1309,3 +1309,114 @@ def _tree_to(tree, device):
     if isinstance(tree, list):
         return [_tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# --------------------------------------------------------------------------
+# qwen2-vl (M-RoPE, patch embeddings) and xLSTM (mLSTM, sLSTM)
+# --------------------------------------------------------------------------
+
+def _xlstm_ms():
+    """xlstm-125m-tiny with the pattern "ms": layer 1 an sLSTM (the reduced
+    pattern "mmmmmms" puts both layers on the mLSTM)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("xlstm-125m").reduced()
+    return cfg.reduced(ssm=dataclasses.replace(cfg.ssm, xlstm_pattern="ms"))
+
+
+@pytest.mark.parametrize("patches", [0, 16, 1024])
+def test_mrope_tables_on_card_match_cpu(cuda, patches):
+    """M-RoPE's cos/sin over the three streams (patches on the h/w grid,
+    text from 1) on the card equal the CPU's: f32 within 1e-6, bf16 within
+    one bf16 spacing."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import forward_rope
+    for cfg in (get_config("qwen2-vl-72b").reduced(),
+                get_config("qwen2-vl-72b")):
+        for dtype in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, dtype=dtype)
+            length = patches + 128
+            got = forward_rope(c, length, device=cuda, num_patches=patches)
+            want = forward_rope(c, length, device="cpu", num_patches=patches)
+            tol = 1e-6 if dtype == "float32" else 2 ** -8
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                torch.testing.assert_close(g.cpu().float(), w.float(),
+                                           rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("name", ["qwen2-vl-72b", "xlstm-ms"])
+def test_vlm_and_xlstm_forwards_on_card_match_cpu(cuda, name):
+    """f32 logits of tiny qwen2-vl with 16 patches (flash over the patch
+    rows, M-RoPE) and of the xLSTM stack with an sLSTM layer, on the card
+    against the CPU from the same weights, within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _xlstm_ms() if name == "xlstm-ms" else get_config(name).reduced()
+    params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 150), generator=gen)
+    kw = {}
+    if cfg.arch_type == "vlm":
+        kw["patch_embeds"] = torch.randn(2, 16, cfg.d_model, generator=gen)
+    want = forward(params, tokens, cfg, **kw)
+    got = forward(_tree_to(params, cuda), tokens.to(cuda), cfg,
+                  **{k: v.to(cuda) for k, v in kw.items()})
+    assert got.shape == (2, 150, cfg.vocab_size)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_vlm_shape(cuda, dtype):
+    """qwen2-vl-72b's attention over its longest canvas: 64 query heads
+    over 8 at d=128, 1024 patches + 128 text positions (B=2)."""
+    gen = torch.Generator(device=cuda).manual_seed(1152)
+    q = torch.randn(2, 1152, 64, 128, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(2, 1152, 8, 128, generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    got = fa_mod.flash_attention(q, k, v)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(),
+                               fa_mod.attention_ref(q, k, v).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("vocab", [152064, 50304])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_confidence_kernel_at_vlm_and_xlstm_vocabs(cuda, vocab, dtype):
+    _check_conf_kernel(_conf_logits(cuda, 256, vocab, dtype, vocab))
+
+
+@pytest.mark.parametrize("kw", WHISPER_STRATS, ids=lambda kw: kw["strategy"])
+@pytest.mark.parametrize("name", ["qwen2-vl-72b", "xlstm-ms"])
+def test_vlm_and_xlstm_graph_decodes_match_eager(cuda, name, kw):
+    """Tiny qwen2-vl with 16 patches (a static buffer of the run) and the
+    xLSTM stack with an sLSTM layer (its time loop inside the captured
+    forward): the whole-request and the per-block graph drivers equal the
+    eager driver (tokens, steps, forward-equivalents, phases)."""
+    import dataclasses
+    from repro_torch.configs import DecodeConfig, get_config
+    from repro_torch.core import Decoder
+    from repro_torch.models import init_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _xlstm_ms() if name == "xlstm-ms" else get_config(name).reduced()
+    params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size - 1, (2, 16), device=cuda,
+                           generator=gen)
+    extras = {"patch_embeds": torch.randn(2, 16, cfg.d_model, device=cuda,
+                                          generator=gen)} \
+        if cfg.arch_type == "vlm" else {}
+    dcfg = DecodeConfig(gen_length=32, block_size=8, steps=32, **kw)
+    want, wst = Decoder(params, cfg, dataclasses.replace(
+        dcfg, fused_loop=False), device=cuda).generate(None, prompt,
+                                                       **extras)
+    for over in (dict(fused_blocks=False), {}):
+        got, st = Decoder(params, cfg, dataclasses.replace(dcfg, **over),
+                          device=cuda).generate(None, prompt, **extras)
+        assert torch.equal(got, want)
+        assert (st.steps, st.forward_equivalents, st.phase_counts) == \
+            (wst.steps, wst.forward_equivalents, wst.phase_counts)

@@ -203,32 +203,43 @@ def test_entry_points_default_to_the_card():
         ServingEngine(params, cfg, DecodeConfig())
 
 
+# The ids of the old refusals stay.  A VLM block is the dense block, so
+# ``arch_type="vlm"`` builds and matches the reference (as LayerNorm's
+# case does); an xLSTM config without its ``ssm`` config and M-RoPE without
+# sections that split the rotary dims are still refused, with the port's
+# messages (the reference fails on both too: AttributeError at init, an
+# assertion in the forward).
 @pytest.mark.parametrize("over,match", [
-    (dict(arch_type="vlm"), "dense and hybrid blocks only"),
-    (dict(arch_type="ssm"), "dense and hybrid blocks only"),
-    (dict(rope="mrope"), "only 'standard' and 'half' RoPE"),
-    # LayerNorm is ported now: the id of its old refusal stays, and the
-    # case checks that a LayerNorm config builds and matches the reference
+    pytest.param(dict(arch_type="vlm"), None,
+                 id="over0-dense and hybrid blocks only"),
+    pytest.param(dict(arch_type="ssm"), "no ssm config",
+                 id="over1-dense and hybrid blocks only"),
+    pytest.param(dict(rope="mrope"), "mrope_sections",
+                 id="over2-only 'standard' and 'half' RoPE"),
     pytest.param(dict(norm="layernorm"), None, id="over3-RMSNorm only"),
 ])
 def test_unported_architectures_raise(over, match):
     cfg = dataclasses.replace(get_config("llada-8b-tiny"), **over)
+    jcfg = dataclasses.replace(jax_get_config("llada-8b-tiny"), **over)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 10)).astype(np.int32)
     if match is None:
-        jcfg = dataclasses.replace(jax_get_config("llada-8b-tiny"), **over)
         jp = jax.device_get(jax_init_model(jax.random.PRNGKey(0), jcfg))
         tp = from_jax_params(jp, device="cpu")
         ours = init_model(cfg, device="cpu")
-        assert "bias" in ours["blocks"][0]["norm1"]
+        assert ("bias" in ours["blocks"][0]["norm1"]) == \
+            (cfg.norm == "layernorm")
         assert {k: v.shape for k, v in to_flat(ours).items()} == \
             {k: v.shape for k, v in _flatten(jp).items()}
-        tokens = np.random.default_rng(0).integers(
-            0, cfg.vocab_size, (2, 10)).astype(np.int32)
         want = jax_forward(jp, jnp.asarray(tokens), jcfg)[0]
         got = forward(tp, torch.from_numpy(tokens).long(), cfg)
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-4, atol=1e-4)
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises((AttributeError, AssertionError)):
+        jp = jax_init_model(jax.random.PRNGKey(0), jcfg)
+        jax_forward(jp, jnp.asarray(tokens), jcfg)
+    with pytest.raises(ValueError, match=match):
         params = init_model(cfg, device="cpu")
         forward(params, torch.zeros(1, 4, dtype=torch.long), cfg)
 

@@ -362,7 +362,8 @@ def test_trainer_refuses_an_moe_config():
     trains an MoE config with the router's aux loss in the objective, so
     each of its three entry points builds and takes a step (the reference
     parity of that step is ``test_torch_train.py``'s); an SSM/xLSTM stack
-    is still refused at init, and the card is still the default."""
+    without its ``ssm`` config is refused at init, and the card is still
+    the default."""
     _, cfg, _, tp = _model("reduced")
     tcfg = TrainConfig(batch_size=2, seq_len=12, steps=1)
     tokens = torch.randint(0, cfg.vocab_size - 1, (2, 12),
@@ -381,8 +382,7 @@ def test_trainer_refuses_an_moe_config():
                                            batch.items()}]),
                          params=tp, device="cpu", log=None)
     assert hist["step"] == [1] and hist["aux"][0] > 0
-    with pytest.raises(NotImplementedError,
-                       match="dense and hybrid blocks only"):
+    with pytest.raises(ValueError, match="no ssm config"):
         init_model(dataclasses.replace(cfg, arch_type="ssm"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
