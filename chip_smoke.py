@@ -44,7 +44,13 @@ Phases, in order; any failure raises and the script exits non-zero:
              heads over 8 at d=128 over 1024 patches + 128 text positions,
              bf16 and f32; ``VLM_CONF_SHAPES``: 256 x 152064) and
              xlstm-125m's confidence (``XLSTM_CONF_SHAPES``: 256 x 50304),
-             f32 and bf16;
+             f32 and bf16; and the decode state's calls
+             (``DECODE_ATTN_SHAPES``: flash at Lq = 1 with its valid key
+             count read on the card, over LLaDA-8B's 32k cache in bf16
+             and f32, Hymba's 25:5 over its 1024-slot ring and Qwen3-14B's
+             40:8 over 32k; ``SCAN_STATE_SHAPES``: the scan from an
+             initial state h0 with its end state out; ``SERVE_CONF_SHAPES``:
+             confidence at the serve step's 2 rows);
 4. reference — decodes reduced LLaDA and Hymba configs on the card
              (kernels) and on the CPU (plain versions) from the same
              weights, on the card by the eager, the per-block graph and
@@ -80,7 +86,13 @@ Phases, in order; any failure raises and the script exits non-zero:
              conditioned by 16 seeded patch embeddings (``patch_embeds``)
              under ``none`` and text-only under ``prefix`` and ``dual``,
              and reduced xlstm-125m with the pattern "ms" (an mLSTM and an
-             sLSTM layer) under ``none``, each with ``ARCH_CASES``;
+             sLSTM layer) under ``none``, each with ``ARCH_CASES``; then
+             the decode state (``steps_reference_phase``): LLaDA and every
+             reduced config of ``ASSIGNED_ARCHS`` in f32, eight
+             ``decode_step``s and a ``forward_window`` sequence (extend
+             "kv" then ``set_valid_length``, "recurrent", None, "kv"),
+             card against CPU: argmaxes exact, logits and every state leaf
+             within ``STEPS_REFERENCE_TOL`` of their scale;
 5. serving — full-width, full-depth LLaDA-8B, then Hymba-1.5B (random
              bf16 weights from a seed; LLaDA's weights and graphs are
              freed first) behind ``ServingEngine`` on the graph drivers
@@ -103,7 +115,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              the next): full-width, full-depth Qwen3-14B under ``none``,
              ``prefix`` and ``dual``, ChatGLM3-6B and StableLM-3B under
              ``none`` (``ARCH_SERVING``); then full-width Mixtral-8x22B
-             cut to ``MIXTRAL_LAYERS`` (8) of its 56 layers under the
+             cut to ``MIXTRAL_LAYERS`` (4) of its 56 layers under the
              three policies (``moe_model_phase``), its serving batch's
              forwards on the card's clock, one profiled graph-driven fdm
              request split into kernel groups (expert GEMMs, other GEMMs,
@@ -111,8 +123,8 @@ Phases, in order; any failure raises and the script exits non-zero:
              hand-written kernels' launches in the trace equal to the
              graphs' count, and one eager forward over 4160 tokens (the
              band live: finite logits, one flash launch a layer); then
-             full-width DeepSeek-V2 cut to ``DEEPSEEK_LAYERS`` (6) of its
-             60 layers (the dense layer 0 and 5 MoE layers of 160 routed
+             full-width DeepSeek-V2 cut to ``DEEPSEEK_LAYERS`` (3) of its
+             60 layers (the dense layer 0 and 2 MoE layers of 160 routed
              experts top-6 and 2 shared; MLA in every layer) likewise
              (``moe_model_phase`` again), its long forward over 4096
              tokens; then full-width, full-depth whisper-medium (24
@@ -123,17 +135,28 @@ Phases, in order; any failure raises and the script exits non-zero:
              measured on a second; 72 flash launches a forward call; one
              profiled fdm request by kernel group, and eager forwards
              split into the encoder, the cross K/V projections and the
-             rest); then full-width qwen2-vl-72b cut to ``VLM_LAYERS`` (8)
+             rest); then full-width qwen2-vl-72b cut to ``VLM_LAYERS`` (4)
              of its 80 layers decoding with 1024 seeded bf16 patch
              embeddings through ``Decoder.generate`` on the graph drivers
              (``vlm_phase``: one B=2 request per strategy, captured on a
-             first pass, measured on a second; 8 flash launches a forward
+             first pass, measured on a second; 4 flash launches a forward
              call; one profiled fdm request by kernel group; the
              conditioned forwards on the card's clock), then served
              text-only under ``none``, ``prefix`` and ``dual``; then
              full-width, full-depth xlstm-125m (``xlstm_phase``: 12 layers,
              layer 6 the sLSTM) served under ``none``, its forwards timed
-             and one profiled fdm request by kernel group;
+             and one profiled fdm request by kernel group.  The serve step
+             (``serve_step_phase``: ``make_steps(cfg)["serve"]``, one token
+             a step against a warm ``init_decode_state``, 16 steps): after
+             LLaDA's carry phase, all 32 layers of LLaDA-8B at B=2 over a
+             32k bf16 cache (``llada-8b-serve``: ms a step, tokens/s, the
+             bytes a step must move and its share of that bound, flash's
+             and confidence's device ms a step, peak memory); after
+             Hymba's serving, Hymba-1.5B at long_500k's position 524287
+             (B=1, its 1024-slot ring and the Mamba state) plus one
+             32-token ``forward_window(extend="recurrent")``, the scan from
+             h0 (``hymba-1.5b-serve``); after the xLSTM's, xlstm-125m
+             there likewise (``xlstm-125m-serve``);
 6. KV A/B  — (between LLaDA's serving and Hymba's) one B=2 request at the
              reference's ``BENCH_kv_cache.json`` geometry (prompt 128,
              gen 128, block 32, probability) on full-width LLaDA-8B under
@@ -199,6 +222,12 @@ Phases, in order; any failure raises and the script exits non-zero:
              one full-width MoE layer of each at T = 1024, forward and
              backward with its aux loss, device ms against its bound,
              peak memory, the router's gradient moved by the aux term;
+             then training through ``make_steps(cfg)["train"]``
+             (``steps_train_phase``): xlstm-125m whole (B=2, L=512) and
+             qwen2-vl-72b cut to 1 of its 80 layers with 1024 seeded patch
+             embeddings (B=2, 128 text positions), 4 steps each: ms a
+             step, tokens/s, peak memory, finite losses, flash 2 a layer
+             and step (``xlstm-125m-train``, ``qwen2-vl-72b-train``);
 11. http serving — the async stack (``ServerThread`` → ``ModelRouter`` →
              ``AsyncScheduler`` → ``ServingEngine``, every decode on the
              card's worker thread) over real sockets: full-width LLaDA-8B
@@ -313,7 +342,7 @@ ARCH_ATTN_SHAPES = tuple(
     (MAX_BATCH, CANVAS, CANVAS, 40, 8, 128, 0, 0, "bfloat16"),
     (MAX_BATCH, CANVAS, CANVAS, 32, 2, 128, 0, 0, "bfloat16"),
     (MAX_BATCH, CANVAS, CANVAS, 32, 8, 160, 0, 0, "bfloat16"))
-MIXTRAL_LAYERS, MIXTRAL_LONG = 8, 4160   # see MOE_REFERENCE
+MIXTRAL_LAYERS, MIXTRAL_LONG = 4, 4160   # see MOE_REFERENCE
 # Mixtral-8x22B's attention (48 heads over 8 at d=128, window 4096; B, Lq,
 # Lk, H, G, d, window, q_offset, dtype): the serving batch (the band is
 # inactive below 4096) and one 4160-token row (the band live), each in
@@ -326,7 +355,7 @@ MOE_ATTN_SHAPES = tuple(
     for dt in ("bfloat16", "float32"))
 MOE_CONF_SHAPES = ((MAX_BATCH * CANVAS, 32768, "float32"),
                    (MAX_BATCH * CANVAS, 32768, "bfloat16"))
-DEEPSEEK_LAYERS, DEEPSEEK_LONG = 6, 4096   # see DEEPSEEK_REFERENCE
+DEEPSEEK_LAYERS, DEEPSEEK_LONG = 3, 4096   # see DEEPSEEK_REFERENCE
 # DeepSeek-V2's MLA heads (128 heads, q/k 192 = 128 + 64 rope wide, v 128;
 # B, Lq, Lk, H, G, dqk, dv, window, q_offset, dtype): the serving batch,
 # the K-candidate batch, the dual window (32 rows against the 128-token
@@ -363,7 +392,11 @@ WHISPER_CONF_SHAPES = ((MAX_BATCH * CANVAS, 51865, "float32"),
 # window, q_offset, dtype) over the longest canvas (1024 patches + 128
 # text positions) in bf16 and f32; its confidence at the serving batch's
 # 256 rows x V = 152064, and xlstm-125m's at V = 50304, f32 and bf16
-VLM_LAYERS, VLM_PATCHES = 8, 1024
+VLM_LAYERS, VLM_PATCHES = 4, 1024
+# qwen2-vl-72b trained through make_steps at 1 of its 80 layers (3.44 B
+# parameters with the embedding, head and projector: 55 GB of f32 masters,
+# gradients and AdamW's moments)
+VLM_TRAIN_LAYERS = 1
 VLM_ATTN_SHAPES = tuple(
     (MAX_BATCH, VLM_PATCHES + CANVAS, VLM_PATCHES + CANVAS, 64, 8, 128, 0, 0,
      dt) for dt in ("bfloat16", "float32"))
@@ -380,8 +413,13 @@ SCAN_SHAPES = ((MAX_BATCH, CANVAS, 3200, 16, "bfloat16"),
                (1, 2048, 3200, 16, "bfloat16"))
 
 
+STARTED = time.perf_counter()
+
+
 def log(*args):
-    print(*args, flush=True)
+    """A line of the run's log, led by the seconds since the script
+    started (a phase's cost is the difference of two such stamps)."""
+    print(f"[{time.perf_counter() - STARTED:7.1f} s]", *args, flush=True)
 
 
 def nvidia_smi() -> str:
@@ -516,13 +554,15 @@ def conf_inputs(torch, rows: int, vocab: int, dtype: str):
 
 
 def attn_inputs(torch, b, lq, lk, h, g, d, window, q_offset=0,
-                dtype="bfloat16", dv=None):
+                dtype="bfloat16", dv=None, q_scale=1.0):
     """q, k, v in ``dtype`` (bf16 by default), the band and its q offset
-    for the attention kernel; v is ``dv`` wide (default d)."""
+    for the attention kernel; v is ``dv`` wide (default d); q times
+    ``q_scale`` before the cast (a larger one peaks the softmax)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + lk + g + window)
-    q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(
-        getattr(torch, dtype)) for shape in ((b, lq, h, d), (b, lk, g, d),
-                                             (b, lk, g, dv or d)))
+    q, k, v = (s * torch.randn(*shape, generator=gen, device="cuda")
+               for s, shape in ((q_scale, (b, lq, h, d)), (1, (b, lk, g, d)),
+                                (1, (b, lk, g, dv or d))))
+    q, k, v = (t.to(getattr(torch, dtype)) for t in (q, k, v))
     return q, k, v, window, q_offset
 
 
@@ -575,43 +615,72 @@ def check_confidence(conf_mod, torch, rows: int, vocab: int, dtype: str):
 
 
 def check_attention(fa_mod, torch, b, lq, lk, h, g, d, window, q_offset,
-                    dtype="bfloat16", dv=None):
+                    dtype="bfloat16", dv=None, kv_len=None):
     """Kernel vs plain version (tolerance 2e-2 in bf16, 2e-4 in f32, as
     the reference's kernel tests), q and k ``d`` wide, v ``dv`` (default
-    d).  Returns a dict: max_abs_err, ms, plain_ms, library_ms (SDPA)
-    call to call, device_ms and library_device_ms on the device alone,
-    bound_ms and bound_by."""
+    d); with ``kv_len`` the kernel reads that count of live keys from the
+    card (the single-token decode), and SDPA gets the live keys alone.
+    A decode's q is scaled by ``DECODE_Q_SCALE``, which peaks its softmax
+    over many keys (outputs of order 1, not 1/sqrt(keys)), and its error
+    is also held to the tolerance times the output's max |value|
+    (``rel_err``); with a count below Lk the masked keys must change the
+    plain version's answer by more than 5x that (``count_effect``).
+    Returns a dict: max_abs_err, ms, plain_ms, library_ms (SDPA) call to
+    call, device_ms and library_device_ms on the device alone, bound_ms
+    and bound_by."""
     import torch.nn.functional as F
-    q, k, v, _, _ = attn_inputs(torch, b, lq, lk, h, g, d, window, q_offset,
-                                dtype, dv)
-    got = fa_mod.flash_attention(q, k, v, window, q_offset)
+    q, k, v, _, _ = attn_inputs(
+        torch, b, lq, lk, h, g, d, window, q_offset, dtype, dv,
+        1.0 if kv_len is None else DECODE_Q_SCALE)
+    count = None if kv_len is None else torch.tensor(
+        [kv_len], dtype=torch.int32, device="cuda")
+    n = lk if kv_len is None else kv_len
+    got = fa_mod.flash_attention(q, k, v, window, q_offset, count)
     torch.cuda.synchronize()
-    ref = fa_mod.attention_ref(q, k, v, window, q_offset)
+    ref = fa_mod.attention_ref(q, k, v, window, q_offset, count)
     tol = 2e-2 if dtype == "bfloat16" else 2e-4
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    checks = {}
+    if kv_len is not None:
+        scale = float(ref.float().abs().max())
+        err = float((got.float() - ref.float()).abs().max())
+        checks["rel_err"] = err / scale
+        if err > tol * scale:
+            raise AssertionError(f"flash decode: error {err} > {tol} x the "
+                                 f"output's max |value| {scale}")
+        if kv_len < lk:
+            full = fa_mod.attention_ref(q, k, v, window, q_offset, None)
+            checks["count_effect"] = float(
+                (full.float() - ref.float()).abs().max()) / scale
+            if checks["count_effect"] <= 5 * tol:
+                raise AssertionError(
+                    f"flash decode: masking keys {kv_len}.. changes the "
+                    f"plain answer by only {checks['count_effect']} of its "
+                    f"scale")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :n], v[:, :n]))
     qpos = q_offset + torch.arange(lq)
-    band = (qpos[:, None] - torch.arange(lk)[None, :]).abs() < window
+    band = (qpos[:, None] - torch.arange(n)[None, :]).abs() < window
     mask = band.cuda() if window else None
 
     def kernel():
-        return fa_mod.flash_attention(q, k, v, window, q_offset)
+        return fa_mod.flash_attention(q, k, v, window, q_offset, count)
 
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                               enable_gqa=g != h)
     out = dict(max_abs_err=float((got.float() - ref.float()).abs().max()),
-               ms=time_ms(kernel),
+               **checks, ms=time_ms(kernel),
                plain_ms=time_ms(lambda: fa_mod.attention_ref(
-                   q, k, v, window, q_offset)),
+                   q, k, v, window, q_offset, count)),
                library_ms=time_ms(sdpa), device_ms=device_ms(kernel),
                library_device_ms=device_ms(sdpa))
-    pairs = int(band.sum()) if window else lq * lk
-    # Q Kᵀ over d and P V over v's width, 2 operations a multiply-add; q,
-    # k and v read once, the output (v's width) written once
+    pairs = int(band.sum()) if window else lq * n
+    # Q Kᵀ over d and P V over v's width, 2 operations a multiply-add; q
+    # and the live keys' k and v read once, the output (v's width) written
+    # once
     ops = 2 * b * h * pairs * (d + v.shape[-1])
-    nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * \
-        q.element_size()
+    nbytes = (q.numel() + (k.numel() + v.numel()) * n // lk +
+              got.numel()) * q.element_size()
     peak = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
     t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / peak
     out.update(bound_ms=1e3 * max(t_bytes, t_ops),
@@ -619,32 +688,48 @@ def check_attention(fa_mod, torch, b, lq, lk, h, g, d, window, q_offset,
     return out
 
 
-def check_scan(scan_mod, torch, b, l, di, n, xdtype: str):
+def check_scan(scan_mod, torch, b, l, di, n, xdtype: str,
+               state: bool = False):
     """Kernel vs plain version, x in ``xdtype`` and Δ/B/C f32 as on the
     serving path (tolerance 3e-2 with bf16 x, 2e-4 in f32, as the
-    reference's kernel tests).  Returns a dict: max_abs_err, ms and
-    plain_ms call to call, device_ms on the device alone, bound_ms and
-    bound_by (one exp per state and step), and design_floor_ms (the two
-    passes' exps, 2 per state and step, on the SFU)."""
+    reference's kernel tests); with ``state``, from a seeded initial
+    state h0 with the end state out (the f32 end state within 2e-4).
+    Returns a dict: max_abs_err, ms and plain_ms call to call, device_ms
+    on the device alone, bound_ms and bound_by (one exp per state and
+    step), and design_floor_ms (the two passes' exps, 2 per state and
+    step, on the SFU)."""
     args = scan_inputs(torch, b, l, di, n, xdtype)
-    got = scan_mod.selective_scan(*args)
+    kw = {}
+    if state:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7 * l)
+        kw = dict(h0=0.5 * torch.randn(b, di, n, generator=gen,
+                                       device="cuda"), return_state=True)
+    got = scan_mod.selective_scan(*args, **kw)
     torch.cuda.synchronize()
-    ref = scan_mod.selective_scan_ref(*args)
+    ref = scan_mod.selective_scan_ref(*args, **kw)
+    outs = got if state else (got,)
+    refs = ref if state else (ref,)
     tol = 2e-4 if xdtype == "float32" else 3e-2
-    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(outs[0].float(), refs[0].float(), rtol=tol,
+                               atol=tol)
+    if state:
+        torch.testing.assert_close(outs[1], refs[1], rtol=2e-4, atol=2e-4)
 
     def kernel():
-        return scan_mod.selective_scan(*args)
+        return scan_mod.selective_scan(*args, **kw)
+    # inputs read once, y (and h_L) written once; h0 read once
     nbytes = sum(t.numel() * t.element_size() for t in args) + \
-        got.numel() * got.element_size()
+        sum(t.numel() * t.element_size() for t in outs) + \
+        (outs[1].numel() * 4 if state else 0)
     exps = b * l * di * n                 # one exp per state per step
     flops = 7 * b * l * di * n            # Δ·A, Δ·B·x, fma, h·C, sum
     t_bytes = nbytes / MEM_BYTES_PER_S
     t_ops = max(exps / SFU_OPS_PER_S, flops / F32_OPS_PER_S)
     return dict(
-        max_abs_err=float((got.float() - ref.float()).abs().max()),
+        max_abs_err=max(float((o.float() - r.float()).abs().max())
+                        for o, r in zip(outs, refs)),
         ms=time_ms(kernel), device_ms=device_ms(kernel),
-        plain_ms=time_ms(lambda: scan_mod.selective_scan_ref(*args),
+        plain_ms=time_ms(lambda: scan_mod.selective_scan_ref(*args, **kw),
                          reps=3, inner=2),
         bound_ms=1e3 * max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -700,8 +785,9 @@ ARCH_SERVING = (("qwen3-14b", POLICIES), ("chatglm3-6b", ("none",)),
 # phase, as is and with GQA (reduced gives 4:4), under every policy with
 # ARCH_CASES (the reduced window of 32 is live over the 48-token canvas);
 # served at full width cut to MIXTRAL_LAYERS of its 56 layers (a layer is
-# ~2.50 B parameters, 8 of them ~40.9 GB of bf16 beside the 0.8 GB of
-# embedding and head: all 56 would be ~281 GB); then one eager forward
+# ~2.50 B parameters, 4 of them ~20.0 GB of bf16 beside the 0.8 GB of
+# embedding and head: all 56 would be ~281 GB; 8 until the script's time
+# grew with the serve step's phases); then one eager forward
 # over MIXTRAL_LONG tokens, past the window, so the band is live at full
 # width
 MOE_REFERENCE = (("mixtral-8x22b", {}), ("mixtral-8x22b",
@@ -709,7 +795,7 @@ MOE_REFERENCE = (("mixtral-8x22b", {}), ("mixtral-8x22b",
 # DeepSeek-V2 (MLA, a dense first layer, shared experts): reduced in the
 # reference phase under every policy with ARCH_CASES; served at full width
 # cut to DEEPSEEK_LAYERS of its 60 layers (layer 0 dense, then MoE layers
-# of ~3.97 B parameters: 6 layers are ~42.5 GB of bf16, all 60 ~471 GB);
+# of ~3.97 B parameters: 3 layers are ~18.7 GB of bf16, all 60 ~471 GB);
 # then one eager forward over DEEPSEEK_LONG tokens
 DEEPSEEK_REFERENCE = (("deepseek-v2-236b", {}),)
 
@@ -3167,7 +3253,10 @@ def xlstm_phase(torch, mods: dict) -> dict:
     policy); its forwards on the card's clock and by where the host's time
     goes; one profiled graph-driven fdm request by kernel group (the
     sLSTM's time loop: a few small launches a step of the canvas, replayed
-    from the graph).  Returns the launches of the path."""
+    from the graph); then its serve step at long_500k's last position
+    (B=1, ``serve_step_phase``: the recurrent states alone, O(1) a token)
+    and one 32-token recurrent window.  Returns the launches of the
+    paths."""
     from repro_torch.configs import DecodeConfig
     from repro_torch.core import Decoder, clear_decode_cache, decode_cache_scope
     cfg, params = make_model(torch, "xlstm-125m")
@@ -3190,9 +3279,367 @@ def xlstm_phase(torch, mods: dict) -> dict:
                       DECODE_GROUPS)
     del scope, dec, run
     clear_decode_cache()
+    serve = serve_step_phase(torch, cfg, params, mods, 1, LONG_POS + 1,
+                             LONG_POS, window=32)
     del params
     torch.cuda.empty_cache()
-    return {cfg.name: launches}
+    return {cfg.name: launches, f"{cfg.name}-serve": serve}
+
+
+# --------------------------------------------------------------------------
+# the decode state and the step functions (``launch/steps.py``): the serve
+# step at decode_32k and long_500k, the reference phase of decode_step and
+# forward_window, training through ``make_steps``
+# --------------------------------------------------------------------------
+
+# the flash kernel at the single-token decode (Lq = 1) with its valid count
+# read on the card, (B, Lk, H, G, d, count, dtype): LLaDA-8B's serve step
+# over the 32k cache (all keys valid once warm) in bf16 and f32, and a
+# cache still filling (20000 of its 32768 slots valid), Hymba's 25:5 at
+# d=64 over its 1024-slot ring at long_500k (B=1), Qwen3-14B's 40:8 over a
+# 32k cache; q is scaled by DECODE_Q_SCALE (see check_attention)
+SERVE_B, SERVE_CACHE, SERVE_STEPS = 2, 32768, 16
+LONG_POS = 524287                    # long_500k's last position
+DECODE_Q_SCALE = 3.0
+DECODE_ATTN_SHAPES = ((SERVE_B, SERVE_CACHE, 32, 32, 128, SERVE_CACHE,
+                       "bfloat16"),
+                      (SERVE_B, SERVE_CACHE, 32, 32, 128, SERVE_CACHE,
+                       "float32"),
+                      (SERVE_B, SERVE_CACHE, 32, 32, 128, 20000,
+                       "bfloat16"),
+                      (1, 1024, 25, 5, 64, 1024, "bfloat16"),
+                      (1, 1024, 25, 5, 64, 1024, "float32"),
+                      (SERVE_B, SERVE_CACHE, 40, 8, 128, SERVE_CACHE,
+                       "bfloat16"))
+# the scan from an initial state with its end state out, (B, L, di, N, x
+# dtype), Δ/B/C f32: Hymba's Mamba branch at the serving batch and over a
+# 2048-token row (a frozen prefix's window, forward_window's shapes)
+SCAN_STATE_SHAPES = ((MAX_BATCH, CANVAS, 3200, 16, "bfloat16"),
+                     (1, 2048, 3200, 16, "bfloat16"))
+# confidence at the serve step's rows: LLaDA-8B's B=2 single tokens
+SERVE_CONF_SHAPES = ((SERVE_B, 126464, "float32"),)
+
+
+STEPS_REFERENCE_TOL = 1e-4
+
+
+def _leaves(tree) -> list:
+    """The leaves of nested dicts, lists and tuples (a ``KVCache``'s
+    valid length among them)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def steps_reference_phase(torch) -> None:
+    """LLaDA and every reduced config of ``ASSIGNED_ARCHS`` (the xLSTM with
+    the pattern "ms"), f32, on the card against the CPU port from the
+    same weights: eight ``decode_step``s (B=2, a 16-position state) and a
+    ``forward_window`` sequence ("kv" then ``set_valid_length``,
+    "recurrent", None, "kv" again); argmaxes exact, logits and every state
+    leaf within ``STEPS_REFERENCE_TOL`` (f32 stays off the tensor cores;
+    whisper with a seeded ``enc_out``)."""
+    from repro_torch.configs import ASSIGNED_ARCHS, get_config
+    from repro_torch.models import (decode_step, forward_window,
+                                    init_decode_state, init_model,
+                                    set_valid_length)
+    for name in ["llada-8b"] + list(ASSIGNED_ARCHS):
+        cfg = get_config(name).reduced()
+        if name == "xlstm-125m":
+            cfg = cfg.reduced(ssm=dataclasses.replace(cfg.ssm,
+                                                      xlstm_pattern="ms"))
+        params = init_model(cfg, torch.Generator().manual_seed(SEED),
+                            device="cpu")
+        dparams = _to(params)
+        gen = torch.Generator().manual_seed(SEED + 1)
+        enc = torch.randn(2, 8, cfg.d_model, generator=gen) \
+            if cfg.is_encdec else None
+        states = {}
+        for dev in ("cpu", "cuda"):
+            states[dev] = init_decode_state(
+                cfg, 2, 16, torch.float32, None if enc is None else
+                enc.to(dev), device=dev)
+        worst = 0.0
+
+        def both(fn, *args):
+            nonlocal worst
+            want, states["cpu"] = fn(params, *args, states["cpu"])
+            got, states["cuda"] = fn(dparams, *(_to(a) for a in args),
+                                     states["cuda"])
+            if not torch.equal(got.argmax(-1).cpu(), want.argmax(-1)):
+                raise AssertionError(f"steps reference {name}: argmax "
+                                     f"differs")
+            err = float((got.cpu() - want).abs().max())
+            worst = max(worst, err / max(1.0, float(want.abs().max())))
+        toks = torch.randint(0, cfg.vocab_size - 1, (8, 2, 1), generator=gen)
+        for i, tok in enumerate(toks):
+            both(lambda p, t, pos, s: decode_step(p, t, pos, s, cfg), tok,
+                 torch.full((2, 1), i, dtype=torch.int32))
+        for dev in states:
+            states[dev] = set_valid_length(states[dev], 0)
+        win = torch.randint(0, cfg.vocab_size - 1, (2, 16), generator=gen)
+        for lo, hi, extend, valid in ((0, 8, "kv", 4), (0, 4, "recurrent",
+                                                         None),
+                                      (4, 8, None, None), (4, 12, "kv", 8)):
+            pos = torch.arange(lo, hi, dtype=torch.int32)[None].expand(2, -1)
+            both(lambda p, t, ps, s, e=extend: forward_window(
+                p, t, ps, s, cfg, e), win[:, lo:hi], pos.contiguous())
+            if valid is not None:
+                for dev in states:
+                    states[dev] = set_valid_length(states[dev], valid)
+        for a, b in zip(_leaves(states["cuda"].layer_states),
+                        _leaves(states["cpu"].layer_states)):
+            if isinstance(b, torch.Tensor):
+                err = float((a.cpu() - b).abs().max())
+                worst = max(worst, err / max(1.0, float(b.abs().max())))
+            elif a != b:
+                raise AssertionError(f"steps reference {name}: valid "
+                                     f"length {a} != {b}")
+        if worst > STEPS_REFERENCE_TOL:
+            raise AssertionError(f"steps reference {name}: {worst} > "
+                                 f"{STEPS_REFERENCE_TOL} of the scale")
+        log(f"steps reference {name}: 8 decode_steps and 4 forward_windows "
+            f"card vs CPU, argmaxes equal, worst error {worst:.2e} of the "
+            f"scale (tolerance {STEPS_REFERENCE_TOL})")
+
+
+def _read_bytes(cfg, params, state, kv_lens) -> int:
+    """Bytes one serve step must move: every weight but the token table
+    (the step gathers B of its rows; tied, it is the head and counts),
+    each attention layer's live K/V (``kv_lens`` keys of its cache), the
+    recurrent states read and written."""
+    from repro_torch.models.blocks import layer_cache
+    nbytes = sum(leaf.numel() * leaf.element_size()
+                 for leaf in _leaves(params))
+    tok = params["embed"]["tok"]
+    if not cfg.tie_embeddings:
+        nbytes -= tok.numel() * tok.element_size()
+    for st in state.layer_states:
+        kv = layer_cache(st)
+        rec = [t for t in _leaves(st) if hasattr(t, "numel")]
+        if kv is not None:
+            per_key = (kv.k[0, 0].numel() * kv.k.element_size() +
+                       kv.v[0, 0].numel() * kv.v.element_size())
+            nbytes += kv.k.shape[0] * min(kv_lens, kv.k.shape[1]) * per_key
+            rec = [t for t in rec if t is not kv.k and t is not kv.v]
+        nbytes += 2 * sum(t.numel() * t.element_size() for t in rec)
+    return nbytes
+
+
+SERVE_GROUPS = {"flash attention (hand-written)": ("flash_",),
+                "confidence (hand-written)": ("confidence_",),
+                "GEMMs (cuBLAS)": ("gemm", "xmma", "nvjet", "cutlass",
+                                   "splitKreduce", "gemv")}
+
+
+def serve_step_phase(torch, cfg, params, mods: dict, batch: int,
+                     length: int, last_pos: int, window: int = 0) -> dict:
+    """``make_steps(cfg)["serve"]`` over a warm ``init_decode_state(cfg,
+    batch, length)`` in the compute dtype (the attention caches filled
+    with seeded values), ``SERVE_STEPS`` tokens ending at position
+    ``last_pos``; with ``window``, then one ``forward_window`` of that
+    many tokens with ``extend="recurrent"`` (the scan from the state's
+    h0, its end state out).  The launch counts of ``mods`` are set to 0
+    just before the steps and read after the window.  Prints ms a step,
+    tokens/s, the bytes a step must move and the share of that bound,
+    flash's and confidence's device ms a step (a profile of two steps),
+    the peak memory; checks the scores.  Returns the launches."""
+    from repro_torch.launch.steps import make_steps
+    from repro_torch.models import forward_window, init_decode_state
+    from repro_torch.models.blocks import layer_cache
+    from repro_torch.models.layers import compute_dtype
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_decode_state(cfg, batch, length, compute_dtype(cfg),
+                              device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    for kv in map(layer_cache, state.layer_states):
+        if kv is not None:
+            kv.k.normal_(0.0, 0.5, generator=gen)
+            kv.v.normal_(0.0, 0.5, generator=gen)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    cache_gb = sum(t.numel() * t.element_size() for t in
+                   _leaves(state.layer_states)
+                   if isinstance(t, torch.Tensor)) / 1e9
+    serve = make_steps(cfg)["serve"]
+    first = last_pos - SERVE_STEPS + 1
+    toks = torch.randint(0, cfg.vocab_size - 1, (SERVE_STEPS, batch, 1),
+                         generator=gen, device="cuda")
+    pos = [torch.full((batch, 1), first + i, dtype=torch.int32,
+                      device="cuda") for i in range(SERVE_STEPS)]
+    holder = {"state": state}
+
+    def step(i):
+        scores, holder["state"] = serve(params, toks[i], pos[i],
+                                        holder["state"])
+        return scores
+    for i in range(2):                            # warm: positions first..
+        step(i)
+    torch.cuda.synchronize()
+    for mod in mods.values():
+        mod.launches = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    outs = [step(i) for i in range(SERVE_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / SERVE_STEPS
+    win_ms = None
+    if window:
+        wt = torch.randint(0, cfg.vocab_size - 1, (batch, window),
+                           generator=gen, device="cuda")
+        wp = (last_pos + 1 + torch.arange(window, dtype=torch.int32,
+                                          device="cuda"))[None].expand(
+            batch, window).contiguous()
+        start.record()
+        logits, holder["state"] = forward_window(params, wt, wp,
+                                                 holder["state"], cfg,
+                                                 "recurrent")
+        end.record()
+        torch.cuda.synchronize()
+        win_ms = start.elapsed_time(end)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"serve {cfg.name}: the window's logits "
+                                 f"are not finite")
+    launches = {k: mod.launches for k, mod in mods.items()}
+    for sc in outs:
+        if not (bool(torch.isfinite(sc.max_prob).all()) and
+                bool(((sc.max_prob > 0) & (sc.max_prob <= 1)).all()) and
+                bool((sc.neg_entropy <= 1e-6).all()) and
+                bool(((sc.argmax >= 0) &
+                      (sc.argmax < cfg.vocab_size)).all())):
+            raise AssertionError(f"serve {cfg.name}: scores out of range")
+    kv_len = min(last_pos + 1, length)
+    nbytes = _read_bytes(cfg, params, holder["state"], kv_len)
+    bound = 1e3 * nbytes / MEM_BYTES_PER_S
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    groups = device_profile(
+        torch, f"{cfg.name} serve step B={batch} cache {length} at "
+        f"position {last_pos}", lambda: step(SERVE_STEPS - 1), top=6,
+        groups=SERVE_GROUPS)
+    log(f"serve {cfg.name} ({cfg.num_layers} layers, B={batch}, state of "
+        f"{length} positions ({cache_gb:.2f} GB, made in {made:.2f} s), "
+        f"positions {first}..{last_pos}, valid keys {kv_len}): "
+        f"{ms:.3f} ms a step, {batch * 1e3 / ms:.1f} tokens/s; bytes a "
+        f"step {nbytes / 1e9:.3f} GB (bound {bound:.3f} ms at 3.35 TB/s, "
+        f"share {bound / ms:.3f}); device ms a step by group {groups}; "
+        f"peak allocated {peak:.2f} GiB; window of {window} tokens "
+        f"(extend=recurrent) {win_ms} ms; launches {launches}; "
+        f"{nvidia_smi()}")
+    want_flash = cfg.num_layers * SERVE_STEPS if cfg.arch_type != "ssm" \
+        else 0
+    if window and cfg.arch_type != "ssm":
+        want_flash += cfg.num_layers
+    if launches.get("confidence") != SERVE_STEPS or \
+            launches.get("flash_attention", 0) != want_flash or (
+                "selective_scan" in launches and
+                launches["selective_scan"] != cfg.num_layers):
+        raise AssertionError(f"serve {cfg.name}: launches {launches}, want "
+                             f"confidence {SERVE_STEPS}, flash "
+                             f"{want_flash}, scan {cfg.num_layers} (the "
+                             f"window)")
+    del holder, state, outs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def steps_train_phase(torch, mods: dict, name: str, layers: int = 0,
+                      patches: int = 0, seq: int = FULL_TRAIN_L) -> dict:
+    """Full-width ``name`` (cut to ``layers`` layers where given) trained
+    ``FULL_TRAIN_STEPS`` steps through ``make_steps(cfg)["train"]`` on
+    seeded tokens (B = ``FULL_TRAIN_B``, L = ``seq``, the second half
+    maskable) and, for a VLM, ``patches`` seeded patch embeddings (the
+    config's ``extra_input_names``); f32 masters made in place (no
+    second copy), bf16 compute, ``remat="block"``.  The launch counts of
+    ``mods`` are set to 0 just before the steps and read just after
+    (flash: 2 a layer and step, the forward and the recomputation).
+    Prints ms a step (median of steps 2..), tokens/s, peak memory and the
+    losses, which must be finite.  Eq. 4's loss weighs each masked token
+    by 1/t of its row, so it also prints each step's mean weight (the
+    step's draw of the corruption replayed from the generator's state)
+    and the loss over it: the masked tokens' weighted mean NLL, which
+    starts near ln V.  Returns the launches."""
+    import math
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch.steps import extra_input_names, make_steps
+    from repro_torch.models import init_model
+    from repro_torch.training import adamw_init
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.trainer import corrupt
+    cfg = get_config(name)
+    depth = cfg.num_layers
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = tree_map(lambda p: p.requires_grad_(True), init_model(
+        cfg, gen, device="cuda", dtype=torch.float32))
+    n = count_params(params)
+    opt = adamw_init(params)
+    tcfg = TrainConfig(batch_size=FULL_TRAIN_B, seq_len=seq,
+                       steps=FULL_TRAIN_STEPS, seed=SEED)
+    step = make_steps(cfg, tcfg)["train"]
+    batch = {"tokens": torch.randint(0, cfg.vocab_size - 1,
+                                     (FULL_TRAIN_B, seq), generator=gen,
+                                     device="cuda"),
+             "maskable": torch.zeros(FULL_TRAIN_B, seq, dtype=torch.bool,
+                                     device="cuda")}
+    batch["maskable"][:, seq // 2:] = True
+    extras = extra_input_names(cfg)
+    if "patch_embeds" in extras:
+        batch["patch_embeds"] = torch.randn(
+            FULL_TRAIN_B, patches, cfg.d_model, generator=gen,
+            device="cuda").to(torch.bfloat16)
+    for mod in mods.values():
+        mod.launches = 0
+    times, losses, weights = [], [], []
+    for _ in range(FULL_TRAIN_STEPS):
+        drawn = gen.get_state()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, gen, batch)
+        losses.append(float(met["loss"]))
+        times.append(time.perf_counter() - t0)
+        replay = torch.Generator(device="cuda")
+        replay.set_state(drawn)
+        _, masked, t = corrupt(replay, batch["tokens"], batch["maskable"],
+                               cfg)
+        weights.append(float((masked / t.clamp_min(1e-3)[:, None]).sum() /
+                             masked.sum().clamp_min(1)))
+    launches = {k: mod.launches for k, mod in mods.items()}
+    ms = 1e3 * statistics.median(times[1:])
+    tokens = FULL_TRAIN_B * (seq + patches)
+    log(f"make_steps training {cfg.name} ({cfg.num_layers} of {depth} "
+        f"layers, d={cfg.d_model}, V={cfg.vocab_size}, {cfg.dtype}, remat "
+        f"{cfg.remat}; {n} parameters, f32 masters; B={FULL_TRAIN_B}, "
+        f"L={seq}, extras {extras} with {patches} patches): losses "
+        f"{[round(x, 4) for x in losses]}, mean 1/t weights "
+        f"{[round(w, 4) for w in weights]}, losses over them "
+        f"{[round(x / w, 4) for x, w in zip(losses, weights)]} (ln V = "
+        f"{math.log(cfg.vocab_size):.4f}); step ms "
+        f"{[round(1e3 * t, 2) for t in times]}, median of steps 2.. "
+        f"{ms:.2f} ms, tokens/s {tokens / (ms / 1e3):.1f} (patch rows "
+        f"counted); peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB; launches "
+        f"{launches}; {nvidia_smi()}")
+    want = 2 * cfg.num_layers * FULL_TRAIN_STEPS if cfg.arch_type != "ssm" \
+        else 0
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"make_steps training {cfg.name}: losses "
+                             f"{losses}")
+    if launches.get("flash_attention", 0) != want:
+        raise AssertionError(f"make_steps training {cfg.name}: launches "
+                             f"{launches}, want {want} flash")
+    del params, opt, step, batch
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> None:
@@ -3391,6 +3838,50 @@ def main() -> None:
             f"floor {r['design_floor_ms']:.4f} ms")
         if (b, l) == (MAX_BATCH, CANVAS):
             scan_entry = r
+    # the decode state's kernel calls: flash at Lq = 1 with the count read
+    # on the card, the scan from h0 with its end state, confidence at the
+    # serve step's rows
+    for b, lk, h, g, d, n, dt in DECODE_ATTN_SHAPES:
+        r = check_attention(fa_mod, torch, b, 1, lk, h, g, d, 0, 0, dt,
+                            kv_len=n)
+        attn_errs.append(r["max_abs_err"])
+        log(f"attention (decode, valid count on the card, q x "
+            f"{DECODE_Q_SCALE}) B={b} Lq=1 Lk={lk} H={h} G={g} d={d} "
+            f"count={n} {dt}: max_abs_err {r['max_abs_err']}, of the "
+            f"output's max |value| {r['rel_err']:.2e}, masked keys' effect "
+            f"{r.get('count_effect')} of it; kernel {r['ms']:.4f} ms plain "
+            f"{r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms; on the "
+            f"device alone kernel {r['device_ms']:.4f} ms sdpa "
+            f"{r['library_device_ms']:.4f} ms (kernel/sdpa "
+            f"{r['device_ms'] / r['library_device_ms']:.3f}); bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of the bound "
+            f"on the device alone {r['bound_ms'] / r['device_ms']:.3f}")
+        if (b, lk, h, n, dt) == (SERVE_B, SERVE_CACHE, 32, SERVE_CACHE,
+                                 "bfloat16"):
+            attn_serve = r
+    for b, l, di, n, xdt in SCAN_STATE_SHAPES:
+        r = check_scan(scan_mod, torch, b, l, di, n, xdt, state=True)
+        scan_errs.append(r["max_abs_err"])
+        log(f"selective_scan from h0 with its end state B={b} L={l} "
+            f"di={di} N={n} x {xdt}: max_abs_err {r['max_abs_err']} kernel "
+            f"{r['ms']:.4f} ms, on the device alone {r['device_ms']:.4f} "
+            f"ms; plain {r['plain_ms']:.4f} ms library none bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), two-pass exp floor "
+            f"{r['design_floor_ms']:.4f} ms")
+        if l == 2048:
+            scan_state = r
+    for rows, vocab, dtype in SERVE_CONF_SHAPES:
+        r = check_confidence(conf_mod, torch, rows, vocab, dtype)
+        conf_errs.append(r["max_abs_err"])
+        conf_entry["max_abs_err"] = max(conf_errs)
+        log(f"confidence (serve step) rows={rows} V={vocab} {dtype}: "
+            f"max_abs_err {r['max_abs_err']} kernel {r['ms']:.4f} ms, on "
+            f"the device alone {r['device_ms']:.4f} ms; plain "
+            f"{r['plain_ms']:.4f} ms library none bound {r['bound_ms']:.4f} "
+            f"ms (bytes); share of the bound on the device alone "
+            f"{r['bound_ms'] / r['device_ms']:.3f}")
+        conf_serve = r
+    attn_entry["max_abs_err"] = max(attn_errs)
     scan_entry["max_abs_err"] = max(scan_errs)
 
     # 4. end-to-end agreement with the CPU reference on small configs
@@ -3431,6 +3922,10 @@ def main() -> None:
                     ARCH_CASES)
     log(f"reference phase (qwen2-vl, xlstm): "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    steps_reference_phase(torch)
+    log(f"reference phase (decode_step, forward_window): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # 5. the main paths, one model at a time (each frees its weights and
     # its graphs); 6. the KV A/B on LLaDA's weights
@@ -3455,6 +3950,10 @@ def main() -> None:
     carry = carry_phase(torch, cfg, params, mods)
     log(f"carry phase llada-8b: {time.perf_counter() - t0:.1f} s")
     clear_decode_cache()
+    t0 = time.perf_counter()
+    llada_serve = serve_step_phase(torch, cfg, params, mods, SERVE_B,
+                                   SERVE_CACHE, SERVE_CACHE - 1)
+    log(f"serve step phase llada-8b: {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3466,6 +3965,13 @@ def main() -> None:
     forward_phase(torch, cfg, params)
     log(f"serving phase hymba-1.5b: {time.perf_counter() - t0:.1f} s")
     clear_decode_cache()
+    t0 = time.perf_counter()
+    hymba_serve = serve_step_phase(
+        torch, cfg, params, {"confidence": conf_mod,
+                             "flash_attention": fa_mod,
+                             "selective_scan": scan_mod}, 1, LONG_POS + 1,
+        LONG_POS, window=32)
+    log(f"serve step phase hymba-1.5b: {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
     archs = {}
@@ -3549,6 +4055,15 @@ def main() -> None:
     for name in MOE_GRAD_MODELS:
         moe_grad_phase(torch, name)
     log(f"moe gradient phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    steps_train = {
+        "xlstm-125m-train": steps_train_phase(torch, {"confidence": conf_mod},
+                                              "xlstm-125m"),
+        "qwen2-vl-72b-train": steps_train_phase(
+            torch, {"flash_attention": fa_mod}, "qwen2-vl-72b",
+            VLM_TRAIN_LAYERS, VLM_PATCHES, CANVAS)}
+    log(f"make_steps training phase (xlstm-125m, qwen2-vl-72b): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # 11. the async serving stack over HTTP
     http = http_phase(torch, {"confidence": conf_mod,
@@ -3566,6 +4081,10 @@ def main() -> None:
                              **vlm, **xlstm, **moe_train}.items():
             by_path[path] = counts.get(kernel, 0)
         by_path["hymba-1.5b-train"] = hymba_train.get(kernel, 0)
+        by_path["llada-8b-serve"] = llada_serve.get(kernel, 0)
+        by_path["hymba-1.5b-serve"] = hymba_serve.get(kernel, 0)
+        for path, counts in steps_train.items():
+            by_path[path] = counts.get(kernel, 0)
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -3577,7 +4096,9 @@ def main() -> None:
          "max_abs_err": conf_entry["max_abs_err"], "ms": conf_entry["ms"],
          "plain_ms": conf_entry["plain_ms"],
          "bound_ms": conf_entry["bound_ms"], "bound_by": "bytes",
-         "library_ms": None, "device_ms": conf_entry["device_ms"]},
+         "library_ms": None, "device_ms": conf_entry["device_ms"],
+         "serve_shape": {k: conf_serve[k] for k in (
+             "ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err")}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:83",
@@ -3589,7 +4110,10 @@ def main() -> None:
          "library_ms": attn_entry["library_ms"],
          "device_ms": attn_entry["device_ms"],
          "library_device_ms": attn_entry["library_device_ms"],
-         "backward": flash_grad},
+         "backward": flash_grad,
+         "serve_shape": {k: attn_serve[k] for k in (
+             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "library_device_ms", "max_abs_err")}},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
          "replaces": "src/repro/kernels/selective_scan.py:67",
@@ -3598,7 +4122,10 @@ def main() -> None:
          "plain_ms": scan_entry["plain_ms"],
          "bound_ms": scan_entry["bound_ms"],
          "bound_by": scan_entry["bound_by"], "library_ms": None,
-         "device_ms": scan_entry["device_ms"], "backward": scan_grad},
+         "device_ms": scan_entry["device_ms"], "backward": scan_grad,
+         "state_shape": {k: scan_state[k] for k in (
+             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+             "max_abs_err")}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

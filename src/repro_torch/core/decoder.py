@@ -83,7 +83,7 @@ from repro_torch.core.masking import fully_masked
 from repro_torch.core.strategies import Strategy, resolve_strategy
 from repro_torch.core.tracebuffer import DecodeTrace, TracingStrategy, tracing
 from repro_torch.device import resolve_device
-from repro_torch.models.model import (DecodeState, capture_cache, forward,
+from repro_torch.models.model import (CacheState, capture_cache, forward,
                                       forward_cached)
 
 # the conditioning inputs ``forward`` accepts (the reference's set);
@@ -516,7 +516,7 @@ class Decoder:
         return out
 
     def _cached_fn(self, w: torch.Tensor, win_lo: int,
-                   tiles: Dict[int, DecodeState]) -> torch.Tensor:
+                   tiles: Dict[int, CacheState]) -> torch.Tensor:
         """``cached_fn`` of the cached drivers: the window's logits
         against the cache.  ``tiles`` maps a replication count to the
         cache tiled that many times candidate-major (``tiles[1]`` is the
@@ -724,7 +724,7 @@ def _carry_stats(stats: SampleStats, strat: Strategy, carry) -> None:
         stats.trace = strat.extract(carry)
 
 
-def _refresh_into(tiles: Dict[int, DecodeState], state: DecodeState) -> None:
+def _refresh_into(tiles: Dict[int, CacheState], state: CacheState) -> None:
     """Write a fresh capture into the static cache ``tiles[1]`` and every
     tiled copy of it, in place: the step graphs read these buffers."""
     for reps, tiled in tiles.items():
@@ -733,7 +733,7 @@ def _refresh_into(tiles: Dict[int, DecodeState], state: DecodeState) -> None:
                 d.view(reps, *s.shape).copy_(s.expand(reps, *s.shape))
 
 
-def _tile_state(state: DecodeState, reps: int) -> DecodeState:
+def _tile_state(state: CacheState, reps: int) -> CacheState:
     """The cache replicated candidate-major along its batch axis (the
     reference's ``jnp.tile``): rows b0, b1, …, b0, b1, …"""
     if reps == 1:

@@ -7,7 +7,12 @@
 // Lk masked.  Query row i sits at position q_offset + i for the band (a
 // cached window's rows start at its offset in the canvas; 0 = the rows are
 // the whole sequence), key j at j.  A query row with no key inside its band
-// gets 0, as in the Pallas kernel.  Beyond the Pallas kernel it
+// gets 0, as in the Pallas kernel.  An optional valid key count read from
+// device memory (`kv_len`, an int32*; null = all Lk keys) masks keys at or
+// past it as the ragged end is masked: a single-token decode attends over
+// the first min(pos + 1, cap) slots of a fixed-capacity cache without the
+// host reading the position, so the step stays capturable in a CUDA graph.
+// Beyond the Pallas kernel it
 // groups GQA heads natively (kv head = h / (H / G)), so the caller does not
 // expand K/V.  Layout is the reference's: q (B, Lq, H, dqk), k (B, Lk, G,
 // dqk), v (B, Lk, G, dv), out (B, Lq, H, dv); f32 or bf16; the scale is the
@@ -147,6 +152,17 @@ __device__ __forceinline__ float elem(float4 a, int i) {
   return i == 0 ? a.x : (i == 1 ? a.y : (i == 2 ? a.z : a.w));
 }
 
+// The count of live keys, [0, Lk] (kv_len null: all Lk).  Both kernels
+// stage it in shared memory and read it there at each use instead of
+// holding it in a register through the tile loop: one more live register
+// spills the bf16 kernel at d = 80 and the f32 kernel at 160 <= d <= 192.
+__device__ __forceinline__ int live_keys(const int* kv_len, int Lk) {
+  return kv_len ? max(0, min(*kv_len, Lk)) : Lk;
+}
+__device__ __forceinline__ int staged(const int& s_keys) {
+  return *static_cast<const volatile int*>(&s_keys);
+}
+
 template <int DQ, int DV>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
@@ -157,7 +173,8 @@ template <typename T, int DQ, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int Lq, int Lk,
-             int H, int G, int window, int q_offset, float scale) {
+             int H, int G, int window, int q_offset, float scale,
+             const int* __restrict__ kv_len) {
   constexpr int DPL = (DV + 31) / 32;     // column rounds of P V per lane
   constexpr int KS = DQ + 4;
   extern __shared__ float4 smem_raw[];
@@ -171,6 +188,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / H, h = bh % H;
   const int g = h / (H / G);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // keys [0, s_keys) are live; Lk stays the row stride of k and v
+  __shared__ int s_keys;
+  if (tid == 0) s_keys = live_keys(kv_len, Lk);
 
   for (int idx = tid; idx < kQT * DQ; idx += kThreads) {
     const int r = idx / DQ, c = idx % DQ, i = q0 + r;
@@ -189,7 +209,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   float* P = Ps + warp * kRPW * kKT;
 
-  for (int k0 = 0; k0 < Lk; k0 += kKT) {
+  __syncthreads();                            // s_keys written
+  for (int k0 = 0; k0 < staged(s_keys); k0 += kKT) {
     if (window > 0) {
       // closest approach of the two tiles decides whether any work exists
       const int p0 = q_offset + q0;           // position of the tile's row 0
@@ -197,20 +218,21 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (dist >= window) continue;          // uniform across the CTA
     }
     __syncthreads();                          // previous tile consumed
+    const int n_keys = staged(s_keys);
     // at dqk = dv one loop loads K and V side by side: two loops cost the
     // equal-dim kernel ~12% of its device time on an H100
     for (int idx = tid; idx < kKT * DQ; idx += kThreads) {
       const int r = idx / DQ, c = idx % DQ, j = k0 + r;
       const int64_t row = (static_cast<int64_t>(b) * Lk + j) * G + g;
-      Ks[r * KS + c] = j < Lk ? to_f(k[row * DQ + c]) : 0.f;
+      Ks[r * KS + c] = j < n_keys ? to_f(k[row * DQ + c]) : 0.f;
       if constexpr (DQ == DV)
-        Vs[idx] = j < Lk ? to_f(v[row * DV + c]) : 0.f;
+        Vs[idx] = j < n_keys ? to_f(v[row * DV + c]) : 0.f;
     }
     if constexpr (DQ != DV) {
       for (int idx = tid; idx < kKT * DV; idx += kThreads) {
         const int r = idx / DV, c = idx % DV, j = k0 + r;
         const int64_t row = (static_cast<int64_t>(b) * Lk + j) * G + g;
-        Vs[idx] = j < Lk ? to_f(v[row * DV + c]) : 0.f;
+        Vs[idx] = j < n_keys ? to_f(v[row * DV + c]) : 0.f;
       }
     }
     __syncthreads();
@@ -234,11 +256,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     const int ja = k0 + lane, jb = k0 + lane + 32;
+    const int n_live = staged(s_keys);
 #pragma unroll
     for (int r = 0; r < kRPW; ++r) {
       const int i = q_offset + q0 + warp * kRPW + r;   // position
-      const bool va = ja < Lk && (window == 0 || abs(i - ja) < window);
-      const bool vb = jb < Lk && (window == 0 || abs(i - jb) < window);
+      const bool va = ja < n_live && (window == 0 || abs(i - ja) < window);
+      const bool vb = jb < n_live && (window == 0 || abs(i - jb) < window);
       const float sa = va ? s[r][0] * scale : kNeg;
       const float sb = vb ? s[r][1] * scale : kNeg;
       const float m_new = fmaxf(m[r], warp_max(fmaxf(sa, sb)));
@@ -295,7 +318,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DQ, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Lq, int Lk, int H, int G, int window,
-                   int q_offset, float scale, cudaStream_t stream) {
+                   int q_offset, float scale, const int* kv_len,
+                   cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DQ, DV>();
   static std::atomic<unsigned> smem_set{0};
   const cudaError_t err =
@@ -305,7 +329,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_kernel<T, DQ, DV><<<grid, block, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Lq, Lk, H, G, window,
-      q_offset, scale);
+      q_offset, scale, kv_len);
   return cudaGetLastError();
 }
 
@@ -316,9 +340,10 @@ template <typename T>
 cudaError_t dispatch(int dqk, int dv, const void* q, const void* k,
                      const void* v, void* o, int B, int Lq, int Lk, int H,
                      int G, int window, int q_offset, float scale,
-                     cudaStream_t s) {
+                     const int* kv_len, cudaStream_t s) {
   auto go = [&](auto launcher) {
-    return launcher(q, k, v, o, B, Lq, Lk, H, G, window, q_offset, scale, s);
+    return launcher(q, k, v, o, B, Lq, Lk, H, G, window, q_offset, scale,
+                    kv_len, s);
   };
   switch (pair_key(dqk, dv)) {
 #define FLASH_CASE(DQ, DV) \
@@ -428,7 +453,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, int Lq,
                 int Lk, int H, int G, int window, int q_offset,
-                float scale_log2) {
+                float scale_log2, const int* kv_len) {
   constexpr int P = DQ + kPad;           // Q's and K's shared pitch, elements
   constexpr int PV = DV + kPad;          // V's
   constexpr int KD = DQ / 16;            // k-steps of Q K^T
@@ -456,7 +481,11 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // V-shaped in the tile index); uniform across the CTA.  The band sees
   // the tile's rows at positions p0 .. p0 + 63.
   const int p0 = q_offset + q0;
-  int lo = 0, hi = (Lk + kKeys - 1) / kKeys;
+  // keys [0, s_keys) are live; Lk stays the row stride of k and v
+  __shared__ int s_keys;
+  if (tid == 0) s_keys = live_keys(kv_len, Lk);
+  __syncthreads();
+  int lo = 0, hi = (staged(s_keys) + kKeys - 1) / kKeys;
   if (window > 0) {
     auto dist = [&](int t) {
       const int k0 = t * kKeys;
@@ -468,8 +497,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   load_tile<DQ>(Qs, qb, q_stride, q0, Lq, tid);
   if (lo < hi) {
-    load_tile<DQ>(Ks, kb, k_stride, lo * kKeys, Lk, tid);
-    load_tile<DV>(Vs, vb, v_stride, lo * kKeys, Lk, tid);
+    const int n_keys = staged(s_keys);
+    load_tile<DQ>(Ks, kb, k_stride, lo * kKeys, n_keys, tid);
+    load_tile<DV>(Vs, vb, v_stride, lo * kKeys, n_keys, tid);
   }
   cp_async_commit();
 
@@ -494,10 +524,11 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = lo; t < hi; ++t) {
     const int buf = (t - lo) & 1;
     if (t + 1 < hi) {                         // next tile into the other buffer
+      const int n_keys = staged(s_keys);
       load_tile<DQ>(Ks + (buf ^ 1) * kKeys * P, kb, k_stride,
-                    (t + 1) * kKeys, Lk, tid);
+                    (t + 1) * kKeys, n_keys, tid);
       load_tile<DV>(Vs + (buf ^ 1) * kKeys * PV, vb, v_stride,
-                    (t + 1) * kKeys, Lk, tid);
+                    (t + 1) * kKeys, n_keys, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -535,9 +566,10 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // per-element mask only on tiles that straddle the band's edge or the
-    // ragged end of Lk
+    // ragged end of the live keys
     const int k0 = t * kKeys;
-    const bool ragged = k0 + kKeys > Lk;
+    const int n_keys = staged(s_keys);
+    const bool ragged = k0 + kKeys > n_keys;
     const bool edge = window > 0 &&
         max(p0 + kRows - 1 - k0, k0 + kKeys - 1 - p0) >= window;
     if (ragged || edge) {
@@ -547,7 +579,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           const int j = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
           const int i = q_offset + i0 + (e >> 1) * 8;   // position
-          if (j >= Lk || (window > 0 && abs(i - j) >= window))
+          if (j >= n_keys || (window > 0 && abs(i - j) >= window))
             s[n][e] = -INFINITY;
         }
       }
@@ -626,7 +658,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DQ, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Lq, int Lk, int H, int G, int window,
-                   int q_offset, float scale, cudaStream_t stream) {
+                   int q_offset, float scale, const int* kv_len,
+                   cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<DQ, DV>();
   static std::atomic<unsigned> smem_set{0};
   const cudaError_t err =
@@ -636,20 +669,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_tc_kernel<DQ, DV><<<grid, block, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), Lq, Lk, H, G,
-      window, q_offset, scale * kLog2e);
+      window, q_offset, scale * kLog2e, kv_len);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(int dqk, int dv, const void* q, const void* k,
                      const void* v, void* o, int B, int Lq, int Lk, int H,
                      int G, int window, int q_offset, float scale,
-                     cudaStream_t s) {
+                     const int* kv_len, cudaStream_t s) {
   // cp.async moves 16-byte chunks: every base address must be aligned
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return cudaErrorInvalidValue;
   auto go = [&](auto launcher) {
-    return launcher(q, k, v, o, B, Lq, Lk, H, G, window, q_offset, scale, s);
+    return launcher(q, k, v, o, B, Lq, Lk, H, G, window, q_offset, scale,
+                    kv_len, s);
   };
   switch (pair_key(dqk, dv)) {
 #define FLASH_CASE(DQ, DV) \
@@ -667,13 +701,16 @@ cudaError_t dispatch(int dqk, int dv, const void* q, const void* k,
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core
 // kernel; q, k, v and o 16-byte aligned).  dqk is q's and k's head dim, dv
 // v's and the output's; a pair outside FLASH_HEAD_DIM_PAIRS is refused.
-// q_offset >= 0 is the position of query row 0 for the band.  Returns
-// cudaGetLastError() after the launch (0 = launched).
+// q_offset >= 0 is the position of query row 0 for the band.  kv_len, a
+// device pointer to one int32 or null, is the count of live keys (clamped
+// to [0, Lk]; null = Lk): the kernel reads it, the host never does.
+// Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int Lq,
                                      int Lk, int H, int G, int dqk, int dv,
                                      int window, int q_offset, float scale,
-                                     int dtype, void* stream) {
+                                     int dtype, const int* kv_len,
+                                     void* stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0 || H <= 0 || G <= 0 || H % G != 0 ||
       window < 0 || q_offset < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -682,10 +719,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaError_t err;
   if (dtype == 0) {
     err = dispatch<float>(dqk, dv, q, k, v, o, B, Lq, Lk, H, G, window,
-                          q_offset, scale, s);
+                          q_offset, scale, kv_len, s);
   } else if (dtype == 1) {
     err = tc::dispatch(dqk, dv, q, k, v, o, B, Lq, Lk, H, G, window,
-                       q_offset, scale, s);
+                       q_offset, scale, kv_len, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -5,7 +5,12 @@
 // src/repro/kernels/selective_scan.py:67.  x, delta (B, L, di); b_sel, c_sel
 // (B, L, N); a_log (di, N) f32  ->  y (B, L, di) in x's dtype:
 //   A = -exp(a_log),  h_t = exp(delta_t A) * h_{t-1} + delta_t B_t x_t,
-//   y_t = <h_t, C_t>,  h_0 = 0, all arithmetic in f32.
+//   y_t = <h_t, C_t>,  h_0 = 0 (or the caller's h0), all arithmetic in f32.
+// Optionally it starts from an initial state h0 (B, di, N) f32 (the frozen
+// prefix's end state: the reference's mamba_forward(state=...)) and writes
+// the exact end state h_L (B, di, N) f32 (its return_state=True, which the
+// reference gets from selective_last_state; no padded step ever enters it
+// here, since chunks stop at L).
 // x, delta, b_sel and c_sel are each f32 or bf16 (a flag per input: on the
 // serving path x is bf16 while delta, B and C are f32).
 //
@@ -39,13 +44,15 @@
 //     per-step arithmetic, keeping the running product P_n of the decays
 //     it computes anyway; write h_end and P to the f32 workspace
 //     (2, B, nch-1, N, di).  No y.
-//   Pass 2 (every chunk): fold the carries of chunks 0 .. j-1,
-//     H = P_i * H + h_end_i (no exp), then walk the chunk again from H
+//   Pass 2 (every chunk): fold the carries of chunks 0 .. j-1 into h0 (0
+//     without one), H = P_i * H + h_end_i (no exp; pass 1 never reads h0,
+//     its chunks start from 0), then walk the chunk again from H
 //     with the exact sequential recurrence; y_t = sum_n h_n C_{t,n} is
 //     summed in registers (no shuffles) and written in x's dtype.  It is
 //     launched as pass 1's programmatic dependent (PDL): its blocks start
 //     as pass 1's blocks leave room and wait for pass 1's writes
 //     (griddepcontrol.wait) only before the fold; chunk 0 has no fold.
+//     The last chunk's threads write their end state to h_out when asked.
 // A serving call (B=2, L=128, di=3200) runs 25 * 8 * 2 blocks in pass 2,
 // a (1, 2048, 3200) call 25 * 16.  Ragged L and di are masked: a chunk
 // stops at L, and lanes past di compute on channel di-1 and write
@@ -68,6 +75,8 @@ struct Args {
   const float* a_log;
   float* ws;                    // h_end then P, each (B, nch - 1, N, di)
   void* y;
+  const float* h0;              // (B, di, N) initial state, or null (zeros)
+  float* h_out;                 // (B, di, N) end state, or null
   int B, L, di, N, chunk, nch;
   int x_bf16, d_bf16, b_bf16, c_bf16;
 };
@@ -120,6 +129,11 @@ __global__ void __launch_bounds__(kThreads) sscan_chunk_kernel(const Args g) {
     p[n] = 1.f;
   }
   if constexpr (kOut) {
+    if (g.h0) {                              // the fold starts from h0
+      const float* h0 = g.h0 + (static_cast<long long>(b) * g.di + cc) * g.N;
+#pragma unroll
+      for (int n = 0; n < NP; ++n) h[n] = n < g.N ? h0[min(n, g.N - 1)] : 0.f;
+    }
     if (j > 0) asm volatile("griddepcontrol.wait;" ::: "memory");
     for (int i = 0; i < j; ++i) {            // H = P_i * H + h_end_i
       const long long base =
@@ -198,6 +212,12 @@ __global__ void __launch_bounds__(kThreads) sscan_chunk_kernel(const Args g) {
     __syncthreads();                          // the next stage restages
   }
 
+  if (kOut && live && g.h_out && j == g.nch - 1) {
+    float* out = g.h_out + (static_cast<long long>(b) * g.di + c) * g.N;
+#pragma unroll
+    for (int n = 0; n < NP; ++n)
+      if (n < g.N) out[n] = h[n];
+  }
   if (!kOut && live) {
     const long long base =
         static_cast<long long>(b * (g.nch - 1) + j) * g.N * g.di + c;
@@ -238,17 +258,21 @@ int launch(const Args& g, cudaStream_t stream) {
 // Two launches on `stream` (pass 1 only when L spans more than one chunk).
 // Returns the first failing launch's cudaError_t, 0 on success.  N must be
 // in [1, 32], B below 65536, chunk >= 1; every tensor contiguous; a_log
-// f32; ws f32 with room for 2 * B * (ceil(L / chunk) - 1) * N * di floats.
+// f32; ws f32 with room for 2 * B * (ceil(L / chunk) - 1) * N * di floats;
+// h0 (the initial state) and h_out (the end state), each (B, di, N) f32,
+// may be null.
 extern "C" int repro_selective_scan(const void* x, const void* delta,
                                     const void* bsel, const void* csel,
                                     const void* a_log, void* ws, void* y,
+                                    const void* h0, void* h_out,
                                     int B, int L, int di, int N, int chunk,
                                     int x_bf16, int d_bf16, int b_bf16,
                                     int c_bf16, void* stream) {
   if (chunk < 1 || N < 1 || N > 32)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args g{x, delta, bsel, csel, static_cast<const float*>(a_log),
-               static_cast<float*>(ws), y, B, L, di, N, chunk,
+               static_cast<float*>(ws), y, static_cast<const float*>(h0),
+               static_cast<float*>(h_out), B, L, di, N, chunk,
                (L + chunk - 1) / chunk, x_bf16, d_bf16, b_bf16, c_bf16};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N <= 4) return launch<4>(g, s);

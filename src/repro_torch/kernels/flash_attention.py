@@ -1,13 +1,19 @@
 """Bidirectional flash attention: wrapper, plain version and launch count.
 
-``flash_attention(q, k, v, window=0, q_offset=0)`` takes the reference's
+``flash_attention(q, k, v, window=0, q_offset=0, kv_len=None)`` takes the
+reference's
 layout — q ``(B, Lq, H, dqk)``, k ``(B, Lk, G, dqk)`` and v ``(B, Lk, G,
 dv)`` with G dividing H (query head h reads kv head ``h // (H // G)``) —
 and returns ``(B, Lq, H, dv)`` in q's dtype: ``softmax(q kᵀ dqk^-½) v``,
 optionally
 restricted to the band ``|(q_offset + i) − j| < window``: query row i sits
 at position ``q_offset + i`` (a cached window's rows start at their offset
-in the canvas).  On a CUDA tensor it launches the hand-written kernel
+in the canvas).  ``kv_len``, a one-element int32 tensor on q's device,
+counts the live keys: keys at or past it are masked (the single-token
+decode's first ``min(pos + 1, cap)`` slots of a fixed-capacity cache; the
+kernel reads the count from device memory, so the host never syncs on
+it).  The kernel has no backward with a count: on a card it then raises
+under grad.  On a CUDA tensor it launches the hand-written kernel
 in ``csrc/flash_attention.cu`` or raises; on a CPU tensor it runs
 ``attention_ref``, the plain version.  There is no fallback between them.
 In bf16 the kernel runs on the tensor cores and copies 16-byte chunks, so
@@ -27,6 +33,7 @@ backward).  On the CPU autograd differentiates ``attention_ref``.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -41,7 +48,7 @@ launches = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p] + [ctypes.c_int] * 9 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 # (dqk, dv) pairs with dv != dqk the kernels are built for
 # (csrc/flash_attention.cu: FLASH_HEAD_DIM_PAIRS): DeepSeek-V2's MLA heads
 # at full (128 + 64 | 128) and reduced (32 + 16 | 32) size
@@ -49,10 +56,12 @@ MIXED_HEAD_DIMS = ((192, 128), (48, 32))
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  window: int = 0, q_offset: int = 0) -> torch.Tensor:
+                  window: int = 0, q_offset: int = 0,
+                  kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version (mirrors the reference's ``kernels/ref.py``
     ``attention_ref``, plus GQA grouping and a value head dim of its own):
-    f32 scores and softmax, f32 PV, cast to q's dtype."""
+    f32 scores and softmax, f32 PV, cast to q's dtype.  Keys at or past
+    ``kv_len`` score -1e30, as the reference's ``_sdpa`` masks them."""
     b, lq, h, d = q.shape
     lk, g = k.shape[1], k.shape[2]
     rep = h // g
@@ -64,11 +73,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ki = torch.arange(lk, device=q.device)[None, :]
         band = (qi - ki).abs() < window
         scores = torch.where(band, scores, torch.full_like(scores, -1e30))
+    if kv_len is not None:
+        live = torch.arange(lk, device=q.device) < kv_len.reshape(())
+        scores = torch.where(live, scores, torch.full_like(scores, -1e30))
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhe->bqhe", w, vf).to(q.dtype)
 
 
-def _check(q, k, v, window, q_offset):
+def _check(q, k, v, window, q_offset, kv_len=None):
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k and v must share a device")
     if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
@@ -93,6 +105,12 @@ def _check(q, k, v, window, q_offset):
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
+    if kv_len is not None and (kv_len.dtype != torch.int32 or
+                               kv_len.numel() != 1 or
+                               kv_len.device != q.device):
+        raise ValueError(f"flash_attention: kv_len must be one int32 on "
+                         f"{q.device}, not {kv_len.dtype} "
+                         f"{tuple(kv_len.shape)} on {kv_len.device}")
 
 
 # query rows per recomputation in the backward: the reference's SDPA_CHUNK,
@@ -143,8 +161,8 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _launch(q, k, v, window, q_offset):
-    _check(q, k, v, window, q_offset)
+def _launch(q, k, v, window, q_offset, kv_len=None):
+    _check(q, k, v, window, q_offset, kv_len)
     b, lq, h, d = q.shape
     lk, g, dv = k.shape[1], k.shape[2], v.shape[3]
     out = q.new_empty(b, lq, h, dv)
@@ -153,8 +171,8 @@ def _launch(q, k, v, window, q_offset):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, lq, lk, h, g, d, dv, int(window), int(q_offset),
-                 float(d ** -0.5),
-                 _DTYPE_CODE[q.dtype], stream)
+                 float(d ** -0.5), _DTYPE_CODE[q.dtype],
+                 None if kv_len is None else kv_len.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -182,9 +200,13 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: int = 0, q_offset: int = 0) -> torch.Tensor:
+                    window: int = 0, q_offset: int = 0,
+                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, window, q_offset)
+        return attention_ref(q, k, v, window, q_offset, kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if kv_len is not None:
+        _build.refuse_grad("flash_attention with kv_len", q, k, v)
+        return _launch(q, k, v, window, q_offset, kv_len)
     return FlashAttention.apply(q, k, v, window, q_offset)

@@ -1,11 +1,19 @@
 """Fused selective scan (Mamba): wrapper, plain version and launch count.
 
-``selective_scan(x, delta, b_sel, c_sel, a_log)`` takes the reference's
-layout — x/delta ``(B, L, di)``, b_sel/c_sel ``(B, L, N)``, a_log
-``(di, N)`` — and returns y ``(B, L, di)`` in x's dtype:
+``selective_scan(x, delta, b_sel, c_sel, a_log, h0=None,
+return_state=False)`` takes the reference's layout — x/delta ``(B, L,
+di)``, b_sel/c_sel ``(B, L, N)``, a_log ``(di, N)`` — and returns y ``(B,
+L, di)`` in x's dtype:
 
     A = -exp(a_log);  h_t = exp(Δ_t·A) ⊙ h_{t-1} + Δ_t·B_t·x_t;
     y_t = ⟨h_t, C_t⟩;  h_0 = 0, f32 accumulators.
+
+``h0`` ``(B, di, N)`` f32 replaces the zero initial state (a frozen
+prefix's end state), and ``return_state=True`` returns ``(y, h_L)`` with
+the exact end state ``h_L`` ``(B, di, N)`` f32 (the reference's
+``selective_last_state``).  The kernel has no backward for either, so on
+a card a call with one of them raises under grad (no training path
+carries state).
 
 x, delta, b_sel and c_sel may each be f32 or bf16.  On a CUDA tensor it
 launches the hand-written kernel in ``csrc/selective_scan.cu`` or raises;
@@ -31,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Optional
 
 import torch
 
@@ -43,7 +52,7 @@ from repro_torch.kernels import _build
 launches = 0
 
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 MAX_STATE = 32        # N the kernel takes (a thread holds all N in registers)
 MIN_CHUNK = 16        # fewest steps in a chunk of the two-pass scan
 MAX_CHUNKS = 16       # most chunks one row's L is cut into
@@ -62,22 +71,26 @@ def chunk_len(batch: int, length: int, di: int) -> int:
 
 def selective_scan_ref(x: torch.Tensor, delta: torch.Tensor,
                        b_sel: torch.Tensor, c_sel: torch.Tensor,
-                       a_log: torch.Tensor) -> torch.Tensor:
+                       a_log: torch.Tensor,
+                       h0: Optional[torch.Tensor] = None,
+                       return_state: bool = False):
     """The plain version (mirrors the reference's ``kernels/ref.py``
-    ``selective_scan_ref``): a sequential loop over t in f32."""
+    ``selective_scan_ref``): a sequential loop over t in f32, from ``h0``
+    (zeros without one); ``return_state`` adds the end state."""
     a = -torch.exp(a_log.float())                        # (di, N)
     xf, df = x.float(), delta.float()
     bf, cf = b_sel.float(), c_sel.float()
     bsz, length, di = x.shape
-    h = torch.zeros(bsz, di, a.shape[-1], dtype=torch.float32,
-                    device=x.device)
+    h = h0.float() if h0 is not None else torch.zeros(
+        bsz, di, a.shape[-1], dtype=torch.float32, device=x.device)
     ys = []
     for t in range(length):
         dt = df[:, t, :, None]
         h = torch.exp(dt * a) * h + dt * bf[:, t, None, :] \
             * xf[:, t, :, None]
         ys.append(torch.sum(h * cf[:, t, None, :], dim=-1))
-    return torch.stack(ys, dim=1).to(x.dtype)
+    y = torch.stack(ys, dim=1).to(x.dtype)
+    return (y, h) if return_state else y
 
 
 # steps of one chunk of the backward: its (B, chunk, di, N) f32 decays,
@@ -187,7 +200,7 @@ def selective_scan_backward(x: torch.Tensor, delta: torch.Tensor,
             dc.to(c_sel.dtype), (da * am).to(a_log.dtype))
 
 
-def _check(x, delta, b_sel, c_sel, a_log):
+def _check(x, delta, b_sel, c_sel, a_log, h0=None):
     ts = (x, delta, b_sel, c_sel, a_log)
     if any(t.device != x.device for t in ts):
         raise ValueError("selective_scan: all inputs must share a device")
@@ -213,15 +226,24 @@ def _check(x, delta, b_sel, c_sel, a_log):
         raise ValueError(f"selective_scan: bad shape {tuple(x.shape)}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("selective_scan: inputs must be contiguous")
+    if h0 is not None and (h0.shape != (bsz, di, n) or
+                           h0.dtype != torch.float32 or
+                           h0.device != x.device or
+                           not h0.is_contiguous()):
+        raise ValueError(f"selective_scan: h0 {tuple(h0.shape)} "
+                         f"{h0.dtype} must be a contiguous f32 "
+                         f"{(bsz, di, n)} on {x.device}")
 
 
-def _launch(x, delta, b_sel, c_sel, a_log):
-    _check(x, delta, b_sel, c_sel, a_log)
+def _launch(x, delta, b_sel, c_sel, a_log, h0=None, return_state=False):
+    _check(x, delta, b_sel, c_sel, a_log, h0)
     bsz, length, di = x.shape
     n = a_log.shape[1]
     chunk = chunk_len(bsz, length, di)
     nch = -(-length // chunk)
     y = torch.empty_like(x)
+    h_out = torch.empty(bsz, di, n, dtype=torch.float32, device=x.device) \
+        if return_state else None
     # pass 1's carries: h_end then P, each (B, nch - 1, N, di)
     ws = torch.empty(2 * bsz * (nch - 1) * n * di, dtype=torch.float32,
                      device=x.device)
@@ -230,7 +252,9 @@ def _launch(x, delta, b_sel, c_sel, a_log):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), delta.data_ptr(), b_sel.data_ptr(),
                  c_sel.data_ptr(), a_log.data_ptr(), ws.data_ptr(),
-                 y.data_ptr(), bsz, length, di, n, chunk, _BF16[x.dtype],
+                 y.data_ptr(), None if h0 is None else h0.data_ptr(),
+                 None if h_out is None else h_out.data_ptr(),
+                 bsz, length, di, n, chunk, _BF16[x.dtype],
                  _BF16[delta.dtype], _BF16[b_sel.dtype], _BF16[c_sel.dtype],
                  stream)
     if err != 0:
@@ -238,7 +262,7 @@ def _launch(x, delta, b_sel, c_sel, a_log):
                            f"error {err}")
     global launches
     launches += 1
-    return y
+    return (y, h_out) if return_state else y
 
 
 class _BackwardGraph:
@@ -318,9 +342,18 @@ class SelectiveScan(torch.autograd.Function):
 
 
 def selective_scan(x: torch.Tensor, delta: torch.Tensor, b_sel: torch.Tensor,
-                   c_sel: torch.Tensor, a_log: torch.Tensor) -> torch.Tensor:
+                   c_sel: torch.Tensor, a_log: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None,
+                   return_state: bool = False):
     if x.device.type == "cpu":
-        return selective_scan_ref(x, delta, b_sel, c_sel, a_log)
+        return selective_scan_ref(x, delta, b_sel, c_sel, a_log, h0,
+                                  return_state)
     if x.device.type != "cuda":
         raise ValueError(f"selective_scan: unsupported device {x.device}")
+    if h0 is not None or return_state:
+        ins = (x, delta, b_sel, c_sel, a_log) + (
+            () if h0 is None else (h0,))
+        _build.refuse_grad("selective_scan with a state", *ins)
+        return _launch(x, delta, b_sel, c_sel, a_log.float(), h0,
+                       return_state)
     return SelectiveScan.apply(x, delta, b_sel, c_sel, a_log.float())

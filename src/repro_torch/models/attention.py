@@ -15,18 +15,33 @@
   the per-head K (nope ‖ rope, dqk wide) and V (dv wide) from the
   latents (``_mla_heads``) and runs the flash kernel at (dqk, dv) with
   the scale dqk^-½; the block cache keeps the latents ``(c_kv, k_rope)``
-  and rebuilds K/V over the whole canvas for each window.  The absorbed
-  ``mla_decode`` and ``mla_window`` serve the reference's single-token
-  decode and shrinking window, which the port has not ported
-  (ROADMAP.md queue 1 item 11).
+  and rebuilds K/V over the whole canvas for each window.
+* The decode state (the reference's stateful decode): ``init_cache``
+  allocates one layer's ``KVCache`` of a capacity (a sliding-window
+  config a ring of ``min(length, window)`` slots; MLA the latents
+  ``c_kv`` and ``k_rope``) with ``length``, the valid count, a host int.
+  ``gqa_decode`` writes one token's K/V in place at a slot computed on
+  the device (``pos0 % cap`` on a ring, else ``min(pos0, cap − 1)``, pos0
+  row 0's position) and attends over the first ``min(pos0 + 1, cap)``
+  slots through the flash kernel's device-side valid count, so no host
+  read of the position happens and the cache is never copied.  MLA's
+  ``mla_decode`` runs in absorbed form (``q_nope·W_UKᵀ`` against
+  ``c_kv`` plus ``q_rope·k_rope``, ``W_UV`` after the weighted sum) in
+  torch products with f32 results, as the reference's einsums; no kernel
+  serves it (its scores are 576 wide).  ``gqa_window``/``mla_window``
+  score a W-token window against the valid prefix ``[:length]`` plus
+  itself (flash with no mask: the reference's ``-1e30`` mask over ``cap +
+  W`` keys), and with ``extend`` write the window's K/V (latents) in
+  place at ``length``, clamped as ``dynamic_update_slice`` clamps.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (Params, Rope, dense_init,
                                        rms_norm_headwise, rotate)
@@ -120,9 +135,13 @@ def attention_forward(p: Params, x: torch.Tensor, rope: Rope,
 class KVCache(NamedTuple):
     """One layer's cache in the compute dtype: K and V, each (B, total, G,
     hd); for MLA the latents, ``k`` = c_kv (B, total, kv_lora) and ``v`` =
-    the rope key k_rope (B, total, qk_rope), as the reference's."""
+    the rope key k_rope (B, total, qk_rope), as the reference's.  In the
+    decode state (``init_cache``) ``length`` is the reference's count of
+    valid positions, a host int; the block cache leaves it 0 and never
+    reads it (its cache covers the whole canvas)."""
     k: torch.Tensor
     v: torch.Tensor
+    length: int = 0
 
 
 def gqa_capture(p: Params, x: torch.Tensor, rope: Rope,
@@ -245,3 +264,186 @@ def mla_cached(p: Params, x: torch.Tensor, rope: Rope, cfg: ModelConfig,
     kr_all = _scatter(cache.v, kr_new, win_start)
     return _mla_attend(p, *_mla_heads(p, q_nope, q_rope, c_all, kr_all, cfg),
                        x)
+
+
+# --------------------------------------------------------------------------
+# the decode state: one token against a fixed-capacity cache, and the
+# shrinking window against the valid prefix
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, length: int,
+               dtype: torch.dtype = torch.bfloat16,
+               valid_length: Optional[int] = None,
+               device="cuda") -> KVCache:
+    """One layer's zeroed decode cache of capacity ``length`` (a
+    sliding-window config: a ring of ``min(length, window)`` slots; MLA:
+    the latents (B, S, kv_lora) and (B, S, qk_rope)).  ``valid_length``
+    is the initial valid count (0 for a sampler that fills it block by
+    block; default ``length``, a warm cache)."""
+    dev = resolve_device(device)
+    vl = length if valid_length is None else valid_length
+    if cfg.attention == "mla":
+        m = cfg.mla
+        return KVCache(
+            torch.zeros(batch, length, m.kv_lora_rank, dtype=dtype,
+                        device=dev),
+            torch.zeros(batch, length, m.qk_rope_head_dim, dtype=dtype,
+                        device=dev), vl)
+    eff = min(length, cfg.sliding_window) if cfg.sliding_window else length
+    shape = (batch, eff, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
+                   torch.zeros(shape, dtype=dtype, device=dev), vl)
+
+
+def _pos0(positions: torch.Tensor) -> torch.Tensor:
+    """Row 0's position as a (1,) view on its device: positions (B, L), or
+    M-RoPE's (3, B, L) (its t stream)."""
+    return (positions if positions.dim() == 2 else positions[0])[0, :1]
+
+
+def _write_slot(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                slot: torch.Tensor) -> None:
+    """One position's K/V (or latents) written in place at ``slot``, a (1,)
+    int64 device tensor (``index_copy_``: no host read, capturable)."""
+    cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
+    cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
+
+
+def _extend(cache: KVCache, k_new: torch.Tensor,
+            v_new: torch.Tensor) -> KVCache:
+    """A window's K/V written in place at the valid length, the start
+    clamped to [0, cap − W] as ``dynamic_update_slice`` clamps it; the
+    valid length grows by W."""
+    cap, w = cache.k.shape[1], k_new.shape[1]
+    if w > cap:
+        raise ValueError(f"a window of {w} positions does not fit a cache "
+                         f"of {cap}")
+    start = max(0, min(int(cache.length), cap - w))
+    cache.k[:, start:start + w] = k_new.to(cache.k.dtype)
+    cache.v[:, start:start + w] = v_new.to(cache.v.dtype)
+    return cache._replace(length=int(cache.length) + w)
+
+
+def _with_prefix(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                 dt: torch.dtype):
+    """[the cache's valid prefix | the window's own], K and V (or MLA's
+    latents) in ``dt``: a copy of the prefix at sampler scale, as the
+    reference's concatenation (its ``-1e30`` mask over the invalid slots
+    leaves exactly these keys)."""
+    n = min(int(cache.length), cache.k.shape[1])
+    return (torch.cat([cache.k[:, :n].to(dt), k_new], dim=1),
+            torch.cat([cache.v[:, :n].to(dt), v_new], dim=1))
+
+
+def gqa_decode(p: Params, x: torch.Tensor, rope: Optional[Rope],
+               positions: torch.Tensor, cfg: ModelConfig,
+               cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+    """One new token x (B, 1, d) at ``positions`` (row 0's decides, as in
+    the reference) against the cache: its K/V are written IN PLACE at
+    ``pos0 % cap`` (a sliding window's ring) or ``min(pos0, cap − 1)``,
+    then it attends over the slots ≤ pos0 (all of them once a ring is
+    warm) through the flash kernel with the count ``min(pos0 + 1, cap)``
+    read on the device.  Returns (out, the same buffers with length + 1)."""
+    dt = x.dtype
+    q, k_new, v_new = _project_qkv(p, x, rope, cfg)
+    cap = cache.k.shape[1]
+    pos0 = _pos0(positions).long()
+    slot = pos0.remainder(cap) if cfg.sliding_window else \
+        pos0.clamp(max=cap - 1)
+    _write_slot(cache, k_new, v_new, slot)
+    kv_len = (pos0 + 1).clamp(max=cap).to(torch.int32)
+    out = flash_attention(q, cache.k.to(dt), cache.v.to(dt), kv_len=kv_len)
+    out = out.reshape(*x.shape[:2], -1) @ p["wo"].to(dt)
+    return out, cache._replace(length=int(cache.length) + 1)
+
+
+def gqa_window(p: Params, x: torch.Tensor, rope: Optional[Rope],
+               cfg: ModelConfig, cache: KVCache,
+               extend: bool = False) -> Tuple[torch.Tensor, KVCache]:
+    """A W-token window x (B, W, d) attends over [the valid prefix | itself]
+    (the cached semi-AR path; a copy of the prefix at sampler scale, as
+    the reference's concatenation).  ``extend=True`` then writes the
+    window's K/V into the cache at the valid length."""
+    q, k_new, v_new = _project_qkv(p, x, rope, cfg)
+    out = flash_attention(q, *_with_prefix(cache, k_new, v_new, x.dtype))
+    out = out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
+    return out, _extend(cache, k_new, v_new) if extend else cache
+
+
+def mla_window(p: Params, x: torch.Tensor, rope: Optional[Rope],
+               cfg: ModelConfig, cache: KVCache,
+               extend: bool = False) -> Tuple[torch.Tensor, KVCache]:
+    """The window against MLA's latent cache: per-head K/V rebuilt from the
+    valid latents and the window's own, flash at (dqk, dv).  ``extend``
+    writes the window's latents at the valid length."""
+    q_nope, q_rope, c_new, kr_new = _mla_latents(p, x, rope, cfg)
+    c_all, kr_all = _with_prefix(cache, c_new, kr_new, x.dtype)
+    out = _mla_attend(p, *_mla_heads(p, q_nope, q_rope, c_all, kr_all, cfg),
+                      x)
+    return out, _extend(cache, c_new, kr_new) if extend else cache
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (batched) as f32 products of compute-dtype operands, f32
+    accumulation and an f32 result (the reference's
+    ``preferred_element_type=float32``): cuBLAS's f32-output GEMM on the
+    card, the operands widened on the CPU (the same exact products)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def mla_decode(p: Params, x: torch.Tensor, rope: Optional[Rope],
+               positions: torch.Tensor, cfg: ModelConfig,
+               cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+    """Absorbed-form MLA decode against the latent cache (cache.k = c_kv
+    (B, S, kv_lora), cache.v = k_rope (B, S, qk_rope)): the new latents
+    written in place at ``min(pos0, S − 1)``; scores = (q_nope·W_UKᵀ)·c_kv
+    + q_rope·k_rope, scaled by (qk_nope + qk_rope)^-½, over the slots ≤
+    pos0; the weighted sum of c_kv absorbed through W_UV.  Per-head K/V
+    over the cache are never built.  Every product has an f32 result,
+    cast to the compute dtype where the reference casts."""
+    m, dt = cfg.mla, x.dtype
+    b, l, _ = x.shape
+    nq, r = cfg.num_heads, m.kv_lora_rank
+    q_nope, q_rope, c_new, kr_new = _mla_latents(p, x, rope, cfg)
+    cap = cache.k.shape[1]
+    pos0 = _pos0(positions).long()
+    _write_slot(cache, c_new, kr_new, pos0.clamp(max=cap - 1))
+    c_kv, k_rope = cache.k.to(dt), cache.v.to(dt)
+    # W_UK absorbed into the query, per head: q_lat (B, L, H, r)
+    wk_b = p["wk_b"].to(dt).reshape(r, nq, m.qk_nope_head_dim)
+    q_lat = _bmm_f32(q_nope.permute(2, 0, 1, 3).reshape(nq, b * l, -1),
+                     wk_b.permute(1, 2, 0)).to(dt)        # (H, B·L, r)
+    q_lat = q_lat.reshape(nq, b, l, r).permute(1, 2, 0, 3)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    scores = (_bmm_f32(q_lat.reshape(b, l * nq, r), c_kv.transpose(1, 2))
+              + _bmm_f32(q_rope.reshape(b, l * nq, -1),
+                         k_rope.transpose(1, 2))) * scale  # (B, L·H, S)
+    valid = torch.arange(cap, device=x.device) <= pos0
+    scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
+    w = torch.softmax(scores, dim=-1).to(dt)
+    o_lat = _bmm_f32(w, c_kv).to(dt)                      # (B, L·H, r)
+    wv_b = p["wv_b"].to(dt).reshape(r, nq, m.v_head_dim)
+    out = _bmm_f32(o_lat.reshape(b * l, nq, r).transpose(0, 1),
+                   wv_b.transpose(0, 1)).to(dt)           # (H, B·L, dv)
+    out = out.transpose(0, 1).reshape(b, l, -1) @ p["wo"].to(dt)
+    return out, cache._replace(length=int(cache.length) + 1)
+
+
+def attention_decode(p: Params, x: torch.Tensor, rope: Optional[Rope],
+                     positions: torch.Tensor, cfg: ModelConfig,
+                     cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+    if cfg.attention == "mla":
+        return mla_decode(p, x, rope, positions, cfg, cache)
+    return gqa_decode(p, x, rope, positions, cfg, cache)
+
+
+def attention_window(p: Params, x: torch.Tensor, rope: Optional[Rope],
+                     cfg: ModelConfig, cache: KVCache,
+                     extend: bool = False) -> Tuple[torch.Tensor, KVCache]:
+    if cfg.attention == "mla":
+        return mla_window(p, x, rope, cfg, cache, extend)
+    return gqa_window(p, x, rope, cfg, cache, extend)

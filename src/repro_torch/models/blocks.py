@@ -23,10 +23,18 @@ fixed-shape block cache's two entry points (``block_capture``,
 ``block_cached``); a hybrid or xLSTM config never reaches them, since
 the decoder refuses its cache policies first.  An MoE block's aux loss is
 returned on request (``return_aux``: the trainer's objective).
+
+Every family also has the reference's stateful entry points over a
+per-layer decode state (``init_layer_state``: a ``KVCache``, an xLSTM
+state, or Hymba's (``KVCache``, ``MambaState``) pair): ``block_decode``
+(one token; an MoE layer dispatches the step's B tokens at capacity
+factor 2.0; an encoder-decoder cross-attends over the state's
+``enc_out``) and ``block_window`` (W tokens against the frozen prefix;
+``extend`` None, ``"kv"`` or ``"recurrent"``, as the reference's).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -36,7 +44,10 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.attention import (KVCache, attention_cached,
                                           attention_capture,
-                                          attention_forward, init_attention)
+                                          attention_decode,
+                                          attention_forward,
+                                          attention_window, init_attention,
+                                          init_cache)
 from repro_torch.models.layers import (Params, Rope, apply_mlp, apply_norm,
                                        init_mlp, init_norm, model_rotary_dim,
                                        mrope_sections_ok, rope_tables)
@@ -129,6 +140,13 @@ def _feed_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, idx: int,
     return x + apply_mlp(p["mlp"], h, cfg), None
 
 
+def _mix(p: Params, x: torch.Tensor, attn_out: torch.Tensor,
+         ssm_out: torch.Tensor) -> torch.Tensor:
+    """Hymba's fused mean of its two parallel paths, added to x."""
+    return x + 0.5 * (attn_out * p["mix_attn"].to(x.dtype)
+                      + ssm_out * p["mix_ssm"].to(x.dtype))
+
+
 def block_forward(p: Params, x: torch.Tensor, rope, cfg: ModelConfig,
                   idx: int, return_aux: bool = False,
                   enc_out: Optional[torch.Tensor] = None):
@@ -148,9 +166,7 @@ def block_forward(p: Params, x: torch.Tensor, rope, cfg: ModelConfig,
     h = apply_norm(p["norm1"], x, cfg)
     attn_out = attention_forward(p["attn"], h, rope, cfg)
     if cfg.arch_type == "hybrid":
-        ssm_out = ssm_lib.mamba_forward(p["mamba"], h, cfg)
-        x = x + 0.5 * (attn_out * p["mix_attn"].to(x.dtype)
-                       + ssm_out * p["mix_ssm"].to(x.dtype))
+        x = _mix(p, x, attn_out, ssm_lib.mamba_forward(p["mamba"], h, cfg))
     else:
         x = x + attn_out
     if cfg.is_encdec and enc_out is not None:
@@ -195,3 +211,112 @@ def block_cached(p: Params, x: torch.Tensor, rope: Rope,
     h = apply_norm(p["norm1"], x, cfg)
     x = x + attention_cached(p["attn"], h, rope, cfg, cache, win_start)
     return _feed_forward(p, x, cfg, idx, 2.0)[0]
+
+
+# --------------------------------------------------------------------------
+# the decode state: one token, or a W-token window, against per-layer
+# state (KVCache | xLSTM state | (KVCache, MambaState))
+# --------------------------------------------------------------------------
+
+LayerState = Any
+
+
+def init_layer_state(cfg: ModelConfig, idx: int, batch: int, length: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     valid_length: Optional[int] = None,
+                     device="cuda") -> LayerState:
+    if cfg.arch_type == "ssm":
+        return ssm_lib.init_xlstm_state(cfg, idx, batch, device)
+    kv = init_cache(cfg, batch, length, dtype, valid_length, device)
+    if cfg.arch_type == "hybrid":
+        return kv, ssm_lib.init_mamba_state(cfg, batch, dtype, device)
+    return kv
+
+
+def layer_cache(state: LayerState) -> Optional[KVCache]:
+    """The attention cache in a layer's state: the state itself, the first
+    of Hymba's (``KVCache``, ``MambaState``) pair, or None (an xLSTM
+    state)."""
+    if isinstance(state, KVCache):
+        return state
+    if isinstance(state, tuple) and len(state) == 2 and \
+            isinstance(state[0], KVCache):
+        return state[0]
+    return None
+
+
+def _cross_and_ff(p: Params, x: torch.Tensor, cfg: ModelConfig, idx: int,
+                  enc_out: Optional[torch.Tensor]) -> torch.Tensor:
+    """The block's second half: cross-attention over ``enc_out`` (an
+    encoder-decoder given one), then the feed-forward (MoE at capacity
+    factor 2.0)."""
+    if cfg.is_encdec and enc_out is not None:
+        x = x + cross_attention(p["xattn"], apply_norm(p["norm_x"], x, cfg),
+                                enc_out, cfg)
+    return _feed_forward(p, x, cfg, idx, 2.0)[0]
+
+
+def block_decode(p: Params, x: torch.Tensor, rope: Optional[Rope],
+                 positions: torch.Tensor, cfg: ModelConfig, idx: int,
+                 state: LayerState,
+                 enc_out: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, LayerState]:
+    """One token x (B, 1, d) at ``positions`` (its ``rope`` tables built
+    from them) against this layer's state; the attention cache is written
+    in place.  Returns (x', the layer's new state)."""
+    h = apply_norm(p["norm1"], x, cfg)
+    if cfg.arch_type == "ssm":
+        out, st = ssm_lib.xlstm_step(p["mixer"], h, cfg, idx, state)
+        return x + out, st
+    if cfg.arch_type == "hybrid":
+        kv, ms = state
+        attn_out, kv = attention_decode(p["attn"], h, rope, positions, cfg,
+                                        kv)
+        ssm_out, ms = ssm_lib.mamba_step(p["mamba"], h, cfg, ms)
+        x, state = _mix(p, x, attn_out, ssm_out), (kv, ms)
+    else:
+        attn_out, state = attention_decode(p["attn"], h, rope, positions,
+                                           cfg, state)
+        x = x + attn_out
+    return _cross_and_ff(p, x, cfg, idx, enc_out), state
+
+
+def block_window(p: Params, x: torch.Tensor, rope: Optional[Rope],
+                 cfg: ModelConfig, idx: int, state: LayerState,
+                 enc_out: Optional[torch.Tensor] = None,
+                 extend: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, LayerState]:
+    """W tokens x (B, W, d) against this layer's frozen prefix state.
+    ``extend`` selects which half of the state a commit pass updates, as
+    in the reference:
+      None         — pure scoring (within-block denoising steps);
+      "kv"         — append the window's K/V to the attention cache
+                     (callers pass the live window incl. future masks, then
+                     reset the valid length to the committed block with
+                     ``model.set_valid_length``);
+      "recurrent"  — advance the causal recurrent states (xLSTM, Mamba)
+                     over the window (callers pass the committed block
+                     only)."""
+    h = apply_norm(p["norm1"], x, cfg)
+    if cfg.arch_type == "ssm":
+        if extend == "recurrent":
+            out, st = ssm_lib.xlstm_forward(p["mixer"], h, cfg, idx,
+                                            state=state, return_state=True)
+            return x + out, st
+        return x + ssm_lib.xlstm_forward(p["mixer"], h, cfg, idx,
+                                         state=state), state
+    if cfg.arch_type == "hybrid":
+        kv, ms = state
+        attn_out, kv = attention_window(p["attn"], h, rope, cfg, kv,
+                                        extend=extend == "kv")
+        if extend == "recurrent":
+            ssm_out, ms = ssm_lib.mamba_forward(p["mamba"], h, cfg,
+                                                state=ms, return_state=True)
+        else:
+            ssm_out = ssm_lib.mamba_forward(p["mamba"], h, cfg, state=ms)
+        x, state = _mix(p, x, attn_out, ssm_out), (kv, ms)
+    else:
+        attn_out, state = attention_window(p["attn"], h, rope, cfg, state,
+                                           extend=extend == "kv")
+        x = x + attn_out
+    return _cross_and_ff(p, x, cfg, idx, enc_out), state

@@ -263,11 +263,17 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, device,
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                 offset: int = 0) -> torch.Tensor:
+                 offset: int = 0,
+                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens (B, L) -> (B, L, d) in the compute dtype; with a sinusoidal
     table, plus its rows ``offset .. offset + L`` (the tokens' positions:
-    a cached window's start its offset in the canvas)."""
+    a cached window's start its offset in the canvas), or the rows
+    ``positions`` (B, L) (M-RoPE's (3, B, L): its t stream) where given,
+    gathered on the device (the decode state's steps)."""
     x = p["tok"][tokens].to(compute_dtype(cfg))
+    if "pos" in p and positions is not None:
+        rows = positions if positions.dim() == 2 else positions[0]
+        return x + p["pos"][rows.long()].to(x.dtype)
     if "pos" in p:
         length = tokens.shape[1]
         if offset + length > p["pos"].shape[0]:

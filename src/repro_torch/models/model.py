@@ -30,13 +30,24 @@ in the block cache's passes too).  An xLSTM stack (arch_type ``ssm``)
 has no attention and no positions.
 
 The fixed-shape block cache (DESIGN.md "The KV cache"): ``capture_cache``
-runs one full pass over the canvas and keeps every layer's K/V,
-``forward_cached`` scores a live window against it.
+runs one full pass over the canvas and keeps every layer's K/V
+(``CacheState``), ``forward_cached`` scores a live window against it.
+
+The decode state (the reference's ``DecodeState``: per-layer states and
+the encoder's output): ``init_decode_state`` allocates it, ``decode_step``
+scores one token against it (the serving shapes: decode_32k, and
+long_500k on the sub-quadratic stacks), ``forward_window`` scores a
+W-token window against the frozen prefix and with ``extend`` advances
+it, ``set_valid_length`` resets the caches' valid count.  A step writes
+the attention caches' K/V IN PLACE (a 32k cache is never copied): the
+state returned shares those buffers with the state given, whose
+recurrent states and valid lengths stay as they were; use the returned
+state, and clone one that a caller wants to keep.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Any, List, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -166,7 +177,8 @@ def encode(params: Params, enc_embeds: torch.Tensor,
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             return_aux: bool = False,
             enc_embeds: Optional[torch.Tensor] = None,
-            patch_embeds: Optional[torch.Tensor] = None):
+            patch_embeds: Optional[torch.Tensor] = None,
+            return_hidden: bool = False):
     """tokens (B, L) -> logits (B, L, V) float32.  Bidirectional: every
     position is scored.  ``return_aux=True`` returns (logits, aux): the
     MoE layers' summed aux loss (f32 scalar; 0 without MoE layers), as
@@ -174,7 +186,10 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     encoder-decoder given ``enc_embeds`` (B, S, d) encodes them and
     cross-attends over the result in every layer.  A VLM given
     ``patch_embeds`` (B, P, d) projects them (in the compute dtype) in
-    front of the text and drops their rows before the head."""
+    front of the text and drops their rows before the head.
+    ``return_hidden=True`` skips the LM head and returns the final hidden
+    states (B, L, d) in its place (prefill scoring applies the head
+    itself)."""
     x = embed_tokens(params["embed"], tokens, cfg)
     num_patches = 0
     if patch_embeds is not None:
@@ -191,8 +206,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     x = apply_norm(params["norm_f"], x, cfg)
     if num_patches:
         x = x[:, num_patches:]
-    logits = lm_head(params["embed"], x, cfg)
-    return (logits, aux_total) if return_aux else logits
+    out = x if return_hidden else lm_head(params["embed"], x, cfg)
+    return (out, aux_total) if return_aux else out
 
 
 def _requires_grad(tree) -> bool:
@@ -203,18 +218,18 @@ def _requires_grad(tree) -> bool:
 
 # the block cache's state: one KVCache per layer, each covering the whole
 # canvas: (B, total, G, hd) K and V, or MLA's latents (``KVCache``)
-DecodeState = List[KVCache]
+CacheState = List[KVCache]
 
 
 def capture_cache(params: Params, tokens: torch.Tensor,
-                  cfg: ModelConfig) -> DecodeState:
+                  cfg: ModelConfig) -> CacheState:
     """One full bidirectional pass over the canvas (B, total) keeping every
     layer's K/V: the prefill and block-boundary refresh of the block
     cache.  No LM head: refresh logits are never used (the next window
     forward scores the live rows anyway)."""
     x = embed_tokens(params["embed"], tokens, cfg)
     rope = forward_rope(cfg, tokens.shape[1], device=tokens.device)
-    state: DecodeState = []
+    state: CacheState = []
     for i, p in enumerate(params["blocks"]):
         x, kv = blocks_lib.block_capture(p, x, rope, cfg, i)
         state.append(kv)
@@ -222,7 +237,7 @@ def capture_cache(params: Params, tokens: torch.Tensor,
 
 
 def forward_cached(params: Params, tokens: torch.Tensor, win_start: int,
-                   state: DecodeState, cfg: ModelConfig) -> torch.Tensor:
+                   state: CacheState, cfg: ModelConfig) -> torch.Tensor:
     """Score a W-row live window (B, W) at ``win_start`` against the cache
     from ``capture_cache``.  Read-only with respect to the cache: each
     layer writes its fresh window K/V into a copy and attends over all
@@ -235,3 +250,99 @@ def forward_cached(params: Params, tokens: torch.Tensor, win_start: int,
         x = blocks_lib.block_cached(p, x, rope, cfg, i, kv, win_start)
     x = apply_norm(params["norm_f"], x, cfg)
     return lm_head(params["embed"], x, cfg)
+
+
+# --------------------------------------------------------------------------
+# the decode state: one token (decode_step) or a W-token window
+# (forward_window) against per-layer caches and recurrent states
+# --------------------------------------------------------------------------
+
+class DecodeState(NamedTuple):
+    """The reference's decode state: one entry per layer (a ``KVCache``,
+    an xLSTM state, or Hymba's (``KVCache``, ``MambaState``) pair; the
+    reference stacks each homogeneous group of layers instead) and the
+    encoder's output (B, S, d) that an encoder-decoder's layers
+    cross-attend over (None: no cross path)."""
+    layer_states: List[Any]
+    enc_out: Optional[torch.Tensor]
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, length: int,
+                      dtype: torch.dtype = torch.bfloat16,
+                      enc_out: Optional[torch.Tensor] = None,
+                      valid_length: Optional[int] = None,
+                      device="cuda") -> DecodeState:
+    """Zeroed per-layer state for ``batch`` rows and a cache of
+    ``length`` positions (the attention layers' K/V in ``dtype``; a
+    sliding window's ring holds ``min(length, window)``).
+    ``valid_length``: the caches' initial valid count (default
+    ``length``: a warm cache, the serving contract; 0 for the cached
+    sampler, which fills it block by block)."""
+    dev = resolve_device(device)
+    return DecodeState(
+        [blocks_lib.init_layer_state(cfg, i, batch, length, dtype,
+                                     valid_length, dev)
+         for i in range(cfg.num_layers)], enc_out)
+
+
+def _positions_and_rope(cfg: ModelConfig, positions: torch.Tensor,
+                        dtype: torch.dtype):
+    """The layers' positions ((B, L); M-RoPE's three streams all equal to
+    it, (3, B, L)) and their RoPE tables."""
+    if cfg.rope == "mrope":
+        positions = positions[None].expand(3, *positions.shape)
+    return positions, rope_tables(positions, model_rotary_dim(cfg), cfg,
+                                  dtype)
+
+
+def decode_step(params: Params, token: torch.Tensor, position: torch.Tensor,
+                state: DecodeState, cfg: ModelConfig):
+    """token (B, 1) at ``position`` (B, 1) -> (logits (B, 1, V) float32,
+    the new state).  The attention caches of ``state`` are written in
+    place at the step's slot (the returned state shares them); the
+    slot and the valid count come from ``position`` on the device, so
+    nothing is read back to the host."""
+    x = embed_tokens(params["embed"], token, cfg, positions=position)
+    positions, rope = _positions_and_rope(cfg, position, x.dtype)
+    new_states = []
+    for i, (p, st) in enumerate(zip(params["blocks"], state.layer_states)):
+        x, st = blocks_lib.block_decode(p, x, rope, positions, cfg, i, st,
+                                        state.enc_out)
+        new_states.append(st)
+    x = apply_norm(params["norm_f"], x, cfg)
+    return lm_head(params["embed"], x, cfg), DecodeState(new_states,
+                                                         state.enc_out)
+
+
+def forward_window(params: Params, tokens: torch.Tensor,
+                   positions: torch.Tensor, state: DecodeState,
+                   cfg: ModelConfig, extend: Optional[str] = None):
+    """Score a W-token window tokens (B, W) at ``positions`` (B, W) against
+    the frozen prefix state (the cached semi-AR path): -> (logits (B, W, V)
+    float32, the state).  ``extend`` (None, ``"kv"``, ``"recurrent"``:
+    ``blocks.block_window``) advances one half of the state by the
+    window; a ``"kv"`` extend writes the caches in place."""
+    x = embed_tokens(params["embed"], tokens, cfg, positions=positions)
+    _, rope = _positions_and_rope(cfg, positions, x.dtype)
+    new_states = []
+    for i, (p, st) in enumerate(zip(params["blocks"], state.layer_states)):
+        x, st = blocks_lib.block_window(p, x, rope, cfg, i, st,
+                                        state.enc_out, extend)
+        new_states.append(st)
+    x = apply_norm(params["norm_f"], x, cfg)
+    return lm_head(params["embed"], x, cfg), DecodeState(new_states,
+                                                         state.enc_out)
+
+
+def set_valid_length(state: DecodeState, length: int) -> DecodeState:
+    """The state with every attention cache's valid count set to
+    ``length`` (after a ``"kv"`` extend wrote K/V for the future masks
+    past the committed block)."""
+    def fix(st):
+        kv = blocks_lib.layer_cache(st)
+        if kv is None:
+            return st
+        new = kv._replace(length=int(length))
+        return new if st is kv else (new, st[1])
+    return DecodeState([fix(st) for st in state.layer_states],
+                       state.enc_out)

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.configs import DecodeConfig as JaxDecodeConfig
 from repro.configs import get_config as jax_get_config
@@ -43,16 +44,6 @@ VARIANTS = {"qwen3-14b": ("qwen3-14b", {}),
             "stablelm-3b": ("stablelm-3b", {}),
             "stablelm-3b-d80": ("stablelm-3b", dict(d_model=320)),
             "stablelm-12b": ("stablelm-12b", {})}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Many small CPU forwards and decodes, which gain nothing from torch's
-    intra-op threads beside the suite's parallel workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _weights(name, over, seed=0):

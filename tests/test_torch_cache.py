@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.configs import get_config as jax_get_config
 from repro.core.decoder import _tile_state as jax_tile_state

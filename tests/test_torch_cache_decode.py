@@ -16,7 +16,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from test_torch_decode import BASE, CASES
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.configs import DecodeConfig as JaxDecodeConfig
 from repro.configs import get_config as jax_get_config

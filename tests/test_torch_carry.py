@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.configs import DecodeConfig as JaxDecodeConfig
 from repro.configs import get_config as jax_get_config
@@ -53,16 +54,6 @@ POLICIES = {"none": {}, "prefix": dict(cache_policy="prefix"),
 DRIVERS = {"eager": dict(fused_loop=False),
            "block": dict(fused_blocks=False),
            "request": {}}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Many small CPU decodes: one torch thread, so the suite's parallel
-    workers do not contend for the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_decode import BASE, CASES, prompt, weights  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.configs import DecodeConfig as JaxDecodeConfig
 from repro.configs import get_config as jax_get_config
@@ -41,19 +42,6 @@ POLICIES = {"none": {}, "prefix": dict(cache_policy="prefix"),
             "dual": dict(cache_policy="dual")}
 DRIVER_CASES = ["probability", "eb", "wino", "fdm", "fdm_search",
                 "fdm_a_phases", "random"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """These tests make many small decodes on the CPU, which gain nothing
-    from torch's intra-op threads (21 s with eight, 27 s with one, in one
-    process); beside the suite's other parallel workers those threads
-    only contend for the cores.  One thread for this module, restored
-    after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _case(name):

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.configs import DecodeConfig as JaxDecodeConfig
 from repro.configs import TrainConfig as JaxTrainConfig
@@ -64,16 +65,6 @@ STRATEGIES = {"fdm": dict(strategy="fdm", gamma=0.0),
               "probability": dict(strategy="probability")}
 DRIVERS = {"eager": dict(fused_loop=False), "block": dict(fused_blocks=False),
            "request": {}}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Many small CPU forwards and decodes, which gain nothing from torch's
-    intra-op threads beside the suite's parallel workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 _CACHE = {}

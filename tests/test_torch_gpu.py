@@ -1420,3 +1420,260 @@ def test_vlm_and_xlstm_graph_decodes_match_eager(cuda, name, kw):
         assert torch.equal(got, want)
         assert (st.steps, st.forward_equivalents, st.phase_counts) == \
             (wst.steps, wst.forward_equivalents, wst.phase_counts)
+
+
+# --------------------------------------------------------------------------
+# the decode state: flash's device-side valid count, the scan's initial
+# and end states, decode_step and the serve step on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,lq,lk,h,g,d,n,w,qo", [
+    (2, 1, 300, 8, 2, 128, 1, 0, 0), (2, 1, 300, 8, 2, 128, 65, 0, 0),
+    (2, 1, 300, 8, 2, 128, 300, 0, 0), (2, 1, 300, 8, 2, 128, 999, 0, 0),
+    (1, 1, 1024, 25, 5, 64, 1024, 0, 0), (2, 64, 256, 4, 4, 64, 130, 32, 64),
+    (1, 1, 200, 16, 16, 192, 77, 0, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_valid_count_matches_plain(cuda, b, lq, lk, h, g, d, n,
+                                                w, qo, dtype):
+    """Keys at or past the count (an int32 on the card; one past Lk
+    clamps) are masked as the ragged end is: the single-token decode over
+    a fixed-capacity cache, one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(n + lk)
+    dv = 128 if d == 192 else d
+    q = torch.randn(b, lq, h, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, lk, g, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, lk, g, dv, generator=gen, device=cuda).to(dtype)
+    kv_len = torch.tensor([n], dtype=torch.int32, device=cuda)
+    before = fa_mod.launches
+    got = fa_mod.flash_attention(q, k, v, w, qo, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == before + 1
+    want = fa_mod.attention_ref(q, k, v, w, qo, kv_len)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if n < lk:                     # the masked keys do not matter
+        k2, v2 = k.clone(), v.clone()
+        k2[:, n:], v2[:, n:] = 7.0, -7.0
+        again = fa_mod.flash_attention(q, k2, v2, w, qo, kv_len=kv_len)
+        assert torch.equal(again, got)
+
+
+def test_flash_valid_count_refuses_grad(cuda):
+    q = torch.randn(1, 1, 2, 32, device=cuda, requires_grad=True)
+    k = torch.randn(1, 8, 2, 32, device=cuda)
+    kv_len = torch.tensor([4], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa_mod.flash_attention(q, k, k, kv_len=kv_len)
+    with torch.no_grad():
+        fa_mod.flash_attention(q, k, k, kv_len=kv_len)
+
+
+@pytest.mark.parametrize("b,l,di,n,xdtype", [
+    (2, 128, 3200, 16, torch.bfloat16), (1, 2048, 3200, 16, torch.bfloat16),
+    (2, 300, 130, 16, torch.float32), (2, 1, 64, 16, torch.float32),
+    (1, 37, 200, 4, torch.float32)])
+def test_selective_scan_state_matches_plain(cuda, b, l, di, n, xdtype):
+    """The scan from an initial state h0 with its end state out, against
+    the plain version (y within the kernel tests' tolerance, the f32 end
+    state within 2e-4), one launch; without h0 the end state is the zero
+    start's; the output alone equals the stateless kernel's."""
+    gen = torch.Generator(device=cuda).manual_seed(l + di)
+    x = torch.randn(b, l, di, generator=gen, device=cuda).to(xdtype)
+    delta = torch.nn.functional.softplus(
+        torch.randn(b, l, di, generator=gen, device=cuda) - 2)
+    bs, cs = (torch.randn(b, l, n, generator=gen, device=cuda)
+              for _ in range(2))
+    a_log = torch.log(torch.arange(1, n + 1, device=cuda,
+                                   dtype=torch.float32))[None].repeat(di, 1)
+    h0 = 0.5 * torch.randn(b, di, n, generator=gen, device=cuda)
+    tol = 2e-4 if xdtype == torch.float32 else 3e-2
+    for start in (h0, None):
+        before = scan_mod.launches
+        y, h = scan_mod.selective_scan(x, delta, bs, cs, a_log, h0=start,
+                                       return_state=True)
+        torch.cuda.synchronize()
+        assert scan_mod.launches == before + 1
+        wy, wh = scan_mod.selective_scan_ref(x, delta, bs, cs, a_log, start,
+                                             True)
+        torch.testing.assert_close(y.float(), wy.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(h, wh, rtol=2e-4, atol=2e-4)
+    y1 = scan_mod.selective_scan(x, delta, bs, cs, a_log, h0=h0)
+    assert torch.equal(y1, scan_mod.selective_scan(x, delta, bs, cs, a_log,
+                                                   h0=h0,
+                                                   return_state=True)[0])
+    assert torch.equal(scan_mod.selective_scan(x, delta, bs, cs, a_log),
+                       scan_mod.selective_scan(x, delta, bs, cs, a_log,
+                                               return_state=True)[0])
+
+
+def test_selective_scan_state_refuses_grad(cuda):
+    x = torch.randn(1, 8, 16, device=cuda, requires_grad=True)
+    d = torch.rand(1, 8, 16, device=cuda)
+    bs = torch.randn(1, 8, 4, device=cuda)
+    a_log = torch.zeros(16, 4, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        scan_mod.selective_scan(x, d, bs, bs, a_log, return_state=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        scan_mod.selective_scan(x, d, bs, bs, a_log,
+                                h0=torch.zeros(1, 16, 4, device=cuda))
+
+
+@pytest.mark.parametrize("name", ["llada-8b", "hymba-1.5b", "qwen2-vl-72b",
+                                  "deepseek-v2-236b", "xlstm-ms"])
+def test_decode_step_on_card_matches_cpu(cuda, name):
+    """f32 ``decode_step`` of a tiny config on the card (flash with the
+    device-side count; MLA absorbed; the Mamba and xLSTM steps) against
+    the CPU from the same weights: 8 tokens, argmaxes exact, logits and
+    every state leaf within 1e-4; then a ``forward_window`` with
+    ``extend="recurrent"`` (the scan from h0 on Hymba) likewise."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (forward_window, init_decode_state,
+                                    init_model)
+    from repro_torch.models import decode_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _xlstm_ms() if name == "xlstm-ms" else get_config(name).reduced()
+    params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    dparams = _tree_to(params, cuda)
+    cs = init_decode_state(cfg, 2, 48, torch.float32, device="cpu")
+    ds = init_decode_state(cfg, 2, 48, torch.float32, device=cuda)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size - 1, (8, 2, 1), generator=gen)
+    for i, tok in enumerate(toks):
+        pos = torch.full((2, 1), 30 + i, dtype=torch.int32)
+        want, cs = decode_step(params, tok, pos, cs, cfg)
+        got, ds = decode_step(dparams, tok.to(cuda), pos.to(cuda), ds, cfg)
+        assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    win = torch.randint(0, cfg.vocab_size - 1, (2, 8), generator=gen)
+    pos = torch.arange(38, 46, dtype=torch.int32)[None].expand(2, 8)
+    want, cs = forward_window(params, win, pos, cs, cfg, "recurrent")
+    got, ds = forward_window(dparams, win.to(cuda), pos.to(cuda), ds, cfg,
+                             "recurrent")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    leaves = [(a, b) for a, b in zip(_leaves(ds.layer_states),
+                                     _leaves(cs.layer_states))]
+    for a, b in leaves:
+        if isinstance(b, torch.Tensor):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+        else:
+            assert a == b
+
+
+def _leaves(tree):
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def test_mla_absorbed_decode_bf16_on_card_matches_cpu(cuda):
+    """bf16 ``mla_decode`` (cuBLAS's f32-output batched GEMMs) against the
+    CPU's (operands widened: the same products) on one DeepSeek-V2-tiny
+    layer, within 2e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, init_model
+    from repro_torch.models.layers import model_rotary_dim, rope_tables
+    cfg = get_config("deepseek-v2-236b").reduced()
+    p = init_model(cfg, torch.Generator().manual_seed(0), device="cpu",
+                   dtype=torch.bfloat16)["blocks"][0]["attn"]
+    gen = torch.Generator().manual_seed(2)
+    m = cfg.mla
+    c = torch.randn(2, 40, m.kv_lora_rank, generator=gen).bfloat16()
+    kr = torch.randn(2, 40, m.qk_rope_head_dim, generator=gen).bfloat16()
+    x = torch.randn(2, 1, cfg.d_model, generator=gen).bfloat16()
+    pos = torch.full((2, 1), 25, dtype=torch.int32)
+    outs = []
+    for dev in ("cpu", cuda):
+        rope = rope_tables(pos.to(dev), model_rotary_dim(cfg), cfg,
+                           torch.bfloat16)
+        out, cache = attention.mla_decode(
+            _tree_to(p, dev), x.to(dev), rope, pos.to(dev), cfg,
+            attention.KVCache(c.to(dev).clone(), kr.to(dev).clone(), 40))
+        outs.append((out.cpu().float(), cache.k.cpu().float()))
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(outs[1][1], outs[0][1], rtol=2e-2, atol=2e-2)
+
+
+def test_serve_step_replays_from_a_cuda_graph(cuda):
+    """LLaDA-tiny's ``serve`` step captured once into a CUDA graph (the
+    slot, the valid count and the cache writes all on the device: no
+    host read) and replayed at four positions equals the eager step on a
+    copy of the state."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_steps
+    from repro_torch.models import init_decode_state, init_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llada-8b").reduced()
+    params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    serve = make_steps(cfg)["serve"]
+    state = init_decode_state(cfg, 2, 32, torch.float32, device=cuda)
+    eager = type(state)([type(kv)(kv.k.clone(), kv.v.clone(), kv.length)
+                         for kv in state.layer_states], None)
+    token = torch.zeros(2, 1, dtype=torch.long, device=cuda)
+    position = torch.zeros(2, 1, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        serve(params, token, position, state)      # warm (writes slot 0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        scores, _ = serve(params, token, position, state)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for p in range(4):
+        tok = torch.randint(0, cfg.vocab_size - 1, (2, 1), device=cuda,
+                            generator=gen)
+        token.copy_(tok)
+        position.fill_(p)
+        graph.replay()
+        want, eager = serve(params, tok, position.clone(), eager)
+        torch.cuda.synchronize()
+        assert torch.equal(scores.argmax, want.argmax)
+        torch.testing.assert_close(scores.max_prob, want.max_prob,
+                                   rtol=1e-5, atol=1e-6)
+    for kv, ekv in zip(state.layer_states, eager.layer_states):
+        torch.testing.assert_close(kv.k[:, :4], ekv.k[:, :4], rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["qwen2-vl-72b", "xlstm-ms"])
+def test_make_steps_train_on_card_matches_cpu(cuda, name):
+    """One f32 ``make_steps(cfg)["train"]`` step of tiny qwen2-vl with its
+    patch embeddings (the config's extra input: prepended, then sliced
+    off) and of the xLSTM stack with an sLSTM layer (its time loop), on
+    the card against the CPU's, same weights, batch and corruption: the
+    loss within rel 1e-5, every gradient leaf within 1e-4 of its max |g|
+    (as ``test_moe_train_step_on_card_matches_cpu``)."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.convert import to_flat
+    from repro_torch.launch.steps import extra_input_names, make_steps
+    from repro_torch.models import init_model
+    from repro_torch.training.trainer import corrupt, masters
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _xlstm_ms() if name == "xlstm-ms" else get_config(name).reduced()
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size - 1, (4, 48),
+                                     generator=gen),
+             "maskable": torch.ones(4, 48, dtype=torch.bool)}
+    batch["maskable"][:, :8] = False
+    if "patch_embeds" in extra_input_names(cfg):
+        batch["patch_embeds"] = torch.randn(4, cfg.encdec.num_patch_tokens,
+                                            cfg.d_model, generator=gen)
+    corruption = corrupt(torch.Generator().manual_seed(0), batch["tokens"],
+                         batch["maskable"], cfg)
+    init = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    step = make_steps(cfg, TrainConfig(batch_size=4, seq_len=48,
+                                       steps=10))["train"]
+    out = {}
+    for dev in ("cpu", cuda):
+        params = masters(_tree_to(init, dev))
+        grads, met = step.grads(params, {k: v.to(dev) for k, v in
+                                         batch.items()},
+                                tuple(c.to(dev) for c in corruption))
+        out[str(dev)] = (float(met["loss"]), to_flat(grads))
+    (loss, g), (card_loss, card_g) = out["cpu"], out[str(cuda)]
+    assert card_loss == pytest.approx(loss, rel=1e-5)
+    assert sorted(card_g) == sorted(g)
+    for key, want in g.items():
+        scale = max(abs(want).max(), 1e-30)
+        assert abs(card_g[key] - want).max() <= 1e-4 * scale, key

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.configs import DecodeConfig as JaxDecodeConfig
 from repro.configs import get_config as jax_get_config
@@ -44,16 +45,6 @@ from repro_torch.models import (capture_cache, forward, forward_cached,
 from repro_torch.models import attention, layers, moe
 
 NAME = "deepseek-v2-236b"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Many small CPU forwards and decodes, which gain nothing from torch's
-    intra-op threads beside the suite's parallel workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 _CACHE = {}

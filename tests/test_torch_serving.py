@@ -5,6 +5,8 @@ boundary."""
 import jax
 import numpy as np
 import pytest
+import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.configs import DecodeConfig as JaxDecodeConfig
 from repro.configs import get_config as jax_get_config

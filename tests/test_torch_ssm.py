@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.configs import get_config as jax_get_config
 from repro.kernels.ref import selective_scan_ref as jax_scan_ref
@@ -336,8 +337,11 @@ def _scan_through_backward(monkeypatch):
         return real(*args, **kw)
     real = scan_mod.selective_scan_backward
     monkeypatch.setattr(scan_mod, "selective_scan_backward", backward)
-    monkeypatch.setattr(ssm, "selective_scan", lambda x, d, b, c, a:
-                        scan_mod.SelectiveScan.apply(x, d, b, c, a.float()))
+
+    def scan(x, d, b, c, a, h0=None, return_state=False):
+        assert h0 is None and not return_state      # a stateless forward
+        return scan_mod.SelectiveScan.apply(x, d, b, c, a.float())
+    monkeypatch.setattr(ssm, "selective_scan", scan)
     return calls
 
 

@@ -33,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.configs import TrainConfig as JaxTrainConfig
 from repro.configs import get_config as jax_get_config
@@ -114,17 +115,6 @@ def _within_bf16_ulp(got: np.ndarray, want: np.ndarray) -> bool:
     ulp = np.exp2(np.floor(np.log2(np.where(mag > 0, mag, 1.0))) - 7)
     tol = np.where(mag > 0, ulp, 0.0) + 1e-4 * np.abs(want).max()
     return bool(np.all(np.abs(got - want) <= tol))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Small CPU steps gain nothing from torch's intra-op threads, which
-    beside the suite's other parallel workers only contend for the
-    cores: one thread for this module, restored after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @functools.lru_cache(maxsize=None)
@@ -325,8 +315,11 @@ def test_hymba_step_through_the_scan_backward_matches_reference(
         calls.append(args[0].shape)
         return real(*args, **kw)
     monkeypatch.setattr(scan_mod, "selective_scan_backward", backward)
-    monkeypatch.setattr(ssm, "selective_scan", lambda x, d, b, c, a:
-                        scan_mod.SelectiveScan.apply(x, d, b, c, a.float()))
+
+    def scan(x, d, b, c, a, h0=None, return_state=False):
+        assert h0 is None and not return_state      # a stateless forward
+        return scan_mod.SelectiveScan.apply(x, d, b, c, a.float())
+    monkeypatch.setattr(ssm, "selective_scan", scan)
     _step_matches_reference(task, "hymba-tiny")
     # one backward per layer in each gradient: the helper takes it for
     # the comparison (``grads``) and again in the update (``apply``)

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from repro.configs import DecodeConfig as JaxDecodeConfig
 from repro.configs import TrainConfig as JaxTrainConfig
@@ -35,16 +36,6 @@ CFG = get_config("llada-8b").reduced()
 STRATEGIES = ["fdm", "fdm_a", "probability", "eb"]
 POLICIES = ["none", "prefix", "dual"]
 EVAL_ROWS = 16
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Many small CPU decodes: one torch thread for this module (more
-    only contend with the suite's other workers), restored after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
