@@ -150,8 +150,20 @@ Phases, in order; any failure raises and the script exits non-zero:
              a step against a warm ``init_decode_state``, 16 steps): after
              LLaDA's carry phase, all 32 layers of LLaDA-8B at B=2 over a
              32k bf16 cache (``llada-8b-serve``: ms a step, tokens/s, the
-             bytes a step must move and its share of that bound, flash's
-             and confidence's device ms a step, peak memory); after
+             bytes a step must move (``roofline.step_cost``) and its share
+             of that bound, flash's and confidence's device ms a step,
+             peak memory above what was held before the state); then, on
+             the same weights, the dry-run and prefill_32k
+             (``prefill_phase``): the one-card dry-run's rows of
+             ``DRYRUN_ROWS`` (``launch/dryrun.py``: meta runs on the host,
+             the fit and the roofline terms; the card's memory held to
+             ``roofline.HBM_BYTES``), then ``make_steps(cfg)["prefill"]``
+             at B=1 over 32768 tokens, all 32 layers (``llada-8b-prefill``:
+             ms a step, tokens/s, mfu, the share of ``step_cost``'s bound,
+             a device profile by group, the peak above the inputs' baseline
+             beside the dry-run's), and flash at (1, 32768, 32:32, d=128)
+             and confidence over 32768 × 126464 f32, each held to its plain
+             version on a subset of rows; after
              Hymba's serving, Hymba-1.5B at long_500k's position 524287
              (B=1, its 1024-slot ring and the Mamba state) plus one
              32-token ``forward_window(extend="recurrent")``, the scan from
@@ -160,7 +172,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. KV A/B  — (between LLaDA's serving and Hymba's) one B=2 request at the
              reference's ``BENCH_kv_cache.json`` geometry (prompt 128,
              gen 128, block 32, probability) on full-width LLaDA-8B under
-             each policy, by the eager and the graph driver interleaved:
+             each policy, by the eager driver once and the graph driver
+             twice, interleaved:
              seconds, tokens/s, steps/s, capture seconds, graph count and
              pool bytes, and forward-equivalents of exactly 128, 68 and
              20; one graph-driven request under sync debug mode "error"
@@ -270,11 +283,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
-MEM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
-BF16_OPS_PER_S = 989e12          # dense tensor-core bf16
-F32_OPS_PER_S = 67e12            # f32 outside the tensor cores
-# exp on the SFU: 16 per clock per SM x 132 SMs x 1.98 GHz (H100 SXM boost)
-SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # the serving phase's geometry (also the shapes the kernel phase checks)
 MAX_BATCH, GEN, BLOCK, K = 2, 64, 32, 2
 CANVAS = 64 + GEN                # longest prompt + generation
@@ -586,6 +594,7 @@ def check_confidence(conf_mod, torch, rows: int, vocab: int, dtype: str):
     tolerances of tests/test_kernels.py.  Returns a dict: max_abs_err,
     ms and plain_ms call to call, device_ms on the device alone,
     bound_ms."""
+    from repro_torch.launch.roofline import F32_FLOPS, HBM_BW
     (x,) = conf_inputs(torch, rows, vocab, dtype)
     got = conf_mod.confidence_fused(x)
     torch.cuda.synchronize()
@@ -611,7 +620,7 @@ def check_confidence(conf_mod, torch, rows: int, vocab: int, dtype: str):
         ms=time_ms(kernel), device_ms=device_ms(kernel),
         plain_ms=time_ms(lambda: conf_mod.confidence_ref(x), reps=3,
                          inner=2),
-        bound_ms=1e3 * max(nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S))
+        bound_ms=1e3 * max(nbytes / HBM_BW, ops / F32_FLOPS))
 
 
 def check_attention(fa_mod, torch, b, lq, lk, h, g, d, window, q_offset,
@@ -628,6 +637,7 @@ def check_attention(fa_mod, torch, b, lq, lk, h, g, d, window, q_offset,
     Returns a dict: max_abs_err, ms, plain_ms, library_ms (SDPA) call to
     call, device_ms and library_device_ms on the device alone, bound_ms
     and bound_by."""
+    from repro_torch.launch.roofline import F32_FLOPS, HBM_BW, PEAK_FLOPS
     import torch.nn.functional as F
     q, k, v, _, _ = attn_inputs(
         torch, b, lq, lk, h, g, d, window, q_offset, dtype, dv,
@@ -681,8 +691,8 @@ def check_attention(fa_mod, torch, b, lq, lk, h, g, d, window, q_offset,
     ops = 2 * b * h * pairs * (d + v.shape[-1])
     nbytes = (q.numel() + (k.numel() + v.numel()) * n // lk +
               got.numel()) * q.element_size()
-    peak = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
-    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / peak
+    peak = PEAK_FLOPS if dtype == "bfloat16" else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BW, ops / peak
     out.update(bound_ms=1e3 * max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
     return out
@@ -698,6 +708,7 @@ def check_scan(scan_mod, torch, b, l, di, n, xdtype: str,
     on the device alone, bound_ms and bound_by (one exp per state and
     step), and design_floor_ms (the two passes' exps, 2 per state and
     step, on the SFU)."""
+    from repro_torch.launch.roofline import F32_FLOPS, HBM_BW, SFU_OPS_PER_S
     args = scan_inputs(torch, b, l, di, n, xdtype)
     kw = {}
     if state:
@@ -723,8 +734,8 @@ def check_scan(scan_mod, torch, b, l, di, n, xdtype: str,
         (outs[1].numel() * 4 if state else 0)
     exps = b * l * di * n                 # one exp per state per step
     flops = 7 * b * l * di * n            # Δ·A, Δ·B·x, fma, h·C, sum
-    t_bytes = nbytes / MEM_BYTES_PER_S
-    t_ops = max(exps / SFU_OPS_PER_S, flops / F32_OPS_PER_S)
+    t_bytes = nbytes / HBM_BW
+    t_ops = max(exps / SFU_OPS_PER_S, flops / F32_FLOPS)
     return dict(
         max_abs_err=max(float((o.float() - r.float()).abs().max())
                         for o, r in zip(outs, refs)),
@@ -1293,7 +1304,7 @@ def graph_profile(torch, label: str, fn, run, mods, groups=None) -> dict:
 def kv_ab_phase(torch, cfg, params, mods: dict) -> None:
     """One B=2 request at the reference's ``BENCH_kv_cache.json`` geometry
     under each cache policy, by the eager and the graph driver
-    interleaved (eager, graph, graph, eager, after one cold graph decode
+    interleaved (eager, graph, graph, after one cold graph decode
     that captures): seconds, tokens/s and steps/s of each, capture
     seconds, graph count and pool bytes, forward-equivalents of exactly
     128, 68 and 20 under both drivers; one graph-driven request under
@@ -1327,7 +1338,7 @@ def kv_ab_phase(torch, cfg, params, mods: dict) -> None:
             gs = graph_stats(torch, [run])
             secs = {"eager": [], "graph": []}
             outs = {}
-            for driver in ("eager", "graph", "graph", "eager"):
+            for driver in ("eager", "graph", "graph"):
                 t0 = time.perf_counter()
                 out, st = decs[driver].generate(None, prompt)
                 torch.cuda.synchronize()
@@ -1719,6 +1730,7 @@ def moe_dispatch_phase(torch) -> None:
     tokens routed to it, in the same dtype order: bf16 operands, f32
     accumulation; the products' rows differ, so bf16 roundings do), and
     the layer's device ms against its bound (the experts' bytes)."""
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
     from repro_torch.configs import get_config
     from repro_torch.core.graphs import GraphSet
     from repro_torch.models import moe
@@ -1785,7 +1797,7 @@ def moe_dispatch_phase(torch) -> None:
         ms = device_ms(lambda: moe.moe_forward(p, x[None], full,
                                                need_aux=False), reps=3)
         flops = 2 * 3 * t * k * full.d_model * full.moe.moe_d_ff
-        t_bytes, t_ops = wbytes / MEM_BYTES_PER_S, flops / BF16_OPS_PER_S
+        t_bytes, t_ops = wbytes / HBM_BW, flops / PEAK_FLOPS
         bound = 1e3 * max(t_bytes, t_ops)
         log(f"moe dispatch full width (d={full.d_model}, {e} experts top-{k}"
             f" at moe_d_ff {full.moe.moe_d_ff}, bf16, T={t}, capacity {cap}"
@@ -2445,6 +2457,7 @@ def flash_grad_phase(torch, fa_mod, conf_mod) -> dict:
     backward's device ms (``attention_backward``), the kernel's forward,
     the plain version's forward + backward and SDPA's (a yardstick),
     and the backward's bound.  Returns those numbers."""
+    from repro_torch.launch.roofline import F32_FLOPS, HBM_BW
     import torch.nn.functional as F
     for b, lq, lk, h, g, d, w, qo, dt in FLASH_GRAD_SHAPES:
         q, k, v, _, _ = attn_inputs(torch, b, lq, lk, h, g, d, w, qo, dt)
@@ -2498,7 +2511,7 @@ def flash_grad_phase(torch, fa_mod, conf_mod) -> dict:
     # once (bf16); its recomputed QKᵀ and four more L×L×d products in f32
     nbytes = 8 * q.numel() * q.element_size()
     ops = 5 * 2 * b * h * l * l * d
-    r["bound_ms"] = 1e3 * max(nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S)
+    r["bound_ms"] = 1e3 * max(nbytes / HBM_BW, ops / F32_FLOPS)
     log(f"flash backward at the full-width training shape (B={b}, L={l}, "
         f"H={h}, d={d}, bf16): attention_backward on the device alone "
         f"{r['backward_device_ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
@@ -2527,6 +2540,7 @@ def scan_grad_phase(torch, scan_mod) -> dict:
     gradients once, one exp per state and step on the SFU, ~20 f32 flops
     per state and step (both recurrences, the five reductions).  Returns
     the numbers of the training shape."""
+    from repro_torch.launch.roofline import F32_FLOPS, HBM_BW, SFU_OPS_PER_S
     out = {}
     for b, l, di, n, xdt in SCAN_GRAD_SHAPES:
         args = scan_inputs(torch, b, l, di, n, xdt)
@@ -2554,9 +2568,9 @@ def scan_grad_phase(torch, scan_mod) -> dict:
             inner=2)
         nbytes = 2 * sum(t.numel() * t.element_size() for t in args) + \
             dy.numel() * dy.element_size()
-        t_bytes = nbytes / MEM_BYTES_PER_S
+        t_bytes = nbytes / HBM_BW
         t_ops = max(b * l * di * n / SFU_OPS_PER_S,
-                    20 * b * l * di * n / F32_OPS_PER_S)
+                    20 * b * l * di * n / F32_FLOPS)
         r = dict(shape=[b, l, di, n, xdt], backward_device_ms=bwd,
                  backward_ms=bwd_call, eager_device_ms=eager,
                  eager_ms=eager_call,
@@ -2977,6 +2991,7 @@ def moe_grad_phase(torch, name: str) -> None:
     hidden states and their gradient in bf16; the routed pairs' and
     shared experts' products, forward and two backward GEMMs each, at the
     bf16 peak) and the peak memory."""
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
     import math
     from repro_torch.configs import get_config
     from repro_torch.models import moe
@@ -3028,7 +3043,7 @@ def moe_grad_phase(torch, name: str) -> None:
     # products over the routed pairs and the shared width, the router)
     ops = 3 * 2 * (3 * d * ff * (t * k + t * shared)
                    + t * d * cfg.moe.num_experts)
-    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BW, ops / PEAK_FLOPS
     bound = 1e3 * max(t_bytes, t_ops)
     log(f"moe gradient {name} (one full-width layer: d={d}, "
         f"{cfg.moe.num_experts} experts top-{k} at moe_d_ff {ff}, {shared} "
@@ -3405,29 +3420,6 @@ def steps_reference_phase(torch) -> None:
             f"scale (tolerance {STEPS_REFERENCE_TOL})")
 
 
-def _read_bytes(cfg, params, state, kv_lens) -> int:
-    """Bytes one serve step must move: every weight but the token table
-    (the step gathers B of its rows; tied, it is the head and counts),
-    each attention layer's live K/V (``kv_lens`` keys of its cache), the
-    recurrent states read and written."""
-    from repro_torch.models.blocks import layer_cache
-    nbytes = sum(leaf.numel() * leaf.element_size()
-                 for leaf in _leaves(params))
-    tok = params["embed"]["tok"]
-    if not cfg.tie_embeddings:
-        nbytes -= tok.numel() * tok.element_size()
-    for st in state.layer_states:
-        kv = layer_cache(st)
-        rec = [t for t in _leaves(st) if hasattr(t, "numel")]
-        if kv is not None:
-            per_key = (kv.k[0, 0].numel() * kv.k.element_size() +
-                       kv.v[0, 0].numel() * kv.v.element_size())
-            nbytes += kv.k.shape[0] * min(kv_lens, kv.k.shape[1]) * per_key
-            rec = [t for t in rec if t is not kv.k and t is not kv.v]
-        nbytes += 2 * sum(t.numel() * t.element_size() for t in rec)
-    return nbytes
-
-
 SERVE_GROUPS = {"flash attention (hand-written)": ("flash_",),
                 "confidence (hand-written)": ("confidence_",),
                 "GEMMs (cuBLAS)": ("gemm", "xmma", "nvjet", "cutlass",
@@ -3445,13 +3437,17 @@ def serve_step_phase(torch, cfg, params, mods: dict, batch: int,
     just before the steps and read after the window.  Prints ms a step,
     tokens/s, the bytes a step must move and the share of that bound,
     flash's and confidence's device ms a step (a profile of two steps),
-    the peak memory; checks the scores.  Returns the launches."""
+    the peak memory above what was allocated before the state was built;
+    checks the scores.  The bound is ``roofline.step_cost``'s bytes (every
+    slot of the state live).  Returns the launches."""
+    from repro_torch.launch.roofline import HBM_BW, step_cost
     from repro_torch.launch.steps import make_steps
     from repro_torch.models import forward_window, init_decode_state
     from repro_torch.models.blocks import layer_cache
     from repro_torch.models.layers import compute_dtype
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_decode_state(cfg, batch, length, compute_dtype(cfg),
@@ -3515,9 +3511,10 @@ def serve_step_phase(torch, cfg, params, mods: dict, batch: int,
                       (sc.argmax < cfg.vocab_size)).all())):
             raise AssertionError(f"serve {cfg.name}: scores out of range")
     kv_len = min(last_pos + 1, length)
-    nbytes = _read_bytes(cfg, params, holder["state"], kv_len)
-    bound = 1e3 * nbytes / MEM_BYTES_PER_S
+    _, nbytes = step_cost(cfg, "serve", length, batch)
+    bound = 1e3 * nbytes / HBM_BW
     peak = torch.cuda.max_memory_allocated() / 2**30
+    above = peak - base / 2**30
     groups = device_profile(
         torch, f"{cfg.name} serve step B={batch} cache {length} at "
         f"position {last_pos}", lambda: step(SERVE_STEPS - 1), top=6,
@@ -3528,7 +3525,9 @@ def serve_step_phase(torch, cfg, params, mods: dict, batch: int,
         f"{ms:.3f} ms a step, {batch * 1e3 / ms:.1f} tokens/s; bytes a "
         f"step {nbytes / 1e9:.3f} GB (bound {bound:.3f} ms at 3.35 TB/s, "
         f"share {bound / ms:.3f}); device ms a step by group {groups}; "
-        f"peak allocated {peak:.2f} GiB; window of {window} tokens "
+        f"peak allocated {peak:.2f} GiB, {above:.2f} GiB above the "
+        f"{base / 2**30:.2f} GiB held before the state was built; window "
+        f"of {window} tokens "
         f"(extend=recurrent) {win_ms} ms; launches {launches}; "
         f"{nvidia_smi()}")
     want_flash = cfg.num_layers * SERVE_STEPS if cfg.arch_type != "ssm" \
@@ -3546,6 +3545,242 @@ def serve_step_phase(torch, cfg, params, mods: dict, batch: int,
     del holder, state, outs
     torch.cuda.empty_cache()
     return launches
+
+
+# the one-card dry-run (``launch/dryrun.py``): the rows of the contract's
+# combinations this script runs on the card (``--all`` runs every
+# admissible one on the host's CPU, for minutes: PERF.md)
+DRYRUN_ROWS = (("llada-8b", "prefill_32k"), ("llada-8b", "decode_32k"),
+               ("hymba-1.5b", "long_500k"), ("xlstm-125m", "long_500k"))
+# prefill_32k at B=1: one warm step, then PREFILL_REPS timed; the kernels
+# held at its shapes on row subsets (the plain versions cannot hold the
+# whole shape: flash's f32 scores would be 137 GB)
+PREFILL_L, PREFILL_REPS = 32768, 3
+PREFILL_FLASH_ROWS, PREFILL_CONF_ROWS = 128, 256
+PREFILL_TAIL_KEYS = 4096
+
+
+def dryrun_rows() -> dict:
+    """The dry-run's rows of ``DRYRUN_ROWS`` (meta runs on the host: no
+    card memory), printed; returns them by (arch, shape)."""
+    from repro_torch.launch import dryrun
+    rows = {}
+    for arch, shape in DRYRUN_ROWS:
+        t0 = time.perf_counter()
+        rows[arch, shape] = dryrun.dryrun(arch, shape, verbose=False)
+        log(f"dryrun {dryrun.format_row(rows[arch, shape])} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    return rows
+
+
+def prefill_kernel_checks(torch, fa_mod, conf_mod) -> dict:
+    """Flash at prefill_32k's (1, 32768, 32:32, d=128) bf16 on the whole
+    shape, held on ``PREFILL_FLASH_ROWS`` query rows (spread over L)
+    against the plain version over all keys (tolerance 2e-2, the kernel
+    phase's).  As in ``check_attention``'s decode cases, q is scaled by
+    ``DECODE_Q_SCALE`` (a peaked softmax: outputs of order 1, not
+    1/sqrt(keys)) and the error is also held to the tolerance times the
+    output's max |value| (``rel_err``); the last ``PREFILL_TAIL_KEYS``
+    keys must move the plain answer by more than 5x that
+    (``tail_effect``), so a kernel that dropped them would fail.
+    Confidence over 32768 × 126464 f32 logits (duplicated maxima
+    in every 4096th row) on ``PREFILL_CONF_ROWS`` rows (every 128th, the
+    tied ones among them) against the plain version (argmax exact, margin
+    0 on ties, the kernel phase's tolerances).  Each with its device ms,
+    call-to-call ms, bound, the plain version's ms on its rows and, for
+    flash, SDPA's ms on the whole shape.  Returns {kernel: dict}."""
+    from repro_torch.launch.roofline import F32_FLOPS, HBM_BW, PEAK_FLOPS
+    import torch.nn.functional as F
+    out = {}
+    length = PREFILL_L
+    q, k, v, _, _ = attn_inputs(torch, 1, length, length, 32, 32, 128, 0,
+                                q_scale=DECODE_Q_SCALE)
+    got = fa_mod.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    rows = torch.linspace(0, length - 1, PREFILL_FLASH_ROWS,
+                          device="cuda").long()
+    ref = fa_mod.attention_ref(q[:, rows], k, v)
+    tol = 2e-2
+    torch.testing.assert_close(got[:, rows].float(), ref.float(),
+                               rtol=tol, atol=tol)
+    scale = float(ref.float().abs().max())
+    err = float((got[:, rows].float() - ref.float()).abs().max())
+    if err > tol * scale:
+        raise AssertionError(f"flash at prefill_32k: error {err} > {tol} x "
+                             f"the output's max |value| {scale}")
+    cut = length - PREFILL_TAIL_KEYS
+    tail_effect = float((fa_mod.attention_ref(
+        q[:, rows], k[:, :cut], v[:, :cut]).float() - ref.float()
+    ).abs().max()) / scale
+    if tail_effect <= 5 * tol:
+        raise AssertionError(f"flash at prefill_32k: dropping the last "
+                             f"{PREFILL_TAIL_KEYS} keys changes the plain "
+                             f"answer by only {tail_effect} of its scale")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def kernel():
+        return fa_mod.flash_attention(q, k, v)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+    ops = 2 * 32 * length * length * (128 + 128)
+    nbytes = 4 * q.numel() * q.element_size()
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / HBM_BW
+    out["flash_attention"] = dict(
+        shape=f"(1, 32768, 32:32, d=128) bf16, q x {DECODE_Q_SCALE}",
+        rows=PREFILL_FLASH_ROWS, max_abs_err=err, rel_err=err / scale,
+        tail_effect=tail_effect,
+        ms=time_ms(kernel, reps=3, inner=2),
+        device_ms=device_ms(kernel, reps=3, inner=2),
+        library_ms=time_ms(sdpa, reps=3, inner=2),
+        library_device_ms=device_ms(sdpa, reps=3, inner=2),
+        plain_ms_rows=time_ms(lambda: fa_mod.attention_ref(q[:, rows], k, v),
+                              reps=3, inner=2),
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    del q, k, v, qt, kt, vt, got, ref
+    torch.cuda.empty_cache()
+    vocab = 126464
+    (x,) = conf_inputs(torch, length, vocab, "float32")
+    got = conf_mod.confidence_fused(x)
+    torch.cuda.synchronize()
+    rows = torch.arange(0, length, length // PREFILL_CONF_ROWS,
+                        device="cuda")
+    ref = conf_mod.confidence_ref(x[rows])
+    sub = [t[rows] for t in got]
+    if not torch.equal(sub[0], ref[0]):
+        raise AssertionError(f"confidence at {length} x {vocab}: argmax "
+                             f"differs on {int((sub[0] != ref[0]).sum())} "
+                             f"of {PREFILL_CONF_ROWS} rows")
+    tied = list(range(0, length, max(length // 8, 1)))
+    if not torch.all(got[2][tied] == 0):
+        raise AssertionError("confidence margin is not 0 on tied maxima")
+    for g, r, rtol, atol in ((sub[1], ref[1], 2e-4, 2e-5),
+                             (sub[2], ref[2], 2e-4, 2e-5),
+                             (sub[3], ref[3], 2e-3, 2e-4)):
+        torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
+
+    def conf():
+        return conf_mod.confidence_fused(x)
+    nbytes = x.numel() * x.element_size() + length * 16
+    t_ops, t_bytes = 5 * x.numel() / F32_FLOPS, nbytes / HBM_BW
+    out["confidence"] = dict(
+        shape=f"{length} x {vocab} f32", rows=PREFILL_CONF_ROWS,
+        max_abs_err=max(float((g - r).abs().max())
+                        for g, r in zip(sub[1:], ref[1:])),
+        ms=time_ms(conf, reps=3, inner=2),
+        device_ms=device_ms(conf, reps=3, inner=2),
+        plain_ms_rows=time_ms(lambda: conf_mod.confidence_ref(x[rows]),
+                              reps=3, inner=2),
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None)
+    del x, got, ref, sub
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        log(f"{name} at prefill_32k's {r['shape']}: max_abs_err "
+            f"{r['max_abs_err']} on {r['rows']} rows" + (
+                f" ({r['rel_err']:.2e} of the output's max |value|; the "
+                f"last {PREFILL_TAIL_KEYS} keys move the plain answer "
+                f"{r['tail_effect']:.3f} of it)" if "rel_err" in r else "")
+            + f"; kernel {r['ms']:.4f} "
+            f"ms, on the device alone {r['device_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of the bound "
+            f"{r['bound_ms'] / r['device_ms']:.3f}; plain on the rows "
+            f"{r['plain_ms_rows']:.4f} ms" + (
+                f"; sdpa {r['library_ms']:.4f} ms, on the device alone "
+                f"{r['library_device_ms']:.4f} ms (kernel/sdpa "
+                f"{r['device_ms'] / r['library_device_ms']:.3f})"
+                if r["library_ms"] else "") + f"; {nvidia_smi()}")
+    return out
+
+
+def prefill_phase(torch, cfg, params, mods: dict) -> dict:
+    """The dry-run and prefill_32k.  Prints ``DRYRUN_ROWS``' rows (the
+    card's ``total_memory`` held to ``HBM_BYTES``), then runs
+    ``make_steps(cfg)["prefill"]`` on ``params`` (full width and depth,
+    bf16) at B=1 over ``PREFILL_L`` seeded tokens: one warm step, then
+    ``PREFILL_REPS`` timed with ``torch.cuda.synchronize``: ms a step,
+    tokens/s, ``mfu`` (``model_flops_per_step`` over the step at
+    ``PEAK_FLOPS``), the share of ``step_cost``'s bound, a device profile
+    of one step by group, and the peak allocated above what was held
+    before the inputs were made, beside the dry-run's peak less the
+    weights.  The launch counts of ``mods`` are set to 0 just before the
+    timed steps and read just after (flash one a layer and step,
+    confidence one a step).  Then ``prefill_kernel_checks``.  Returns
+    {"launches", "kernels"}."""
+    from repro_torch.launch.roofline import (HBM_BW, HBM_BYTES, PEAK_FLOPS,
+                                             model_flops_per_step,
+                                             step_cost, tree_bytes)
+    from repro_torch.launch.steps import make_steps
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not 0.95 * HBM_BYTES <= total <= HBM_BYTES:
+        raise AssertionError(f"the card's total_memory {total} is not "
+                             f"within 5% under HBM_BYTES {HBM_BYTES}")
+    rows = dryrun_rows()
+    log(f"dryrun: the card's total_memory {total / 2**30:.2f} GiB, "
+        f"HBM_BYTES {HBM_BYTES / 2**30:.2f} GiB")
+    weights = tree_bytes(params)
+    predicted = rows["llada-8b", "prefill_32k"]["peak_b1"] - weights
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size - 1, (1, PREFILL_L),
+                                     generator=gen, device="cuda")}
+    prefill = make_steps(cfg)["prefill"]
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    for mod in mods.values():
+        mod.launches = 0
+    secs = []
+    for _ in range(PREFILL_REPS):
+        t0 = time.perf_counter()
+        scores = prefill(params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = {k: mod.launches for k, mod in mods.items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    sc = scores
+    if not (tuple(sc.max_prob.shape) == (1, PREFILL_L) and
+            bool(torch.isfinite(sc.max_prob).all()) and
+            bool(((sc.max_prob > 0) & (sc.max_prob <= 1)).all()) and
+            bool((sc.neg_entropy <= 1e-6).all()) and
+            bool(((sc.argmax >= 0) & (sc.argmax < cfg.vocab_size)).all())):
+        raise AssertionError("prefill_32k: scores out of range")
+    del scores, sc
+    if launches != {"confidence": PREFILL_REPS,
+                    "flash_attention": cfg.num_layers * PREFILL_REPS}:
+        raise AssertionError(f"prefill_32k: launches {launches}, want "
+                             f"confidence {PREFILL_REPS}, flash "
+                             f"{cfg.num_layers * PREFILL_REPS}")
+    ms = 1e3 * statistics.median(secs)
+    flops, nbytes = step_cost(cfg, "prefill", PREFILL_L, 1)
+    t_compute, t_memory = flops / PEAK_FLOPS, nbytes / HBM_BW
+    mfu = model_flops_per_step(cfg, "prefill", PREFILL_L, 1) / (
+        ms / 1e3 * PEAK_FLOPS)
+    groups = device_profile(
+        torch, f"{cfg.name} prefill B=1 L={PREFILL_L}",
+        lambda: prefill(params, batch), reps=1, top=6, groups=SERVE_GROUPS)
+    log(f"prefill_32k {cfg.name} ({cfg.num_layers} layers, B=1, "
+        f"L={PREFILL_L}): {ms:.2f} ms a step (runs "
+        f"{', '.join(f'{1e3 * x:.2f}' for x in secs)}), "
+        f"{PREFILL_L * 1e3 / ms:.1f} tokens/s; mfu {mfu:.4f}; bound "
+        f"{1e3 * max(t_compute, t_memory):.2f} ms (compute "
+        f"{1e3 * t_compute:.2f} ms: {flops:.4e} flops; memory "
+        f"{1e3 * t_memory:.2f} ms: {nbytes / 1e9:.2f} GB), share of the "
+        f"bound {max(t_compute, t_memory) / (ms / 1e3):.4f}; device ms a "
+        f"step by group {groups}; peak allocated {peak / 2**30:.2f} GiB "
+        f"above the {base / 2**30:.2f} GiB held before the inputs (weights "
+        f"{weights / 2**30:.2f} GiB); the dry-run's peak less the weights "
+        f"{predicted / 2**30:.2f} GiB (measured / predicted "
+        f"{peak / predicted:.4f}); launches {launches}; {nvidia_smi()}")
+    del batch
+    torch.cuda.empty_cache()
+    return {"launches": launches,
+            "kernels": prefill_kernel_checks(torch, mods["flash_attention"],
+                                             mods["confidence"])}
 
 
 def steps_train_phase(torch, mods: dict, name: str, layers: int = 0,
@@ -3954,6 +4189,10 @@ def main() -> None:
     llada_serve = serve_step_phase(torch, cfg, params, mods, SERVE_B,
                                    SERVE_CACHE, SERVE_CACHE - 1)
     log(f"serve step phase llada-8b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    prefill = prefill_phase(torch, cfg, params, mods)
+    log(f"dryrun and prefill_32k phase llada-8b: "
+        f"{time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4082,12 +4321,19 @@ def main() -> None:
             by_path[path] = counts.get(kernel, 0)
         by_path["hymba-1.5b-train"] = hymba_train.get(kernel, 0)
         by_path["llada-8b-serve"] = llada_serve.get(kernel, 0)
+        by_path["llada-8b-prefill"] = prefill["launches"].get(kernel, 0)
         by_path["hymba-1.5b-serve"] = hymba_serve.get(kernel, 0)
         for path, counts in steps_train.items():
             by_path[path] = counts.get(kernel, 0)
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
+    conf_entry["max_abs_err"] = max(
+        conf_entry["max_abs_err"],
+        prefill["kernels"]["confidence"]["max_abs_err"])
+    attn_entry["max_abs_err"] = max(
+        attn_entry["max_abs_err"],
+        prefill["kernels"]["flash_attention"]["max_abs_err"])
     kernels = [
         {"name": "confidence", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/confidence.cu",
@@ -4098,7 +4344,8 @@ def main() -> None:
          "bound_ms": conf_entry["bound_ms"], "bound_by": "bytes",
          "library_ms": None, "device_ms": conf_entry["device_ms"],
          "serve_shape": {k: conf_serve[k] for k in (
-             "ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err")}},
+             "ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err")},
+         "prefill_shape": prefill["kernels"]["confidence"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:83",
@@ -4113,7 +4360,8 @@ def main() -> None:
          "backward": flash_grad,
          "serve_shape": {k: attn_serve[k] for k in (
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "library_device_ms", "max_abs_err")}},
+             "library_ms", "library_device_ms", "max_abs_err")},
+         "prefill_shape": prefill["kernels"]["flash_attention"]},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
          "replaces": "src/repro/kernels/selective_scan.py:67",

@@ -17,10 +17,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 
-def sample_mask_ratio(generator: torch.Generator, batch: int,
+def sample_mask_ratio(generator: torch.Generator, batch: int, device,
                       eps: float = 1e-3) -> torch.Tensor:
-    """t ~ U(eps, 1] per row, f32 on the generator's device."""
-    u = torch.rand(batch, generator=generator, device=generator.device)
+    """t ~ U(eps, 1] per row, f32 on ``device`` (the generator's, or meta
+    for the dry-run's stand-ins, which a CPU generator draws)."""
+    u = torch.rand(batch, generator=generator, device=device)
     return 1.0 - (1.0 - eps) * u
 
 

@@ -3,7 +3,9 @@
 Entry points default to ``"cuda"``.  Without a card they raise instead of
 dropping to the CPU on their own: the CPU runs only when the caller asks
 for it (``device="cpu"``), and there every kernel wrapper takes its plain
-PyTorch version.
+PyTorch version.  ``"meta"`` builds shape-only stand-ins for the one-card
+dry-run (``launch/dryrun.py``): there every kernel wrapper returns empty
+outputs of its kernel's shapes and dtypes.  No entry point defaults to it.
 """
 from __future__ import annotations
 
@@ -18,8 +20,9 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(
             "CUDA is not available: the port runs on the card by default; "
             "pass device='cpu' to run the plain versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev!r}; use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev!r}; use 'cuda' or 'cpu' "
+                         f"('meta' for shape-only stand-ins)")
     return dev
 
 

@@ -7,8 +7,10 @@ tensor it launches the hand-written kernel in ``csrc/confidence.cu`` once
 (one CTA per row, one pass over the vocab: the row's head up to its first
 16-byte boundary, then 16-byte vector loads, four in flight per thread,
 then the tail) or raises; on a CPU tensor it runs ``confidence_ref``, the
-plain version.  There is no fallback from one to the other.  The kernel
-has no backward, so on a card it raises under grad (``_build.refuse_grad``).
+plain version.  There is no fallback from one to the other.  On a meta
+tensor (the dry-run's stand-ins) it returns empty meta outputs of the
+kernel's shapes and dtypes.  The kernel has no backward, so on a card it
+raises under grad (``_build.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ def confidence_ref(logits: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 def confidence_fused(logits: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     if logits.device.type == "cpu":
         return confidence_ref(logits)
-    if logits.device.type != "cuda":
+    if logits.device.type not in ("cuda", "meta"):
         raise ValueError(f"confidence_fused: unsupported device "
                          f"{logits.device}")
     _build.refuse_grad("confidence_fused", logits)
@@ -68,6 +70,8 @@ def confidence_fused(logits: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     maxp, margin, negent = (torch.empty(lead, dtype=torch.float32,
                                         device=logits.device)
                             for _ in range(3))
+    if logits.device.type == "meta":
+        return argmax, maxp, margin, negent
     fn = _build.function("confidence", "repro_confidence", _ARGTYPES)
     with torch.cuda.device(logits.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -16,6 +16,9 @@ it).  The kernel has no backward with a count: on a card it then raises
 under grad.  On a CUDA tensor it launches the hand-written kernel
 in ``csrc/flash_attention.cu`` or raises; on a CPU tensor it runs
 ``attention_ref``, the plain version.  There is no fallback between them.
+On a meta tensor (the dry-run's stand-ins) it returns an empty meta output
+of the kernel's shape and dtype, and never runs the plain version: its
+f32 score tensor is memory the card never allocates.
 In bf16 the kernel runs on the tensor cores and copies 16-byte chunks, so
 a bf16 tensor whose storage starts off a 16-byte boundary (a view at an
 odd element offset; never a fresh allocation) is refused with a
@@ -166,6 +169,8 @@ def _launch(q, k, v, window, q_offset, kv_len=None):
     b, lq, h, d = q.shape
     lk, g, dv = k.shape[1], k.shape[2], v.shape[3]
     out = q.new_empty(b, lq, h, dv)
+    if q.device.type == "meta":
+        return out
     fn = _build.function("flash_attention", "repro_flash_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -182,8 +187,9 @@ def _launch(q, k, v, window, q_offset, kv_len=None):
 
 
 class FlashAttention(torch.autograd.Function):
-    """The kernel as a differentiable op: forward launches it and saves
-    q, k, v and its output; backward is ``attention_backward``."""
+    """The kernel as a differentiable op: forward launches it (on meta
+    tensors, its stand-in) and saves q, k, v and its output; backward is
+    ``attention_backward``."""
 
     @staticmethod
     def forward(ctx, q, k, v, window, q_offset):
@@ -204,7 +210,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_ref(q, k, v, window, q_offset, kv_len)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if kv_len is not None:
         _build.refuse_grad("flash_attention with kv_len", q, k, v)

@@ -18,8 +18,11 @@ carries state).
 x, delta, b_sel and c_sel may each be f32 or bf16.  On a CUDA tensor it
 launches the hand-written kernel in ``csrc/selective_scan.cu`` or raises;
 on a CPU tensor it runs ``selective_scan_ref``, the plain version.  There
-is no fallback between them.  The kernel is a chunked two-pass scan: L
-is cut into chunks of ``chunk_len(B, L, di)`` steps, pass 1 writes each
+is no fallback between them.  On a meta tensor (the dry-run's stand-ins)
+it returns empty meta outputs of the kernel's shapes and dtypes, after
+allocating the workspace as the card does.  The kernel is a chunked
+two-pass scan: L is cut into chunks of ``chunk_len(B, L, di)`` steps,
+pass 1 writes each
 chunk's end state and decay product to an f32 workspace that this
 wrapper allocates, and pass 2 folds those carries and walks each chunk
 again for y.  It never writes the ``(B, L, di, N)`` decay/drive tensors.
@@ -247,6 +250,8 @@ def _launch(x, delta, b_sel, c_sel, a_log, h0=None, return_state=False):
     # pass 1's carries: h_end then P, each (B, nch - 1, N, di)
     ws = torch.empty(2 * bsz * (nch - 1) * n * di, dtype=torch.float32,
                      device=x.device)
+    if x.device.type == "meta":
+        return (y, h_out) if return_state else y
     fn = _build.function("selective_scan", "repro_selective_scan", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -322,7 +327,8 @@ class SelectiveScan(torch.autograd.Function):
     tensor it runs the plain version, so the CPU tests can hold this
     backward inside a model's gradient) and saves its inputs; backward
     is ``selective_scan_backward``, on the card replayed from a CUDA
-    graph captured at its first call per shape."""
+    graph captured at its first call per shape (on meta tensors, the
+    kernel's stand-in forward and the plain backward's ops)."""
 
     @staticmethod
     def forward(ctx, x, delta, b_sel, c_sel, a_log):
@@ -348,7 +354,7 @@ def selective_scan(x: torch.Tensor, delta: torch.Tensor, b_sel: torch.Tensor,
     if x.device.type == "cpu":
         return selective_scan_ref(x, delta, b_sel, c_sel, a_log, h0,
                                   return_state)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"selective_scan: unsupported device {x.device}")
     if h0 is not None or return_state:
         ins = (x, delta, b_sel, c_sel, a_log) + (

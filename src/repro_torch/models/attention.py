@@ -387,10 +387,11 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b (batched) as f32 products of compute-dtype operands, f32
     accumulation and an f32 result (the reference's
     ``preferred_element_type=float32``): cuBLAS's f32-output GEMM on the
-    card, the operands widened on the CPU (the same exact products)."""
+    card (and on the dry-run's meta stand-ins), the operands widened on
+    the CPU (the same exact products)."""
     if a.dtype == torch.float32:
         return a @ b
-    if a.device.type == "cuda":
+    if a.device.type in ("cuda", "meta"):
         return torch.bmm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 

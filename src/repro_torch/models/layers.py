@@ -310,14 +310,15 @@ def lm_head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     round the logits to bf16 and move argmaxes and margins, so on the card
     the product goes through cuBLAS's f32-output bf16 GEMM
     (``HeadMatmul``); on the CPU the operands are widened to f32, which
-    computes the same exact products.  A tied head is the token table
+    computes the same exact products (on meta tensors, the dry-run's
+    stand-ins, the card's way).  A tied head is the token table
     transposed (a view: cuBLAS reads it transposed)."""
     dt = compute_dtype(cfg)
     w = p["tok"].to(dt).t() if cfg.tie_embeddings else p["head"].to(dt)
     x2 = x.to(dt).reshape(-1, x.shape[-1])
     if dt == torch.float32:
         logits = x2 @ w
-    elif x2.device.type == "cuda":
+    elif x2.device.type in ("cuda", "meta"):
         logits = HeadMatmul.apply(x2, w)
     else:
         logits = x2.float() @ w.float()

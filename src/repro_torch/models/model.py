@@ -76,12 +76,13 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     (default: the config's compute dtype; norm scales and biases, the
     sinusoidal table, the Mamba head's a_log, dt_bias and mix scales, and
     the xLSTM's gate weights and biases stay f32, as the reference's).
-    ``generator`` must live on ``device``; ``None`` seeds one with 0."""
+    ``generator`` must live on ``device`` (on ``"meta"``, a CPU
+    generator: a meta one cannot draw); ``None`` seeds one with 0."""
     dev = resolve_device(device)
     dt = dtype or compute_dtype(cfg)
     blocks_lib.check_ported(cfg)
-    gen = generator if generator is not None else \
-        torch.Generator(device=dev).manual_seed(0)
+    gen = generator if generator is not None else torch.Generator(
+        device="cpu" if dev.type == "meta" else dev).manual_seed(0)
     params: Params = {"embed": init_embed(gen, cfg, dev, dt),
                       "norm_f": init_norm(cfg, dev)}
     params["blocks"] = [blocks_lib.init_block(gen, cfg, i, dev, dt)

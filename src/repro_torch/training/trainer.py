@@ -45,7 +45,7 @@ Corruption = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 def corrupt(generator: torch.Generator, tokens: torch.Tensor,
             maskable: torch.Tensor, cfg: ModelConfig) -> Corruption:
     """Draw a step's corruption: t per row, then the masked positions."""
-    t = sample_mask_ratio(generator, tokens.shape[0])
+    t = sample_mask_ratio(generator, tokens.shape[0], tokens.device)
     corrupted, masked = apply_mask(generator, tokens, t, cfg, maskable)
     return corrupted, masked, t
 

@@ -1677,3 +1677,78 @@ def test_make_steps_train_on_card_matches_cpu(cuda, name):
     for key, want in g.items():
         scale = max(abs(want).max(), 1e-30)
         assert abs(card_g[key] - want).max() <= 1e-4 * scale, key
+
+
+# --------------------------------------------------------------------------
+# the one-card dry-run's meta stand-ins (launch/dryrun.py) against the
+# kernels' launches
+# --------------------------------------------------------------------------
+
+def _stand_in_case(case, device):
+    """(module, wrapper, args, kwargs) on ``device``: flash plain, flash at
+    MLA's (48, 32) with a valid count, confidence in bf16, the scan, the
+    scan from h0 with its end state."""
+    gen = torch.Generator(device=device).manual_seed(31)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+    bf = torch.bfloat16
+    if case == "flash":
+        return fa_mod, fa_mod.flash_attention, (
+            rand(2, 40, 4, 64, dtype=bf), rand(2, 56, 2, 64, dtype=bf),
+            rand(2, 56, 2, 64, dtype=bf)), {}
+    if case == "flash_mla_count":
+        return fa_mod, fa_mod.flash_attention, (
+            rand(2, 1, 4, 48, dtype=bf), rand(2, 64, 2, 48, dtype=bf),
+            rand(2, 64, 2, 32, dtype=bf)), {
+                "kv_len": torch.tensor([37], dtype=torch.int32,
+                                       device=device)}
+    if case == "confidence":
+        return conf_mod, conf_mod.confidence_fused, (
+            rand(3, 7, 1000, dtype=bf),), {}
+    scan = (rand(2, 300, 64, dtype=bf), rand(2, 300, 64).abs() * 0.1,
+            rand(2, 300, 16), rand(2, 300, 16), rand(64, 16))
+    if case == "scan":
+        return scan_mod, scan_mod.selective_scan, scan, {}
+    return scan_mod, scan_mod.selective_scan, scan, {
+        "h0": rand(2, 64, 16), "return_state": True}
+
+
+def _layout(out):
+    outs = out if isinstance(out, tuple) else (out,)
+    return [(tuple(t.shape), t.dtype, t.stride()) for t in outs]
+
+
+@pytest.mark.parametrize("case", ["flash", "flash_mla_count", "confidence",
+                                  "scan", "scan_state"])
+def test_meta_stand_ins_match_the_launch(cuda, case):
+    """A wrapper's meta stand-in has the shapes, dtypes and strides of what
+    its kernel's launch returns on the card; the launch counts one, the
+    stand-in none."""
+    mod, fn, args, kw = _stand_in_case(case, cuda)
+    before = mod.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    meta = fn(*(a.to("meta") for a in args),
+              **{k: v.to("meta") if isinstance(v, torch.Tensor) else v
+                 for k, v in kw.items()})
+    assert mod.launches == before + 1
+    assert all(t.device.type == "meta" for t in
+               (meta if isinstance(meta, tuple) else (meta,)))
+    assert _layout(meta) == _layout(got)
+
+
+@pytest.mark.parametrize("case", ["flash", "confidence", "scan"])
+def test_wrappers_still_launch_or_raise_on_the_card(cuda, case):
+    """Beside the meta stand-ins a CUDA tensor still launches the kernel
+    (counted) or raises: in float16, which no kernel takes, each wrapper
+    raises ``ValueError`` and counts nothing."""
+    mod, fn, args, kw = _stand_in_case(case, cuda)
+    before = mod.launches
+    fn(*args, **kw)
+    assert mod.launches == before + 1
+    with pytest.raises(ValueError):
+        fn(*(a.half() if a.dtype == torch.bfloat16 else a for a in args),
+           **kw)
+    assert mod.launches == before + 1

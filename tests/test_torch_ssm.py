@@ -156,9 +156,18 @@ def test_two_pass_chunk_arithmetic_matches_plain_and_oracle(b, l, di, n):
                                    rtol=2e-4, atol=2e-4)
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device the wrapper does not take (meta
+    tensors now get the kernel's stand-in: ``test_torch_dryrun.py``)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_scan_wrapper_refuses_other_devices_and_counts_no_plain_launch():
-    x = torch.empty(1, 4, 8, device="meta")
-    bs = torch.empty(1, 4, 16, device="meta")
+    x = torch.empty(1, 4, 8).as_subclass(_Elsewhere)
+    bs = torch.empty(1, 4, 16).as_subclass(_Elsewhere)
     with pytest.raises(ValueError, match="unsupported device"):
         scan_mod.selective_scan(x, x, bs, bs, torch.empty(8, 16))
     before = scan_mod.launches
