@@ -220,6 +220,32 @@ Phases, in order; any failure raises and the script exits non-zero:
              decode of the same weights), then with ``wino_r`` and
              ``extrapolate`` at their defaults likewise (EM, revocations,
              skips), and FDM-A graph against eager;
+9b. tp     — tensor and expert parallelism (``parallel/``): the confidence
+             kernel's partials epilogue against its plain version at
+             vocab-shard shapes (``PARTIALS_SHAPES``, with the shard's
+             vocab offset; device-alone ms beside the bytes bound), and
+             whole rows scored from four shards' partials
+             (``merge_partials``) against the unsharded kernel
+             (``MERGE_SHAPES``, ties across shards and across a shard
+             boundary); then one-rank references on this card and four
+             gloo ranks (``parallel.launch.spawn``; NCCL refuses two ranks
+             on one device) sharing it, every rank's flash and partials
+             launches on the card: the trained testbed at mesh (1, 4)
+             decoded eagerly under fdm, fdm_a and probability (tokens,
+             steps, forward-equivalents and phases equal to one rank's,
+             on every rank), full-width LLaDA-8B cut to
+             ``TP_LLADA_LAYERS`` (4) of 32 layers (``make_steps``'
+             prefill at B=2, L=128, and 4 serve steps over a seeded
+             4096-position cache at mesh (1, 4), the serve steps at
+             (2, 2)) and Mixtral-8x22B cut to ``TP_MIXTRAL_LAYERS`` (2) of
+             56, expert-parallel (prefill at (1, 4); f32 compute, see
+             ``TP_F32_TOL``), each rank's shard cut from the whole seeded
+             bf16 weights: logits within ``TP_LOGIT_TOL`` (Mixtral
+             ``TP_F32_TOL``) of one rank's, argmaxes equal where one
+             rank's top-2 gap exceeds twice it; per-rank peak memory and
+             seconds (four processes sharing one card: not the speed of
+             four cards); the paths ``testbed-tp``, ``llada-8b-tp``,
+             ``llada-8b-tp-2x2``, ``mixtral-8x22b-tp``;
 10. training — full-width LLaDA-8B cut to 4 of its 32 layers trained a
              few steps (B=2, L=512): ms/step, tokens/s, peak memory, the
              initial NLL, exactly 2 flash launches per layer and step
@@ -245,8 +271,8 @@ Phases, in order; any failure raises and the script exits non-zero:
              ``AsyncScheduler`` → ``ServingEngine``, every decode on the
              card's worker thread) over real sockets: full-width LLaDA-8B
              (random bf16 weights, seed 0) at the engine's default batch
-             of 8 with Hymba-1.5B registered beside it; 8 concurrent
-             clients stream 24 requests (prompts 41-64, gen 64, block 32,
+             of 8 with Hymba-1.5B registered beside it; 4 concurrent
+             clients stream 12 requests (prompts 41-64, gen 64, block 32,
              64 steps; fdm, fdm_a, probability; none, prefix, dual), and
              every request's tokens must equal its own batch decoded
              directly by ``Decoder.generate`` (the engine records each
@@ -266,12 +292,14 @@ Phases, in order; any failure raises and the script exits non-zero:
              stream), and ``python -m repro_torch.launch.serve
              --selftest``.
 
-The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
+The last lines are a ``{"kernels": [...]}`` JSON line (the confidence
+kernel's partials epilogue its own entry), the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing
 of JAX or of the reference package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1963,7 +1991,7 @@ def moe_model_phase(torch, mods: dict, name: str, layers: int,
 
 
 HTTP_MAX_BATCH = 8
-HTTP_CLIENTS = 8
+HTTP_CLIENTS = 4                  # 8 until the tp phase took its time
 HTTP_STRATEGIES = ("fdm", "fdm_a", "probability")
 HTTP_BUCKET = 32
 HTTP_FAULT_PROMPTS = 4            # one batch under a seeded fault schedule
@@ -2670,7 +2698,7 @@ def train_step_phase(torch, cfg=None) -> None:
         raise AssertionError("the card's train step differs from the CPU's")
 
 
-def testbed_phase(torch) -> None:
+def testbed_phase(torch) -> dict:
     """The sum testbed trained on the card (``train``, f32, batch 64, up to
     600 steps), then decoded on these weights: ``fdm`` on
     ``eval_batch(64)`` under ``none``, ``prefix`` and ``dual`` on the
@@ -2784,6 +2812,8 @@ def testbed_phase(torch) -> None:
         f"graph equals eager: {same}")
     if not same:
         raise AssertionError("testbed fdm_a: graph decode differs from eager")
+    return {"cfg": cfg, "params": cpu_params, "prompt": prompt, "gen": gen,
+            "block": block}
 
 
 
@@ -3877,6 +3907,440 @@ def steps_train_phase(torch, mods: dict, name: str, layers: int = 0,
     return launches
 
 
+# --------------------------------------------------------------------------
+# 9b. tensor and expert parallelism: four gloo ranks sharing the one card
+# --------------------------------------------------------------------------
+
+# the confidence kernel's partials epilogue at vocab-shard shapes (rows, V/4
+# of four ranks, dtype, the shard's first vocab id): LLaDA-8B's serve rows
+# and 256 prefill rows of its 126464 / 4, Mixtral-8x22B's 32768 / 4
+PARTIALS_SHAPES = ((2, 31616, "float32", 3 * 31616),
+                   (256, 31616, "float32", 31616),
+                   (256, 31616, "bfloat16", 2 * 31616),
+                   (256, 8192, "float32", 8192))
+# whole rows scored from four shards' partials, against the unsharded
+# kernel on the same rows
+MERGE_SHAPES = ((2, 126464, "float32"), (256, 126464, "float32"),
+                (256, 126464, "bfloat16"), (256, 32768, "float32"))
+TP_WORLD = 4
+TP_DEVICE = "cuda"
+# full width, cut in depth for the script's time: LLaDA-8B 4 of 32 layers,
+# Mixtral-8x22B 2 of 56 (expert-parallel: 2 of its 8 experts a rank)
+TP_LLADA_LAYERS, TP_MIXTRAL_LAYERS = 4, 2
+TP_B, TP_L, TP_CACHE, TP_STEPS = 2, 128, 4096, 4
+TP_TESTBED = {"fdm": dict(strategy="fdm", k=2),
+              "fdm_a": dict(strategy="fdm_a", k1=2),
+              "probability": dict(strategy="probability")}
+# LLaDA-8B in bf16: the row-parallel partials are summed in f32 in
+# another order than one rank's GEMMs, so hidden states differ by bf16
+# roundings that grow over the layers; logits are held to TP_LOGIT_TOL
+# (absolute), max-probs to 2x it (relative: p ~ exp(logit)), Σ p log p to
+# 2x it, and argmaxes must agree wherever one rank's top-2 logit gap
+# exceeds 2x it.  Mixtral's bf16 weights run with f32 compute: in bf16 a
+# rounding can move a near-tied token to another expert, which changes
+# its row by far more than any small tolerance; in f32 the sums' order
+# leaves the logits within TP_F32_TOL
+TP_LOGIT_TOL, TP_F32_TOL = 0.1, 1e-3
+
+
+def check_partials(conf_mod, torch, rows: int, vocab: int, dtype: str,
+                   offset: int) -> dict:
+    """The partials epilogue against its plain version on the same logits:
+    i1 (with the shard's offset), m and m2 exact; s within rel 2e-4 and
+    u / s within (2e-3, 2e-4) (the ex2.approx sums of the full kernel's
+    tolerances).  max_abs_err: the larger of |s / s_plain − 1| and
+    |u / s − u_plain / s_plain|."""
+    from repro_torch.launch.roofline import F32_FLOPS, HBM_BW
+    (x,) = conf_inputs(torch, rows, vocab, dtype)
+    got = conf_mod.confidence_partials(x, offset)
+    torch.cuda.synchronize()
+    ref = conf_mod.confidence_partials_ref(x, offset)
+    for name in ("i1", "m", "m2"):
+        if not torch.equal(getattr(got, name), getattr(ref, name)):
+            raise AssertionError(f"confidence partials {name} differs at "
+                                 f"{rows} x {vocab} {dtype}")
+    torch.testing.assert_close(got.s, ref.s, rtol=2e-4, atol=0.0)
+    torch.testing.assert_close(got.u / got.s, ref.u / ref.s, rtol=2e-3,
+                               atol=2e-4)
+
+    def kernel():
+        return conf_mod.confidence_partials(x, offset)
+    nbytes = x.numel() * x.element_size() + rows * 20
+    ops = 5 * x.numel()
+    return dict(
+        max_abs_err=max(float((got.s / ref.s - 1).abs().max()),
+                        float((got.u / got.s - ref.u / ref.s).abs().max())),
+        ms=time_ms(kernel), device_ms=device_ms(kernel),
+        plain_ms=time_ms(lambda: conf_mod.confidence_partials_ref(x, offset),
+                         reps=3, inner=2),
+        bound_ms=1e3 * max(nbytes / HBM_BW, ops / F32_FLOPS))
+
+
+def check_merge(conf_mod, torch, rows: int, vocab: int, dtype: str) -> float:
+    """Whole rows scored from ``TP_WORLD`` contiguous shards' partials and
+    ``core.confidence.merge_partials`` against ``confidence_fused`` on the
+    same rows (ties across shards 0 and 3 in every eighth row, a tie
+    across the boundary of shards 0 and 1 in the last): argmaxes exact,
+    margins 0 on the ties, the rest at ``check_confidence``'s
+    tolerances.  Returns the max abs error."""
+    from repro_torch.core.confidence import merge_partials
+    (x,) = conf_inputs(torch, rows, vocab, dtype)
+    w = vocab // TP_WORLD
+    top = x[-1].float().max() + 1
+    x[-1, w - 1] = top
+    x[-1, w] = top
+    parts = [conf_mod.confidence_partials(x[:, r * w:(r + 1) * w].contiguous(),
+                                          r * w) for r in range(TP_WORLD)]
+    got = merge_partials(conf_mod.Partials(*(
+        torch.stack([getattr(p, f) for p in parts])
+        for f in conf_mod.Partials._fields)))
+    want = conf_mod.confidence_fused(x)
+    torch.cuda.synchronize()
+    if not torch.equal(got.argmax, want[0]):
+        raise AssertionError(f"merged argmax differs at {rows} x {vocab} "
+                             f"{dtype}")
+    ties = list(range(0, rows, max(rows // 8, 1))) + [rows - 1]
+    if not torch.all(got.margin[ties] == 0):
+        raise AssertionError("merged margin is not 0 on tied maxima")
+    for g, r, rtol, atol in ((got.max_prob, want[1], 2e-4, 2e-5),
+                             (got.margin, want[2], 2e-4, 2e-5),
+                             (got.neg_entropy, want[3], 2e-3, 2e-4)):
+        torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
+    return max(float((g - r).abs().max()) for g, r in zip(
+        (got.max_prob, got.margin, got.neg_entropy), want[1:]))
+
+
+def _tp_inputs(torch, cfg) -> dict:
+    """Seeded tokens: prefill (B, L), serve (steps, B, 1)."""
+    gen = torch.Generator().manual_seed(SEED + 9)
+    return {"tokens": torch.randint(0, cfg.vocab_size - 1, (TP_B, TP_L),
+                                    generator=gen),
+            "serve": torch.randint(0, cfg.vocab_size - 1,
+                                   (TP_STEPS, TP_B, 1), generator=gen)}
+
+
+def _tp_state(torch, cfg, dev):
+    """The whole seeded bf16 decode state (B, TP_CACHE, G, hd) a layer,
+    made outside any mesh."""
+    from repro_torch.models import init_decode_state
+    state = init_decode_state(cfg, TP_B, TP_CACHE, torch.bfloat16,
+                              device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for kv in state.layer_states:
+        for t in (kv.k, kv.v):
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    return state
+
+
+# (layers, compute dtype, tolerance) of the full-width models; the weights
+# are bf16 in both
+TP_MODELS = {"llada-8b": (TP_LLADA_LAYERS, "bfloat16", TP_LOGIT_TOL),
+             "mixtral-8x22b": (TP_MIXTRAL_LAYERS, "float32", TP_F32_TOL)}
+
+
+def _tp_model(torch, name, dev):
+    """Full width, cut to ``TP_MODELS``' depth, seeded bf16 weights."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    layers, compute, _ = TP_MODELS[name]
+    cfg = dataclasses.replace(get_config(name), num_layers=layers,
+                              dtype=compute)
+    return cfg, init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev, dtype=torch.bfloat16)
+
+
+def _tp_run(torch, cfg, params, dev, mesh=None, rank=0, serve=True,
+            prefill=True):
+    """Prefill scores and logits, then ``TP_STEPS`` serve steps over the
+    seeded cache, each on this rank's batch rows (all of them without a
+    mesh).  Returns CPU tensors."""
+    from repro_torch.launch.steps import make_steps
+    from repro_torch.models import forward
+    from repro_torch.parallel.ctx import activation_mesh
+    from repro_torch.parallel.sharding import (batch_pspec, shard_tree,
+                                               state_pspecs)
+    inp = _tp_inputs(torch, cfg)
+
+    def rows(x):
+        if mesh is None:
+            return x.to(dev)
+        return shard_tree(x, batch_pspec(mesh, x.dim()), mesh, rank).to(dev)
+    steps = make_steps(cfg, mesh=mesh)
+    out = {}
+    if prefill:
+        toks = rows(inp["tokens"])
+        out["prefill"] = [t.cpu() for t in steps["prefill"](
+            params, {"tokens": toks})]
+        with (activation_mesh(mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            out["logits"] = forward(params, toks, cfg).cpu()
+    if serve:
+        state = _tp_state(torch, cfg, dev)
+        if mesh is not None:
+            state = shard_tree(state, state_pspecs(state, mesh), mesh, rank)
+        out["serve"] = []
+        for i, tok in enumerate(inp["serve"]):
+            pos = torch.full(tok.shape, TP_CACHE - TP_STEPS + i,
+                             dtype=torch.int32)
+            sc, state = steps["serve"](params, rows(tok), rows(pos), state)
+            out["serve"].append([t.cpu() for t in sc])
+        del state
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def _tp_decodes(torch, cfg, params, job, dev) -> dict:
+    """The testbed's eager decodes under ``TP_TESTBED``: tokens, steps,
+    forward-equivalents and phase counts."""
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder
+    out = {}
+    prompt = job["prompt"].to(dev)
+    for name, kw in TP_TESTBED.items():
+        dcfg = DecodeConfig(gen_length=job["gen"], block_size=job["block"],
+                            steps=job["gen"], fused_loop=False, **kw)
+        toks, st = Decoder(params, cfg, dcfg, device=dev).generate(None,
+                                                                   prompt)
+        out[name] = (toks.cpu(), st.steps, st.forward_equivalents,
+                     dict(st.phase_counts))
+    return out
+
+
+def tp_rank(rank: int, job: dict) -> dict:
+    """One of the ``tp`` phase's four ranks (``parallel.launch.spawn``):
+    the testbed at mesh (1, 4), LLaDA-8B at (1, 4) and (2, 2), Mixtral at
+    (1, 4), each rank building the whole weights from the seed
+    (four at once for LLaDA, two for Mixtral's 10.5 GB) and keeping its
+    shard.  Returns
+    outputs, executed launches by path (counts set to 0 just before each
+    path, read just after), seconds by path and the peak memory."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import confidence as conf_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.ctx import activation_mesh
+    from repro_torch.parallel.sharding import shard_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = job["device"]
+    out, launches, secs = {}, {}, {}
+
+    def reset():
+        fa_mod.launches = conf_mod.launches = conf_mod.partials_launches = 0
+
+    def counts():
+        return {"flash_attention": fa_mod.launches,
+                "confidence": conf_mod.launches,
+                "confidence_partials": conf_mod.partials_launches}
+
+    def in_turn(name, meshes, at_once):
+        """The whole weights made by ``at_once`` ranks at a time (the
+        card's memory); each rank keeps its shard for each mesh."""
+        shards = None
+        for turn in range(0, TP_WORLD, at_once):
+            if turn <= rank < turn + at_once:
+                cfg, full = _tp_model(torch, name, dev)
+                shards = [shard_params(full, m) for m in meshes]
+                del full
+                torch.cuda.empty_cache()
+            dist.barrier()
+        return cfg, shards
+
+    m14, m22 = make_mesh(1, TP_WORLD), make_mesh(2, TP_WORLD // 2)
+    t0 = time.perf_counter()
+    from repro_torch.configs import get_config
+    cfg = get_config("llada-8b").reduced(**TESTBED)
+    params = shard_params(_to(job["testbed"], dev), m14)
+    reset()
+    with activation_mesh(m14):
+        out["testbed"] = _tp_decodes(torch, cfg, params, job, dev)
+    launches["testbed-tp"] = counts()
+    secs["testbed"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg, (p14, p22) = in_turn("llada-8b", (m14, m22), 4)
+    secs["llada-8b build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reset()
+    out["llada-8b"] = _tp_run(torch, cfg, p14, dev, m14, rank)
+    launches["llada-8b-tp"] = counts()
+    reset()
+    out["llada-8b-2x2"] = _tp_run(torch, cfg, p22, dev, m22, rank,
+                                  prefill=False)
+    launches["llada-8b-tp-2x2"] = counts()
+    secs["llada-8b"] = time.perf_counter() - t0
+    del p14, p22
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg, (pm,) = in_turn("mixtral-8x22b", (m14,), 2)
+    out["mixtral experts"] = pm["blocks"][0]["moe"]["w_gate"].shape[0]
+    secs["mixtral-8x22b build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reset()
+    out["mixtral-8x22b"] = _tp_run(torch, cfg, pm, dev, m14, rank,
+                                   serve=False)
+    launches["mixtral-8x22b-tp"] = counts()
+    secs["mixtral-8x22b"] = time.perf_counter() - t0
+    return {"out": out, "launches": launches, "secs": secs,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev == "cuda" else 0.0}
+
+
+def _tp_scores(label, want, got, tol) -> dict:
+    """One rank's scores ``want`` (argmax, max_prob, margin, neg_entropy)
+    against the merged ones ``got`` on the same rows (module docstring's
+    tolerances); returns the errors."""
+    import torch
+    want = [torch.as_tensor(t) for t in want]
+    got = [torch.as_tensor(t) for t in got]
+    gap = -torch.log1p(-(want[2] / want[1]).clamp(max=1 - 1e-7))
+    sure = gap > 2 * tol
+    err = {"max_prob_rel": float(((got[1] - want[1]).abs()
+                                  / want[1]).max()),
+           "neg_entropy": float((got[3] - want[3]).abs().max()),
+           "argmax_diff_sure": int(((got[0] != want[0]) & sure).sum()),
+           "argmax_diff": int((got[0] != want[0]).sum()),
+           "rows": int(want[0].numel()), "sure": int(sure.sum())}
+    if err["argmax_diff_sure"] or err["max_prob_rel"] > 2 * tol or \
+            err["neg_entropy"] > 2 * tol:
+        raise AssertionError(f"tp {label}: scores off one rank's: {err}")
+    return err
+
+
+def tp_phase(torch, conf_mod, testbed: dict) -> dict:
+    """Phase 9b (module docstring).  Returns the partials' kernel entry
+    fields and the executed launches by path."""
+    import numpy as np
+    from repro_torch.parallel.launch import spawn
+    t_phase = time.perf_counter()
+    dev = TP_DEVICE
+    # 1. the partials kernel and the merge
+    entry = None
+    errs = []
+    for rows, vocab, dtype, offset in PARTIALS_SHAPES:
+        r = check_partials(conf_mod, torch, rows, vocab, dtype, offset)
+        errs.append(r["max_abs_err"])
+        log(f"tp confidence partials rows={rows} V/4={vocab} {dtype} offset "
+            f"{offset}: max_abs_err {r['max_abs_err']:.3e} kernel "
+            f"{r['ms']:.4f} ms, on the device alone {r['device_ms']:.4f} "
+            f"ms; plain {r['plain_ms']:.4f} ms library none bound "
+            f"{r['bound_ms']:.4f} ms (bytes); share of the bound on the "
+            f"device alone {r['bound_ms'] / r['device_ms']:.3f}")
+        if (rows, dtype) == (256, "float32") and entry is None:
+            entry = r
+    merge_err = 0.0
+    for rows, vocab, dtype in MERGE_SHAPES:
+        e = check_merge(conf_mod, torch, rows, vocab, dtype)
+        merge_err = max(merge_err, e)
+        log(f"tp merged scores from {TP_WORLD} shards rows={rows} V={vocab} "
+            f"{dtype}: argmaxes equal the unsharded kernel's, margins 0 on "
+            f"ties (across shards and across a shard boundary), max abs "
+            f"error {e:.3e}")
+    entry["max_abs_err"] = max(errs)
+    entry["merge_max_abs_err"] = merge_err
+
+    # 2. one rank on this card: the references
+    t0 = time.perf_counter()
+    want = {"testbed": _tp_decodes(torch, testbed["cfg"],
+                                   _to(testbed["params"], dev), testbed,
+                                   dev)}
+    for name in TP_MODELS:
+        cfg, params = _tp_model(torch, name, dev)
+        want[name] = _tp_run(torch, cfg, params, dev,
+                             serve=name == "llada-8b")
+        del params
+        torch.cuda.empty_cache()
+    log(f"tp one-rank references (testbed decodes, llada-8b {TP_LLADA_LAYERS}"
+        f" of 32 layers, mixtral-8x22b {TP_MIXTRAL_LAYERS} of 56): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 3. four gloo ranks on this card
+    store = os.path.join(ROOT, "build", "tp_store", "store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    job = {k: testbed[k] for k in ("params", "prompt", "gen", "block")}
+    job["testbed"] = job.pop("params")
+    job["device"] = dev
+    t0 = time.perf_counter()
+    ranks = spawn(tp_rank, TP_WORLD, "gloo", store, job, timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        log(f"tp rank {r}: peak {res['peak_gib']:.2f} GiB allocated; seconds "
+            f"{ {k: round(v, 1) for k, v in res['secs'].items()} }")
+
+    # the testbed: exact
+    for name in TP_TESTBED:
+        w = want["testbed"][name]
+        for r, res in enumerate(ranks):
+            g = res["out"]["testbed"][name]
+            same = torch.equal(torch.as_tensor(g[0]), w[0]) and \
+                tuple(g[1:]) == tuple(w[1:])
+            if not same:
+                raise AssertionError(f"tp testbed {name}: rank {r}'s decode "
+                                     f"differs from one rank's")
+        log(f"tp testbed {name} at mesh (1, {TP_WORLD}) (eager, "
+            f"{w[0].shape[0]} prompts, gen {testbed['gen']}): tokens, steps "
+            f"{w[1]}, forward-equivalents {w[2]} and phases {w[3]} equal "
+            f"one rank's on every rank")
+    # LLaDA-8B and Mixtral: within their tolerances of one rank
+    for name, (_, compute, tol) in TP_MODELS.items():
+        w = want[name]
+        first = ranks[0]["out"][name]["prefill"]
+        for res in ranks[1:]:
+            if not all(np.array_equal(a, b) for a, b in
+                       zip(first, res["out"][name]["prefill"])):
+                raise AssertionError(f"tp {name}: ranks' scores differ")
+        err = _tp_scores(f"{name} prefill", w["prefill"], first, tol)
+        logits = np.concatenate([res["out"][name]["logits"]
+                                 for res in ranks], axis=-1)
+        lerr = float(np.abs(logits - w["logits"].numpy()).max())
+        if lerr > tol:
+            raise AssertionError(f"tp {name}: logits {lerr} off one rank's")
+        log(f"tp {name} prefill at mesh (1, {TP_WORLD}) (B={TP_B}, "
+            f"L={TP_L}, bf16 weights, {compute} compute): logits max abs "
+            f"error {lerr:.3e} (of {float(w['logits'].abs().max()):.2f}; "
+            f"tolerance {tol}), scores {err}")
+        if name == "mixtral-8x22b":
+            experts = {res["out"]["mixtral experts"] for res in ranks}
+            log(f"tp mixtral-8x22b: {experts} experts a rank "
+                f"(expert-parallel)")
+            continue
+        for key, mesh in (("llada-8b", (1, TP_WORLD)),
+                          ("llada-8b-2x2", (2, TP_WORLD // 2))):
+            errs = []
+            for step in range(TP_STEPS):
+                for r, res in enumerate(ranks):
+                    d = r // mesh[1]
+                    b = slice(None) if mesh[0] == 1 else slice(d, d + 1)
+                    errs.append(_tp_scores(
+                        f"{key} serve step {step} rank {r}",
+                        [t[b] for t in w["serve"][step]],
+                        res["out"][key]["serve"][step], TP_LOGIT_TOL))
+            log(f"tp llada-8b serve at mesh {mesh} ({TP_STEPS} steps over a "
+                f"{TP_CACHE}-position cache): max-prob rel error "
+                f"{max(e['max_prob_rel'] for e in errs):.3e}, Σ p log p "
+                f"{max(e['neg_entropy'] for e in errs):.3e}, argmaxes "
+                f"differ in {sum(e['argmax_diff'] for e in errs)} of "
+                f"{sum(e['rows'] for e in errs)} rank-rows (none where one "
+                f"rank's gap exceeds {2 * TP_LOGIT_TOL})")
+
+    launches = {}
+    for path in ranks[0]["launches"]:
+        launches[path] = {k: sum(res["launches"][path][k] for res in ranks)
+                          for k in ranks[0]["launches"][path]}
+        if not (launches[path]["flash_attention"]
+                and launches[path]["confidence_partials"]):
+            raise AssertionError(f"tp {path}: a kernel of the path was not "
+                                 f"launched: {launches[path]}")
+    log(f"tp executed launches by path (all ranks): {launches}")
+    log(f"tp phase: four ranks in {spawn_s:.1f} s (their times are four "
+        f"processes sharing one card, not the speed of four cards); the "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"entry": entry, "launches": launches}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3904,11 +4368,12 @@ def main() -> None:
         f"(nvcc {_build.last_build['seconds']:.2f} s)")
     # no spills allowed in the bf16 attention kernels at d=64, 80 and 128
     # and at MLA's (192, 128),
-    # in both scan passes at NP=16 (Hymba's N) and in both confidence
-    # kernels (at most 64 registers: four CTAs per SM)
+    # in both scan passes at NP=16 (Hymba's N) and in the four confidence
+    # kernels (each dtype, the scores' and the partials' epilogue; at most
+    # 64 registers: four CTAs per SM)
     no_spill = (r"tc::flash_tc_kernel<(64,64|80,80|128,128|192,128)>"
                 r"|sscan_chunk_kernel<16,[01]>"
-                r"|confidence_kernel<(float|bf16)>")
+                r"|confidence_kernel<(float|bf16),[01]>")
     for name, text in _build.last_build["ptxas"].items():
         report = ptxas_report(text)
         for fn, rep in report.items():
@@ -3921,9 +4386,10 @@ def main() -> None:
             raise AssertionError(f"no NP=16 scan kernel in the ptxas "
                                  f"report: {sorted(report)}")
         if name == "confidence" and sum(
-                fn.startswith("confidence_kernel<") for fn in report) != 2:
-            raise AssertionError(f"not one confidence kernel per dtype in "
-                                 f"the ptxas report: {sorted(report)}")
+                fn.startswith("confidence_kernel<") for fn in report) != 4:
+            raise AssertionError(f"not one confidence kernel per dtype and "
+                                 f"epilogue (scores, partials) in the ptxas "
+                                 f"report: {sorted(report)}")
     mma = sass_mma_counts(libs["flash_attention"])
     tc_counts = {fn: n for fn, n in mma.items() if "flash_tc_kernel" in fn}
     log(f"sass flash_attention: HMMA/HGMMA per kernel: "
@@ -4265,9 +4731,12 @@ def main() -> None:
     train_step_phase(torch, get_config("deepseek-v2-236b").reduced())
     log(f"train step phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    testbed_phase(torch)
+    testbed = testbed_phase(torch)
     clear_decode_cache()
     log(f"testbed phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    tp = tp_phase(torch, conf_mod, testbed)
+    del testbed
     t0 = time.perf_counter()
     training = full_train_phase(torch, {"flash_attention": fa_mod})
     log(f"full-width training phase: {time.perf_counter() - t0:.1f} s")
@@ -4312,7 +4781,7 @@ def main() -> None:
     def launches(kernel):
         by_path = {"llada-8b" + ("" if p == "none" else f"-{p}"):
                    llada[p].get(kernel, 0) for p in POLICIES}
-        by_path["hymba-1.5b"] = hymba[kernel]
+        by_path["hymba-1.5b"] = hymba.get(kernel, 0)
         by_path["llada-8b-train"] = training.get(kernel, 0)
         by_path["llada-8b-http"] = http.get(kernel, 0)
         by_path["llada-8b-carry"] = carry.get(kernel, 0)
@@ -4323,7 +4792,7 @@ def main() -> None:
         by_path["llada-8b-serve"] = llada_serve.get(kernel, 0)
         by_path["llada-8b-prefill"] = prefill["launches"].get(kernel, 0)
         by_path["hymba-1.5b-serve"] = hymba_serve.get(kernel, 0)
-        for path, counts in steps_train.items():
+        for path, counts in {**steps_train, **tp["launches"]}.items():
             by_path[path] = counts.get(kernel, 0)
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
@@ -4374,6 +4843,15 @@ def main() -> None:
          "state_shape": {k: scan_state[k] for k in (
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
              "max_abs_err")}},
+        {"name": "confidence_partials", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/confidence.cu",
+         "replaces": "src/repro/kernels/confidence.py:102",
+         **launches("confidence_partials"),
+         "max_abs_err": tp["entry"]["max_abs_err"], "ms": tp["entry"]["ms"],
+         "plain_ms": tp["entry"]["plain_ms"],
+         "bound_ms": tp["entry"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "device_ms": tp["entry"]["device_ms"],
+         "merge_max_abs_err": tp["entry"]["merge_max_abs_err"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -22,7 +22,9 @@ decoder's, and ``norm_f``), its layers' ``norm_x``/``xattn``, LayerNorm's
 their own.
 
 * ``from_jax_params(tree)`` — a reference tree whose leaves are numpy
-  arrays (``jax.device_get(params)``) -> the port's params.
+  arrays (``jax.device_get(params)``) -> the port's params; with
+  ``mesh=`` (``launch/mesh.py``) and ``rank=``, that rank's shard in the
+  serving layout (``parallel.sharding.shard_params``).
 * ``from_npz(path)`` — the same from a reference checkpoint
   (``training/checkpoint.py``: keys are ``"params/"`` + "/"-joined tree
   paths, list indices as numbers).
@@ -80,10 +82,15 @@ def _group_len(group: dict) -> int:
 
 
 def from_jax_params(tree: dict, device="cuda",
-                    dtype: Optional[torch.dtype] = None) -> dict:
+                    dtype: Optional[torch.dtype] = None, mesh=None,
+                    rank: Optional[int] = None) -> dict:
     """Reference params (numpy leaves) -> port params on ``device``.
     ``dtype`` casts the matrices (the ``_KEEP_F32`` vectors stay f32);
-    ``None`` keeps f32."""
+    ``None`` keeps f32.  With ``mesh``, rank ``rank``'s shard (default
+    the mesh's own rank)."""
+    if mesh is not None:
+        from repro_torch.parallel.sharding import shard_params
+        return shard_params(from_jax_params(tree, device, dtype), mesh, rank)
     dev = resolve_device(device)
     unknown = set(tree) - {"embed", "norm_f", "blocks", "encoder",
                            "projector"}
@@ -127,9 +134,12 @@ def _nest(flat: Dict[str, np.ndarray]) -> dict:
 
 
 def from_flat(flat: Dict[str, np.ndarray], device="cuda",
-              dtype: Optional[torch.dtype] = None) -> dict:
-    """``{reference path: array}`` (``to_flat``'s form) -> port params."""
-    return from_jax_params(_nest(flat), device=device, dtype=dtype)
+              dtype: Optional[torch.dtype] = None, mesh=None,
+              rank: Optional[int] = None) -> dict:
+    """``{reference path: array}`` (``to_flat``'s form) -> port params
+    (with ``mesh``, a rank's shard, as ``from_jax_params``)."""
+    return from_jax_params(_nest(flat), device=device, dtype=dtype,
+                           mesh=mesh, rank=rank)
 
 
 def from_npz(path: str, device="cuda",

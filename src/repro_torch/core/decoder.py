@@ -60,6 +60,16 @@ own in the runner cache) and ``SampleStats.trace`` holds the decode's
 the end, with the strategy's ``carry_stats`` (``revocations``,
 ``skipped_forwards``).  A strategy without ``supports_fused`` decodes on
 the eager driver.
+
+Under an active mesh of several ranks (``parallel.ctx.activation_mesh``,
+weights sharded by ``parallel.sharding.shard_params``) ``generate`` runs
+the eager driver only (``fused_loop=False``): the graph drivers raise,
+since gloo's collectives cannot be captured (NCCL's capture waits for
+several cards).  Every rank is given the same prompt (the data axis must
+be 1) and holds the same merged scores, so every rank makes the same
+commits.  Under a vocab-sharded head only the strategies that read
+``Scores`` alone run (``SHARDED_VOCAB_STRATEGIES``); one that needs the
+full-vocab logits raises.
 """
 from __future__ import annotations
 
@@ -85,6 +95,12 @@ from repro_torch.core.tracebuffer import DecodeTrace, TracingStrategy, tracing
 from repro_torch.device import resolve_device
 from repro_torch.models.model import (CacheState, capture_cache, forward,
                                       forward_cached)
+from repro_torch.parallel import ctx
+
+# the strategies that read only the merged ``Scores``, so they decode under
+# a vocab-sharded head (the others read the full-vocab logits)
+SHARDED_VOCAB_STRATEGIES = frozenset({"fdm", "fdm_a", "probability",
+                                      "margin", "entropy"})
 
 # the conditioning inputs ``forward`` accepts (the reference's set);
 # ``generate(**extras)`` validates against it, so a misspelt keyword fails
@@ -457,9 +473,31 @@ class Decoder:
 
     def _strategy(self, strategy) -> Strategy:
         """The decode's strategy, wrapped by the (memoized) tracing adapter
-        under ``dcfg.trace``."""
+        under ``dcfg.trace``; refused under a mesh where it cannot run."""
         strat = resolve_strategy(strategy or self.dcfg.strategy)
+        self._check_mesh(strat)
         return tracing(strat) if self.dcfg.trace else strat
+
+    def _check_mesh(self, strat: Strategy) -> None:
+        mesh = ctx.active()
+        if mesh is None or mesh.size == 1:
+            return
+        if self.dcfg.fused_loop and strat.supports_fused:
+            raise ValueError(
+                "the graph drivers do not run under a mesh of several "
+                "ranks (gloo's collectives cannot be captured); pass "
+                "fused_loop=False for the eager driver")
+        if ctx.axis_size("data") > 1:
+            raise NotImplementedError(
+                "generate under a data axis of more than 1 waits: every "
+                "rank decodes the same prompt (make_steps' serve takes the "
+                "batch on data)")
+        if ctx.model_size() > 1 and self.cfg.vocab_size % ctx.model_size() \
+                == 0 and strat.name not in SHARDED_VOCAB_STRATEGIES:
+            raise NotImplementedError(
+                f"strategy {strat.name!r} reads the full-vocab logits; under "
+                f"a vocab-sharded head only {sorted(SHARDED_VOCAB_STRATEGIES)} "
+                f"run (ROADMAP queue 1)")
 
     def _fused(self, strat: Strategy) -> bool:
         """The graph drivers, or the eager one for ``fused_loop=False`` and
@@ -682,15 +720,17 @@ class Decoder:
                 if blk > 0 and dcfg.cache_refresh == "block":
                     tiles = refresh(x, blk)
                     refresh_fwd += 1.0
-                x, carry, steps, stats.forward_equivalents = \
-                    run_cached_block(strat, self._cached_fn, cfg, dcfg,
-                                     sched[blk], x, gen, lo, tiles, carry,
-                                     stats.forward_equivalents)
+                with ctx.with_vocab(cfg.vocab_size):
+                    x, carry, steps, stats.forward_equivalents = \
+                        run_cached_block(strat, self._cached_fn, cfg, dcfg,
+                                         sched[blk], x, gen, lo, tiles,
+                                         carry, stats.forward_equivalents)
             else:
                 in_block = (pos >= lo) & (pos < hi)
-                x, carry, steps, stats.forward_equivalents = run_block(
-                    strat, model_fn, cfg, dcfg, sched[blk], x, gen,
-                    in_block, carry, stats.forward_equivalents)
+                with ctx.with_vocab(cfg.vocab_size):
+                    x, carry, steps, stats.forward_equivalents = run_block(
+                        strat, model_fn, cfg, dcfg, sched[blk], x, gen,
+                        in_block, carry, stats.forward_equivalents)
             stats.steps += steps
             yield BlockEvent(blk, lo, hi, x)
         stats.forward_equivalents += refresh_fwd

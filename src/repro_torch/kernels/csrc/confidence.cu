@@ -47,6 +47,15 @@
 // The split waits for the cached path, whose window queries make few-row
 // calls.
 //
+// The partials variant (kPartials = true, `repro_confidence_partials`)
+// serves a vocab split across ranks: the same loads, fold and merges,
+// but its epilogue writes the row's accumulators (m, s, u, m2 and i1
+// plus the shard's first vocab id) instead of the four scores, for
+// `core/confidence.py:score_logits_sharded` to gather and merge.  It
+// replaces no Pallas kernel of its own: the reference reaches the same
+// per-shard reductions through GSPMD's partitioning of
+// `score_logits_sharded`'s axis reductions.
+//
 // Built without --use_fast_math: the accumulators start at -3.4e38 and
 // s * exp(m_old - m_new) must give exactly 0 there, not NaN.
 #include <cuda_runtime.h>
@@ -174,11 +183,14 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
-template <typename T>
+// Outputs: the scores (argmax, maxp, margin, negent; o3 unused), or with
+// kPartials the accumulators (i1 + vocab_offset, m, s, u, m2).
+template <typename T, bool kPartials>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-confidence_kernel(const T* __restrict__ logits, int vocab,
-                  int32_t* __restrict__ argmax, float* __restrict__ maxp,
-                  float* __restrict__ margin, float* __restrict__ negent) {
+confidence_kernel(const T* __restrict__ logits, int vocab, int vocab_offset,
+                  int32_t* __restrict__ argmax, float* __restrict__ o0,
+                  float* __restrict__ o1, float* __restrict__ o2,
+                  float* __restrict__ o3) {
   using V = Vec<T>;
   constexpr int N = V::N;
   constexpr int kStep = kLoads * kThreads;  // chunks per CTA step
@@ -255,25 +267,53 @@ confidence_kernel(const T* __restrict__ logits, int vocab,
       merge(acc, shfl_down(acc, off));
     }
     if (lane == 0) {
-      const float inv_s = 1.f / acc.s;
-      const float p2 = expf(acc.m2 - acc.m) * inv_s;
-      argmax[row] = acc.i1;
-      maxp[row] = inv_s;
-      margin[row] = inv_s - p2;
-      negent[row] = acc.u * inv_s - (acc.m + logf(acc.s));
+      if constexpr (kPartials) {
+        argmax[row] = acc.i1 + vocab_offset;
+        o0[row] = acc.m;
+        o1[row] = acc.s;
+        o2[row] = acc.u;
+        o3[row] = acc.m2;
+      } else {
+        const float inv_s = 1.f / acc.s;
+        const float p2 = expf(acc.m2 - acc.m) * inv_s;
+        argmax[row] = acc.i1;
+        o0[row] = inv_s;                        // max prob
+        o1[row] = inv_s - p2;                   // margin
+        o2[row] = acc.u * inv_s - (acc.m + logf(acc.s));  // sum p log p
+      }
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* logits, int rows, int vocab, void* argmax,
-                   void* maxp, void* margin, void* negent,
+template <typename T, bool kPartials>
+cudaError_t launch(const void* logits, int rows, int vocab, int vocab_offset,
+                   void* argmax, void* o0, void* o1, void* o2, void* o3,
                    cudaStream_t stream) {
-  confidence_kernel<T><<<rows, kThreads, 0, stream>>>(
-      static_cast<const T*>(logits), vocab, static_cast<int32_t*>(argmax),
-      static_cast<float*>(maxp), static_cast<float*>(margin),
-      static_cast<float*>(negent));
+  confidence_kernel<T, kPartials><<<rows, kThreads, 0, stream>>>(
+      static_cast<const T*>(logits), vocab, vocab_offset,
+      static_cast<int32_t*>(argmax), static_cast<float*>(o0),
+      static_cast<float*>(o1), static_cast<float*>(o2),
+      static_cast<float*>(o3));
   return cudaGetLastError();
+}
+
+template <bool kPartials>
+int dispatch(const void* logits, int rows, int vocab, int dtype,
+             int vocab_offset, void* argmax, void* o0, void* o1, void* o2,
+             void* o3, void* stream) {
+  if (rows <= 0 || vocab <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch<float, kPartials>(logits, rows, vocab, vocab_offset, argmax,
+                                   o0, o1, o2, o3, s);
+  } else if (dtype == 1) {
+    err = launch<__nv_bfloat16, kPartials>(logits, rows, vocab, vocab_offset,
+                                           argmax, o0, o1, o2, o3, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -283,16 +323,17 @@ cudaError_t launch(const void* logits, int rows, int vocab, void* argmax,
 extern "C" int repro_confidence(const void* logits, int rows, int vocab,
                                 int dtype, void* argmax, void* maxp,
                                 void* margin, void* negent, void* stream) {
-  if (rows <= 0 || vocab <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch<float>(logits, rows, vocab, argmax, maxp, margin, negent, s);
-  } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(logits, rows, vocab, argmax, maxp, margin,
-                                negent, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return dispatch<false>(logits, rows, vocab, dtype, 0, argmax, maxp, margin,
+                         negent, nullptr, stream);
+}
+
+// The partials of a vocab shard whose first id is vocab_offset: per row
+// i1 + vocab_offset (int32) and m, s, u, m2 (f32).
+extern "C" int repro_confidence_partials(const void* logits, int rows,
+                                         int vocab, int dtype,
+                                         int vocab_offset, void* i1, void* m,
+                                         void* s, void* u, void* m2,
+                                         void* stream) {
+  return dispatch<true>(logits, rows, vocab, dtype, vocab_offset, i1, m, s, u,
+                        m2, stream);
 }

@@ -10,22 +10,27 @@ card alike.
                 long_500k).
 
 Scoring is ``core.confidence.score_logits``: the confidence kernel on a
-card, its plain version on the CPU.  The reference's ``prefill`` scores
-with ``score_logits_sharded``, its reduction-only form of the same four
-scores for logits sharded on the vocab axis across a pod; one card holds
-the whole vocab, so the port scores them in one pass.
+card, its plain version on the CPU.  With a ``mesh`` (``launch/mesh.py``)
+the steps run under it (``parallel.ctx.activation_mesh``) on this rank's
+shards, the batch on ``data`` (each rank is given its own rows), and a
+vocab-sharded head is scored by ``score_logits_sharded`` (the kernel's
+per-shard partials, one gather over ``model``, the merge): the
+reference's ``prefill`` scores the same way, and its ``serve`` with
+``score_logits`` (its full-row top-k), which gives the same scores.
 
 ``serve`` writes the state's attention caches in place (``decode_step``):
 the state it returns shares their buffers with the one it was given.
 """
 from __future__ import annotations
 
+from contextlib import ExitStack
 from typing import Callable, Dict, Optional, Tuple
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.confidence import score_logits
 from repro_torch.models.layers import lm_head
 from repro_torch.models.model import decode_step, forward
+from repro_torch.parallel import ctx
 from repro_torch.training.trainer import make_train_step
 
 
@@ -42,11 +47,13 @@ def extra_input_names(cfg: ModelConfig) -> Tuple[str, ...]:
 
 
 def make_steps(cfg: ModelConfig, tcfg: Optional[TrainConfig] = None,
-               opts: frozenset = frozenset()) -> Dict[str, Callable]:
+               opts: frozenset = frozenset(),
+               mesh=None) -> Dict[str, Callable]:
     """{"train", "prefill", "serve"} for ``cfg``.  ``opts`` may hold
     ``microbatch<n>`` (accumulate n slices' gradients) and
     ``bf16_gather`` (bf16 params in the loss, f32 masters), as the
-    reference's."""
+    reference's.  ``mesh``: prefill and serve run under it (training's
+    FSDP waits, ROADMAP queue 1)."""
     tcfg = tcfg or TrainConfig()
     extras = extra_input_names(cfg)
     micro = 1
@@ -57,19 +64,29 @@ def make_steps(cfg: ModelConfig, tcfg: Optional[TrainConfig] = None,
                                  bf16_params="bf16_gather" in opts,
                                  microbatch=micro)
 
+    def scope() -> ExitStack:
+        stack = ExitStack()
+        if mesh is not None:
+            stack.enter_context(ctx.activation_mesh(mesh))
+        stack.enter_context(ctx.with_vocab(cfg.vocab_size))
+        return stack
+
     def prefill_step(params, batch):
         """Full forward + confidence scoring: ``batch`` = {tokens (B, L),
         and each of the config's extra inputs} -> ``Scores``, each (B, L)."""
         kw = {k: batch[k] for k in extras}
-        hidden = forward(params, batch["tokens"], cfg, return_hidden=True,
-                         **kw)
-        return score_logits(lm_head(params["embed"], hidden, cfg))
+        with scope():
+            hidden = forward(params, batch["tokens"], cfg,
+                             return_hidden=True, **kw)
+            return score_logits(lm_head(params["embed"], hidden, cfg))
 
     def serve_step(params, token, position, state):
         """token (B, 1) at position (B, 1) -> (``Scores``, each (B, 1),
         the new state)."""
-        logits, new_state = decode_step(params, token, position, state, cfg)
-        return score_logits(logits), new_state
+        with scope():
+            logits, new_state = decode_step(params, token, position, state,
+                                            cfg)
+            return score_logits(logits), new_state
 
     return {"train": train_step, "prefill": prefill_step,
             "serve": serve_step}

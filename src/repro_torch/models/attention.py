@@ -33,6 +33,12 @@
   itself (flash with no mask: the reference's ``-1e30`` mask over ``cap +
   W`` keys), and with ``extend`` write the window's K/V (latents) in
   place at ``length``, clamped as ``dynamic_update_slice`` clamps.
+
+Under a tensor-parallel mesh (``parallel/ctx.py``) GQA runs on this
+rank's heads, H/tp and G/tp (read from its ``wq``/``wk`` shards), with
+``wo`` row-parallel (``layers.row_parallel``: summed over ``model``), and
+``init_cache`` allocates the local kv heads; a split off the heads'
+boundaries raises ``ValueError``.  MLA's tensor parallelism waits.
 """
 from __future__ import annotations
 
@@ -44,7 +50,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (Params, Rope, dense_init,
-                                       rms_norm_headwise, rotate)
+                                       rms_norm_headwise, rotate,
+                                       row_parallel)
+from repro_torch.parallel import ctx
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
@@ -95,9 +103,12 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _project_qkv(p: Params, x: torch.Tensor, rope: Rope, cfg: ModelConfig):
+    """q (B, L, H, hd), k/v (B, L, G, hd) of this rank's heads (all of
+    them off a mesh): their counts from the projections' widths."""
     dt = x.dtype
     b, l, _ = x.shape
-    hd, nq, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.head_dim
+    nq, nkv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
     q = (x @ p["wq"].to(dt)).reshape(b, l, nq, hd)
     k = (x @ p["wk"].to(dt)).reshape(b, l, nkv, hd)
     v = (x @ p["wv"].to(dt)).reshape(b, l, nkv, hd)
@@ -107,12 +118,18 @@ def _project_qkv(p: Params, x: torch.Tensor, rope: Rope, cfg: ModelConfig):
     return rotate(q, rope), rotate(k, rope), v
 
 
+def _out(p: Params, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The heads' outputs (B, L, H, hd) through ``wo`` (row-parallel under
+    a mesh)."""
+    return row_parallel(out.reshape(*out.shape[:2], -1), p["wo"],
+                        cfg.num_heads * cfg.head_dim)
+
+
 def gqa_forward(p: Params, x: torch.Tensor, rope: Rope,
                 cfg: ModelConfig) -> torch.Tensor:
     """Full bidirectional attention over x (B, L, d)."""
     q, k, v = _project_qkv(p, x, rope, cfg)
-    out = self_attention(q, k, v, window=cfg.sliding_window)
-    return out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
+    return _out(p, self_attention(q, k, v, window=cfg.sliding_window), cfg)
 
 
 def attention_forward(p: Params, x: torch.Tensor, rope: Rope,
@@ -150,8 +167,7 @@ def gqa_capture(p: Params, x: torch.Tensor, rope: Rope,
     and refresh op of the block cache."""
     q, k, v = _project_qkv(p, x, rope, cfg)
     out = self_attention(q, k, v, window=cfg.sliding_window)
-    return (out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype),
-            KVCache(k, v))
+    return _out(p, out, cfg), KVCache(k, v)
 
 
 def _scatter(full: torch.Tensor, new: torch.Tensor,
@@ -172,7 +188,7 @@ def gqa_cached(p: Params, x: torch.Tensor, rope: Rope,
     k = _scatter(cache.k, k_new, win_start)
     v = _scatter(cache.v, v_new, win_start)
     out = flash_attention(q, k, v, cfg.sliding_window, q_offset=win_start)
-    return out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
+    return _out(p, out, cfg)
 
 
 def attention_capture(p: Params, x: torch.Tensor, rope: Rope,
@@ -290,7 +306,8 @@ def init_cache(cfg: ModelConfig, batch: int, length: int,
             torch.zeros(batch, length, m.qk_rope_head_dim, dtype=dtype,
                         device=dev), vl)
     eff = min(length, cfg.sliding_window) if cfg.sliding_window else length
-    shape = (batch, eff, cfg.num_kv_heads, cfg.head_dim)
+    shape = (batch, eff, ctx.local_count(cfg.num_kv_heads, "kv heads"),
+             cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
                    torch.zeros(shape, dtype=dtype, device=dev), vl)
 
@@ -353,8 +370,7 @@ def gqa_decode(p: Params, x: torch.Tensor, rope: Optional[Rope],
     _write_slot(cache, k_new, v_new, slot)
     kv_len = (pos0 + 1).clamp(max=cap).to(torch.int32)
     out = flash_attention(q, cache.k.to(dt), cache.v.to(dt), kv_len=kv_len)
-    out = out.reshape(*x.shape[:2], -1) @ p["wo"].to(dt)
-    return out, cache._replace(length=int(cache.length) + 1)
+    return _out(p, out, cfg), cache._replace(length=int(cache.length) + 1)
 
 
 def gqa_window(p: Params, x: torch.Tensor, rope: Optional[Rope],
@@ -366,8 +382,8 @@ def gqa_window(p: Params, x: torch.Tensor, rope: Optional[Rope],
     window's K/V into the cache at the valid length."""
     q, k_new, v_new = _project_qkv(p, x, rope, cfg)
     out = flash_attention(q, *_with_prefix(cache, k_new, v_new, x.dtype))
-    out = out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
-    return out, _extend(cache, k_new, v_new) if extend else cache
+    return _out(p, out, cfg), \
+        _extend(cache, k_new, v_new) if extend else cache
 
 
 def mla_window(p: Params, x: torch.Tensor, rope: Optional[Rope],

@@ -31,6 +31,10 @@ state, or Hymba's (``KVCache``, ``MambaState``) pair): ``block_decode``
 factor 2.0; an encoder-decoder cross-attends over the state's
 ``enc_out``) and ``block_window`` (W tokens against the frozen prefix;
 ``extend`` None, ``"kv"`` or ``"recurrent"``, as the reference's).
+
+Under a tensor-parallel mesh (``parallel/ctx.py``) the dense and MoE GQA
+blocks run on their shards (``check_tp``); norms and residuals stay
+replicated, every rank holding the whole hidden state.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from repro_torch.models.attention import (KVCache, attention_cached,
 from repro_torch.models.layers import (Params, Rope, apply_mlp, apply_norm,
                                        init_mlp, init_norm, model_rotary_dim,
                                        mrope_sections_ok, rope_tables)
+from repro_torch.parallel import ctx
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -76,6 +81,22 @@ def check_ported(cfg: ModelConfig) -> None:
         raise ValueError(
             f"{cfg.name!r}: mrope_sections {cfg.mrope_sections} must sum "
             f"to rot/2 = {rot // 2}")
+
+
+def check_tp(cfg: ModelConfig) -> None:
+    """Under a model axis of more than one rank: raise
+    ``NotImplementedError`` for a family whose tensor parallelism waits
+    (MLA, Hymba's Mamba, the xLSTM, the encoder-decoder, the VLM), and
+    ``ValueError`` where the heads do not split whole over the axis."""
+    if ctx.model_size() == 1:
+        return
+    if cfg.arch_type not in ("dense", "moe") or cfg.attention != "gqa":
+        raise NotImplementedError(
+            f"{cfg.name!r} (arch_type={cfg.arch_type!r}, attention="
+            f"{cfg.attention!r}): tensor parallelism covers the dense and "
+            f"MoE GQA stacks; this family's waits (ROADMAP queue 1)")
+    ctx.local_count(cfg.num_heads, "query heads")
+    ctx.local_count(cfg.num_kv_heads, "kv heads")
 
 
 def _is_moe_layer(cfg: ModelConfig, idx: int) -> bool:

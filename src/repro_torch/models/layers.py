@@ -9,6 +9,16 @@ biases and the sinusoidal table stay float32.  Every projection casts its operan
 accumulates in float32 (cuBLAS does for bf16; the CPU runs f32 configs),
 rounding the result back to the compute dtype, as the reference's
 ``matmul`` does.
+
+Under a tensor-parallel mesh (``parallel/ctx.py``) a layer runs on the
+shards it is given (``parallel/sharding.py``'s rules): SwiGLU's gate/up
+are column-parallel and its down row-parallel (``row_parallel``: the
+partial products in f32, summed over ``model``, cast back; within one
+rounding of the compute dtype of the unsharded product, bit-equal in
+f32 up to the order of the sum); a vocab-sharded token table is looked
+up for the ids of its slice and summed over ``model``; a vocab-sharded
+head gives this rank's vocab slice of the logits.  A leaf is sharded
+where it is narrower than the config says.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
+from repro_torch.parallel import ctx
 
 Params = dict
 
@@ -50,6 +61,43 @@ def dense_init(gen: torch.Generator, shape, device, dtype,
 
 def matmul(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype):
     return torch.matmul(x.to(dtype), w.to(dtype))
+
+
+def mm_f32(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x2 (N, k) @ w (k, n) of compute-dtype operands to f32 with f32
+    accumulation: cuBLAS's f32-output GEMM on the card and on meta
+    (``HeadMatmul``), the operands widened on the CPU (the same exact
+    products)."""
+    if x2.dtype == torch.float32:
+        return x2 @ w
+    if x2.device.type in ("cuda", "meta"):
+        return HeadMatmul.apply(x2, w)
+    return x2.float() @ w.float()
+
+
+def sharded(n: int, full: int, what: str) -> bool:
+    """Whether a dim of ``n`` is this rank's shard of ``full`` under the
+    active model axis (never off a mesh); a width that is neither raises."""
+    tp = ctx.model_size()
+    if tp == 1 or n == full:
+        return False
+    if n * tp != full:
+        raise ValueError(f"{what}: {n} of {full} is no shard of a model "
+                         f"axis of {tp}")
+    return True
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor,
+                 rows: int) -> torch.Tensor:
+    """x @ w in x's dtype, for a weight of ``rows`` input rows that may be
+    this rank's row shard: then the partial product in f32, summed over
+    ``model`` and cast back."""
+    dt = x.dtype
+    w = w.to(dt)
+    if not sharded(w.shape[0], rows, "a row-parallel weight"):
+        return x @ w
+    part = mm_f32(x.reshape(-1, x.shape[-1]), w)
+    return ctx.sum_model(part).to(dt).reshape(*x.shape[:-1], w.shape[1])
 
 
 # --------------------------------------------------------------------------
@@ -229,14 +277,17 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device, dtype,
             "fc2": dense_init(gen, (ff, d), device, dtype)}
 
 
-def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              d_ff: Optional[int] = None) -> torch.Tensor:
     """SwiGLU, or GELU in the tanh approximation (``jax.nn.gelu``'s
-    default), in the compute dtype."""
+    default), in the compute dtype.  ``d_ff``: the full hidden width
+    (default ``cfg.d_ff``), against which a SwiGLU's down is told to be a
+    row shard (then summed over ``model``)."""
     dt = x.dtype
     if "gate" in p:
         h = torch.nn.functional.silu(matmul(x, p["gate"], dt)) \
             * matmul(x, p["up"], dt)
-        return matmul(h, p["down"], dt)
+        return row_parallel(h, p["down"], d_ff or cfg.d_ff)
     h = torch.nn.functional.gelu(matmul(x, p["fc1"], dt),
                                  approximate="tanh")
     return matmul(h, p["fc2"], dt)
@@ -269,8 +320,17 @@ def embed_tokens(p: Params, tokens: torch.Tensor, cfg: ModelConfig,
     table, plus its rows ``offset .. offset + L`` (the tokens' positions:
     a cached window's start its offset in the canvas), or the rows
     ``positions`` (B, L) (M-RoPE's (3, B, L): its t stream) where given,
-    gathered on the device (the decode state's steps)."""
-    x = p["tok"][tokens].to(compute_dtype(cfg))
+    gathered on the device (the decode state's steps).  A vocab-sharded
+    table looks up the ids of its slice (zeros elsewhere), summed over
+    ``model``."""
+    tok = p["tok"]
+    if sharded(tok.shape[0], cfg.vocab_size, "embed/tok"):
+        local = tokens - ctx.model_rank() * tok.shape[0]
+        inside = (local >= 0) & (local < tok.shape[0])
+        x = tok[local.clamp(0, tok.shape[0] - 1)].to(compute_dtype(cfg))
+        x = ctx.sum_model(torch.where(inside[..., None], x, 0))
+    else:
+        x = tok[tokens].to(compute_dtype(cfg))
     if "pos" in p and positions is not None:
         rows = positions if positions.dim() == 2 else positions[0]
         return x + p["pos"][rows.long()].to(x.dtype)
@@ -312,14 +372,10 @@ def lm_head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     (``HeadMatmul``); on the CPU the operands are widened to f32, which
     computes the same exact products (on meta tensors, the dry-run's
     stand-ins, the card's way).  A tied head is the token table
-    transposed (a view: cuBLAS reads it transposed)."""
+    transposed (a view: cuBLAS reads it transposed).  A vocab-sharded
+    head gives this rank's vocab slice (``core.confidence.score_logits``
+    scores it through the partials)."""
     dt = compute_dtype(cfg)
     w = p["tok"].to(dt).t() if cfg.tie_embeddings else p["head"].to(dt)
     x2 = x.to(dt).reshape(-1, x.shape[-1])
-    if dt == torch.float32:
-        logits = x2 @ w
-    elif x2.device.type in ("cuda", "meta"):
-        logits = HeadMatmul.apply(x2, w)
-    else:
-        logits = x2.float() @ w.float()
-    return logits.reshape(*x.shape[:-1], w.shape[1])
+    return mm_f32(x2, w).reshape(*x.shape[:-1], w.shape[1])

@@ -43,6 +43,13 @@ the attention caches' K/V IN PLACE (a 32k cache is never copied): the
 state returned shares those buffers with the state given, whose
 recurrent states and valid lengths stay as they were; use the returned
 state, and clone one that a caller wants to keep.
+
+Under a tensor-parallel mesh (``parallel.ctx.activation_mesh``) every
+entry point here runs the dense and MoE GQA stacks on this rank's
+shards (``blocks.check_tp`` refuses the others); the model's values do
+not change, but a vocab-sharded head returns this rank's vocab slice of
+the logits, which ``core.confidence.score_logits`` scores through the
+confidence kernel's partials.
 """
 from __future__ import annotations
 
@@ -191,6 +198,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     ``return_hidden=True`` skips the LM head and returns the final hidden
     states (B, L, d) in its place (prefill scoring applies the head
     itself)."""
+    blocks_lib.check_tp(cfg)
     x = embed_tokens(params["embed"], tokens, cfg)
     num_patches = 0
     if patch_embeds is not None:
@@ -228,6 +236,7 @@ def capture_cache(params: Params, tokens: torch.Tensor,
     layer's K/V: the prefill and block-boundary refresh of the block
     cache.  No LM head: refresh logits are never used (the next window
     forward scores the live rows anyway)."""
+    blocks_lib.check_tp(cfg)
     x = embed_tokens(params["embed"], tokens, cfg)
     rope = forward_rope(cfg, tokens.shape[1], device=tokens.device)
     state: CacheState = []
@@ -245,6 +254,7 @@ def forward_cached(params: Params, tokens: torch.Tensor, win_start: int,
     ``total`` keys.  Its RoPE tables are those of positions ``win_start
     ..`` of the canvas (under M-RoPE the text-only streams, from 1, as
     the capture's).  Returns logits (B, W, V) float32."""
+    blocks_lib.check_tp(cfg)
     x = embed_tokens(params["embed"], tokens, cfg, win_start)
     rope = forward_rope(cfg, tokens.shape[1], win_start, tokens.device)
     for i, (p, kv) in enumerate(zip(params["blocks"], state)):
@@ -280,6 +290,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, length: int,
     ``length``: a warm cache, the serving contract; 0 for the cached
     sampler, which fills it block by block)."""
     dev = resolve_device(device)
+    blocks_lib.check_tp(cfg)
     return DecodeState(
         [blocks_lib.init_layer_state(cfg, i, batch, length, dtype,
                                      valid_length, dev)
@@ -303,6 +314,7 @@ def decode_step(params: Params, token: torch.Tensor, position: torch.Tensor,
     place at the step's slot (the returned state shares them); the
     slot and the valid count come from ``position`` on the device, so
     nothing is read back to the host."""
+    blocks_lib.check_tp(cfg)
     x = embed_tokens(params["embed"], token, cfg, positions=position)
     positions, rope = _positions_and_rope(cfg, position, x.dtype)
     new_states = []
@@ -323,6 +335,7 @@ def forward_window(params: Params, tokens: torch.Tensor,
     float32, the state).  ``extend`` (None, ``"kv"``, ``"recurrent"``:
     ``blocks.block_window``) advances one half of the state by the
     window; a ``"kv"`` extend writes the caches in place."""
+    blocks_lib.check_tp(cfg)
     x = embed_tokens(params["embed"], tokens, cfg, positions=positions)
     _, rope = _positions_and_rope(cfg, positions, x.dtype)
     new_states = []

@@ -25,8 +25,24 @@ result rounded to the compute dtype, ``silu(gate) · up`` in that dtype.
 DeepSeek-style shared experts (``moe.num_shared_experts``) are one
 always-on SwiGLU of width ``moe_d_ff × num_shared_experts`` over every
 token, added to the routed output.
-Only the reference's global dispatch is ported: its grouped (``vmap``)
-dispatch runs only under a mesh of more than one shard.
+Under a mesh (``parallel/ctx.py``), as the reference's rules place the
+experts (``parallel/sharding.py``):
+
+* expert-parallel when E divides the model axis: each rank holds E/tp
+  experts, routes every token as every other rank does (same router, same
+  capacity from the same T, so drops and slots are the reference's),
+  runs the batched GEMMs of its own experts and combines only their
+  pairs; a sum over ``model`` completes the output.  Otherwise the
+  experts are tensor-parallel in their ffn dim: every rank runs every
+  expert's column shard, and the same sum completes the row-parallel
+  down product;
+* the grouped dispatch (the reference's ``vmap`` over data groups): with
+  the experts not expert-parallel and each data rank holding T/g ≥ 1024
+  tokens, each data rank dispatches its own rows at its own capacity and
+  the aux loss is the mean over groups.  Where the reference keeps the
+  dispatch global (expert-parallel, or fewer tokens), the tokens are
+  gathered over ``data`` first, so capacity and drops match, and each
+  rank keeps its own rows of the output.
 """
 from __future__ import annotations
 
@@ -37,7 +53,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (Params, apply_mlp, dense_init,
-                                       init_mlp)
+                                       init_mlp, sharded)
+from repro_torch.parallel import ctx
 
 
 def _round_up(x: int, m: int) -> int:
@@ -149,12 +166,20 @@ def _dispatch(p: Params, tokens: torch.Tensor, cfg: ModelConfig,
     aux = load_balance_loss(logits, r.ids, e) * m.router_aux_coef \
         if need_aux else None
 
+    # this rank's experts [e0, e0 + el): all of them off a mesh or under
+    # the ffn split, E/tp of them expert-parallel
+    el = p["w_gate"].shape[0]
+    ep = sharded(el, e, "moe/w_gate's experts")
+    ffn_tp = sharded(p["w_down"].shape[1], m.moe_d_ff, "moe/w_down's rows")
+    e0 = ctx.model_rank() * el if ep else 0
+
     # each expert's slot row reads its contiguous run of the sorted order
     slots = torch.arange(c, device=tokens.device)
-    slot_idx = (r.offsets[:, None] + slots[None, :]).clamp_(0, t * k - 1)
-    slot_valid = slots[None, :] < r.counts[:, None]              # (E, C)
+    offsets, counts = r.offsets[e0:e0 + el], r.counts[e0:e0 + el]
+    slot_idx = (offsets[:, None] + slots[None, :]).clamp_(0, t * k - 1)
+    slot_valid = slots[None, :] < counts[:, None]                # (E, C)
     tok = (r.order // k)[slot_idx]                               # (E, C)
-    xs = tokens.index_select(0, tok.reshape(-1)).reshape(e, c, d) \
+    xs = tokens.index_select(0, tok.reshape(-1)).reshape(el, c, d) \
         * slot_valid[..., None].to(dt)
 
     # one batched SwiGLU over the experts
@@ -163,22 +188,44 @@ def _dispatch(p: Params, tokens: torch.Tensor, cfg: ModelConfig,
     ys = torch.bmm(h, p["w_down"].to(dt))                        # (E, C, d)
 
     # combine: pair j sits at expert ids[j], position slot[j]
-    flat_out = ys[r.ids.reshape(-1), r.slot.clamp(0, c - 1)] \
-        * (r.slot < c)[:, None].to(dt)                           # (T·k, d)
+    keep = r.slot < c
+    ids = r.ids.reshape(-1)
+    if ep:                      # only this rank's experts' pairs
+        ids = ids - e0
+        keep = keep & (ids >= 0) & (ids < el)
+        ids = ids.clamp(0, el - 1)
+    flat_out = ys[ids, r.slot.clamp(0, c - 1)] * keep[:, None].to(dt)
     out = (flat_out.reshape(t, k, d) * r.gates[..., None].to(dt)).sum(1)
-    return out, aux
+    return (ctx.sum_model(out) if ep or ffn_tp else out), aux
 
 
 def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 capacity_factor: float = 1.25, need_aux: bool = True
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x (B, L, d) -> (out (B, L, d), aux loss f32 scalar); the dispatch is
-    global over all B·L tokens; the shared experts, if any, see the same
-    input as the router.  ``need_aux=False`` skips the aux loss (a decode
-    never reads it) and returns ``None`` in its place."""
+    global over all B·L tokens (of every data rank, under a mesh), or
+    grouped by data rank (the module's docstring); the shared experts, if
+    any, see the same input as the router.  ``need_aux=False`` skips the
+    aux loss (a decode never reads it) and returns ``None`` in its
+    place."""
+    m = cfg.moe
     b, l, d = x.shape
     tokens = x.reshape(b * l, d)
-    out, aux = _dispatch(p, tokens, cfg, capacity_factor, need_aux)
-    if cfg.moe.num_shared_experts:
-        out = out + apply_mlp(p["shared"], tokens, cfg)
+    gd, _ = ctx.shard_counts()
+    msize = ctx.model_size()
+    if msize > 1 and m.num_experts % msize == 0:
+        gd = 1                  # expert-parallel: the global dispatch
+    if gd > 1 and b * l >= 1024:
+        out, aux = _dispatch(p, tokens, cfg, capacity_factor, need_aux)
+        aux = ctx.mean_data(aux) if need_aux else None
+    elif ctx.axis_size("data") > 1:
+        everyone = ctx.gather_data(tokens).reshape(-1, d)
+        out, aux = _dispatch(p, everyone, cfg, capacity_factor, need_aux)
+        rank = ctx.axis_rank("data")
+        out = out[rank * b * l:(rank + 1) * b * l]
+    else:
+        out, aux = _dispatch(p, tokens, cfg, capacity_factor, need_aux)
+    if m.num_shared_experts:
+        out = out + apply_mlp(p["shared"], tokens, cfg,
+                              d_ff=m.moe_d_ff * m.num_shared_experts)
     return out.reshape(b, l, d), aux

@@ -1752,3 +1752,56 @@ def test_wrappers_still_launch_or_raise_on_the_card(cuda, case):
         fn(*(a.half() if a.dtype == torch.bfloat16 else a for a in args),
            **kw)
     assert mod.launches == before + 1
+
+
+# --------------------------------------------------------------------------
+# the confidence kernel's partials epilogue (a vocab shard's accumulators)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows,vocab,offset", [(2, 31616, 94848),
+                                               (256, 31616, 31616),
+                                               (256, 8192, 8192),
+                                               (5, 513, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_confidence_partials_match_plain(cuda, rows, vocab, offset, dtype):
+    """One launch (its own count); i1 (offset), m and m2 exact, s within
+    rel 2e-4, u / s within (2e-3, 2e-4); a tie gives m2 = m."""
+    x = _conf_logits(cuda, rows, vocab, dtype, rows + vocab)
+    before, fused = conf_mod.partials_launches, conf_mod.launches
+    got = conf_mod.confidence_partials(x, offset)
+    torch.cuda.synchronize()
+    assert conf_mod.partials_launches == before + 1
+    assert conf_mod.launches == fused
+    want = conf_mod.confidence_partials_ref(x, offset)
+    for name in ("i1", "m", "m2"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert float(got.m2[1]) == float(got.m[1])
+    torch.testing.assert_close(got.s, want.s, rtol=2e-4, atol=0.0)
+    torch.testing.assert_close(got.u / got.s, want.u / want.s, rtol=2e-3,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("vocab", [126464, 32768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_merged_partials_match_the_fused_kernel(cuda, vocab, dtype):
+    """Four shards' partials merged (``core.confidence.merge_partials``)
+    against ``confidence_fused`` on the whole rows: argmaxes exact (row 1
+    ties across shards 0 and 3, row 2 across the boundary of shards 0 and
+    1), margins 0 there, the rest at the fused kernel's tolerances."""
+    from repro_torch.core.confidence import merge_partials
+    x = _conf_logits(cuda, 64, vocab, dtype, vocab)
+    w = vocab // 4
+    x[2, w - 1] = x[2, w] = x[2].max() + 1
+    parts = [conf_mod.confidence_partials(x[:, r * w:(r + 1) * w]
+                                          .contiguous(), r * w)
+             for r in range(4)]
+    got = merge_partials(conf_mod.Partials(*(
+        torch.stack([getattr(p, f) for p in parts])
+        for f in conf_mod.Partials._fields)))
+    want = conf_mod.confidence_fused(x)
+    assert torch.equal(got.argmax, want[0])
+    assert float(got.margin[1]) == 0.0 and float(got.margin[2]) == 0.0
+    torch.testing.assert_close(got.max_prob, want[1], rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(got.margin, want[2], rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(got.neg_entropy, want[3], rtol=2e-3,
+                               atol=2e-4)

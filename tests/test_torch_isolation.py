@@ -26,6 +26,14 @@ def test_files_cover_the_serving_stack():
             "worker.py", "serve.py"} <= names
 
 
+def test_files_cover_the_sharded_slice():
+    rel = {p.relative_to(REPO).as_posix() for p in FILES}
+    assert {"src/repro_torch/parallel/sharding.py",
+            "src/repro_torch/parallel/ctx.py",
+            "src/repro_torch/parallel/launch.py",
+            "src/repro_torch/launch/mesh.py"} <= rel
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
