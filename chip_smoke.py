@@ -44,7 +44,9 @@ Phases, in order; any failure raises and the script exits non-zero:
              heads over 8 at d=128 over 1024 patches + 128 text positions,
              bf16 and f32; ``VLM_CONF_SHAPES``: 256 x 152064) and
              xlstm-125m's confidence (``XLSTM_CONF_SHAPES``: 256 x 50304),
-             f32 and bf16; and the decode state's calls
+             f32 and bf16; and the sharded training step's
+             (``FSDP_ATTN_SHAPES``: f32 at a rank's rows and local heads);
+             and the decode state's calls
              (``DECODE_ATTN_SHAPES``: flash at Lq = 1 with its valid key
              count read on the card, over LLaDA-8B's 32k cache in bf16
              and f32, Hymba's 25:5 over its 1024-slot ring and Qwen3-14B's
@@ -54,7 +56,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. reference — decodes reduced LLaDA and Hymba configs on the card
              (kernels) and on the CPU (plain versions) from the same
              weights, on the card by the eager, the per-block graph and
-             the whole-request graph driver, and requires identical
+             the whole-request graph driver (the other families below by
+             the eager and the whole-request one), and requires identical
              tokens, steps, forward-equivalents, phase counts,
              revocations, skipped forwards and step traces (their commit
              confidences within 1e-5); LLaDA under every cache policy
@@ -115,7 +118,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              the next): full-width, full-depth Qwen3-14B under ``none``,
              ``prefix`` and ``dual``, ChatGLM3-6B and StableLM-3B under
              ``none`` (``ARCH_SERVING``); then full-width Mixtral-8x22B
-             cut to ``MIXTRAL_LAYERS`` (4) of its 56 layers under the
+             cut to ``MIXTRAL_LAYERS`` (2) of its 56 layers under the
              three policies (``moe_model_phase``), its serving batch's
              forwards on the card's clock, one profiled graph-driven fdm
              request split into kernel groups (expert GEMMs, other GEMMs,
@@ -123,8 +126,8 @@ Phases, in order; any failure raises and the script exits non-zero:
              hand-written kernels' launches in the trace equal to the
              graphs' count, and one eager forward over 4160 tokens (the
              band live: finite logits, one flash launch a layer); then
-             full-width DeepSeek-V2 cut to ``DEEPSEEK_LAYERS`` (3) of its
-             60 layers (the dense layer 0 and 2 MoE layers of 160 routed
+             full-width DeepSeek-V2 cut to ``DEEPSEEK_LAYERS`` (2) of its
+             60 layers (the dense layer 0 and 1 MoE layer of 160 routed
              experts top-6 and 2 shared; MLA in every layer) likewise
              (``moe_model_phase`` again), its long forward over 4096
              tokens; then full-width, full-depth whisper-medium (24
@@ -135,7 +138,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              measured on a second; 72 flash launches a forward call; one
              profiled fdm request by kernel group, and eager forwards
              split into the encoder, the cross K/V projections and the
-             rest); then full-width qwen2-vl-72b cut to ``VLM_LAYERS`` (4)
+             rest); then full-width qwen2-vl-72b cut to ``VLM_LAYERS`` (2)
              of its 80 layers decoding with 1024 seeded bf16 patch
              embeddings through ``Decoder.generate`` on the graph drivers
              (``vlm_phase``: one B=2 request per strategy, captured on a
@@ -172,13 +175,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. KV A/B  — (between LLaDA's serving and Hymba's) one B=2 request at the
              reference's ``BENCH_kv_cache.json`` geometry (prompt 128,
              gen 128, block 32, probability) on full-width LLaDA-8B under
-             each policy, by the eager driver once and the graph driver
-             twice, interleaved:
+             each policy, by the eager driver and the graph driver once
+             each:
              seconds, tokens/s, steps/s, capture seconds, graph count and
              pool bytes, and forward-equivalents of exactly 128, 68 and
-             20; one graph-driven request under sync debug mode "error"
-             and one under ``torch.profiler`` (busy share, device
-             activities per step, idle gaps between them, executed
+             20; one graph-driven request under sync debug mode "error";
+             under ``dual`` one more under ``torch.profiler`` (busy share,
+             device activities per step, idle gaps between them, executed
              launches against the trace's);
              then one full, one ``prefix`` and one ``dual`` window forward
              on the card's clock against host enqueue time (interleaved),
@@ -245,7 +248,25 @@ Phases, in order; any failure raises and the script exits non-zero:
              rank's top-2 gap exceeds twice it; per-rank peak memory and
              seconds (four processes sharing one card: not the speed of
              four cards); the paths ``testbed-tp``, ``llada-8b-tp``,
-             ``llada-8b-tp-2x2``, ``mixtral-8x22b-tp``;
+             ``llada-8b-tp-2x2``, ``mixtral-8x22b-tp``; then the sharded
+             training step (``fsdp_phase``, four gloo ranks again): the
+             testbed (f32, ``remat="block"``) at meshes (4, 1), (2, 2)
+             and (1, 4) and full-width LLaDA-8B cut to
+             ``FSDP_LLADA_LAYERS`` (1) of 32 layers with f32 compute at
+             (2, 2) and (4, 1), each rank on its training-layout shards
+             (FSDP over ``data``, heads and vocab over ``model``) taking
+             two steps (LLaDA-8B at (4, 1): one) of
+             ``make_steps(cfg, mesh=)["train"]`` on its rows of the
+             batch, against one rank's steps on the same corruption:
+             losses and metrics, and every rank's shards of the params
+             and both AdamW moments against its part of one rank's,
+             within 1e-5 of their leaf's scale (LLaDA-8B 1e-4), every
+             rank's metrics equal,
+             flash exactly 2 × layers × steps a rank; per-rank peak memory
+             beside ``rank_bytes``, seconds a step, and full-depth
+             LLaDA-8B's train_4k ``rank_bytes`` at (4, 1) and (2, 2) from
+             ``meta`` params; the paths ``testbed-fsdp-*`` and
+             ``llada-8b-fsdp-*``;
 10. training — full-width LLaDA-8B cut to 4 of its 32 layers trained a
              few steps (B=2, L=512): ms/step, tokens/s, peak memory, the
              initial NLL, exactly 2 flash launches per layer and step
@@ -322,6 +343,10 @@ PROFILE_MARGIN_S = 0.5           # idle time on each side of a profiled request
 # the KV A/B phase: the reference's BENCH_kv_cache.json geometry and counts
 KV_PROMPT, KV_GEN, KV_BLOCK = 128, 128, 32
 KV_FWD = {"none": 128.0, "prefix": 68.0, "dual": 20.0}
+# the policy whose graph-driven request is profiled (its trace's kernel
+# counts held to the executed ones; every policy until the fsdp phase
+# took the time)
+KV_PROFILED = ("dual",)
 # the strategy A/B at the KV A/B geometry under ``none``: eb (on random
 # weights one token per step, its schedule) and FDM-A with η₁ = η₂ = 0
 # (acceleration in every step: n_max tokens per step, so a block ends far
@@ -378,7 +403,7 @@ ARCH_ATTN_SHAPES = tuple(
     (MAX_BATCH, CANVAS, CANVAS, 40, 8, 128, 0, 0, "bfloat16"),
     (MAX_BATCH, CANVAS, CANVAS, 32, 2, 128, 0, 0, "bfloat16"),
     (MAX_BATCH, CANVAS, CANVAS, 32, 8, 160, 0, 0, "bfloat16"))
-MIXTRAL_LAYERS, MIXTRAL_LONG = 4, 4160   # see MOE_REFERENCE
+MIXTRAL_LAYERS, MIXTRAL_LONG = 2, 4160   # see MOE_REFERENCE
 # Mixtral-8x22B's attention (48 heads over 8 at d=128, window 4096; B, Lq,
 # Lk, H, G, d, window, q_offset, dtype): the serving batch (the band is
 # inactive below 4096) and one 4160-token row (the band live), each in
@@ -391,7 +416,7 @@ MOE_ATTN_SHAPES = tuple(
     for dt in ("bfloat16", "float32"))
 MOE_CONF_SHAPES = ((MAX_BATCH * CANVAS, 32768, "float32"),
                    (MAX_BATCH * CANVAS, 32768, "bfloat16"))
-DEEPSEEK_LAYERS, DEEPSEEK_LONG = 3, 4096   # see DEEPSEEK_REFERENCE
+DEEPSEEK_LAYERS, DEEPSEEK_LONG = 2, 4096   # see DEEPSEEK_REFERENCE
 # DeepSeek-V2's MLA heads (128 heads, q/k 192 = 128 + 64 rope wide, v 128;
 # B, Lq, Lk, H, G, dqk, dv, window, q_offset, dtype): the serving batch,
 # the K-candidate batch, the dual window (32 rows against the 128-token
@@ -428,7 +453,7 @@ WHISPER_CONF_SHAPES = ((MAX_BATCH * CANVAS, 51865, "float32"),
 # window, q_offset, dtype) over the longest canvas (1024 patches + 128
 # text positions) in bf16 and f32; its confidence at the serving batch's
 # 256 rows x V = 152064, and xlstm-125m's at V = 50304, f32 and bf16
-VLM_LAYERS, VLM_PATCHES = 4, 1024
+VLM_LAYERS, VLM_PATCHES = 2, 1024
 # qwen2-vl-72b trained through make_steps at 1 of its 80 layers (3.44 B
 # parameters with the embedding, head and projector: 55 GB of f32 masters,
 # gradients and AdamW's moments)
@@ -436,6 +461,15 @@ VLM_TRAIN_LAYERS = 1
 VLM_ATTN_SHAPES = tuple(
     (MAX_BATCH, VLM_PATCHES + CANVAS, VLM_PATCHES + CANVAS, 64, 8, 128, 0, 0,
      dt) for dt in ("bfloat16", "float32"))
+# the sharded training step's attention (fsdp_phase), f32 at a rank's
+# rows and local heads: the testbed's 16 rows of 64 (4 heads at d=64) at
+# meshes (4, 1), (2, 2), (1, 4), and LLaDA-8B's 4 rows of 256 at (4, 1)
+# (32:32) and (2, 2) (16:16)
+FSDP_ATTN_SHAPES = ((4, 64, 64, 4, 4, 64, 0, 0, "float32"),
+                    (8, 64, 64, 2, 2, 64, 0, 0, "float32"),
+                    (16, 64, 64, 1, 1, 64, 0, 0, "float32"),
+                    (1, 256, 256, 32, 32, 128, 0, 0, "float32"),
+                    (2, 256, 256, 16, 16, 128, 0, 0, "float32"))
 VLM_CONF_SHAPES = ((MAX_BATCH * CANVAS, 152064, "float32"),
                    (MAX_BATCH * CANVAS, 152064, "bfloat16"))
 XLSTM_CONF_SHAPES = ((MAX_BATCH * CANVAS, 50304, "float32"),
@@ -807,6 +841,11 @@ REFERENCE_POLICIES = {"none": {}, "prefix": dict(cache_policy="prefix"),
                                          cache_refresh="off")}
 DRIVERS = {"eager": dict(fused_loop=False), "block": dict(fused_blocks=False),
            "request": {}}
+# the other families' reference phases: the eager and the whole-request
+# graph driver (the per-block graph driver runs the same forwards as the
+# whole-request one; LLaDA and Hymba hold all three; every family held
+# all three until the fsdp phase took the time)
+FAMILY_DRIVERS = {k: DRIVERS[k] for k in ("eager", "request")}
 # the dense GQA family in the reference phase, (name, overrides of the
 # reduced config): q/k norm (qwen3), half RoPE with GQA (chatglm3), and
 # stablelm-3b at its reduced width and at d_model=320, whose head dim of 80
@@ -824,9 +863,10 @@ ARCH_SERVING = (("qwen3-14b", POLICIES), ("chatglm3-6b", ("none",)),
 # phase, as is and with GQA (reduced gives 4:4), under every policy with
 # ARCH_CASES (the reduced window of 32 is live over the 48-token canvas);
 # served at full width cut to MIXTRAL_LAYERS of its 56 layers (a layer is
-# ~2.50 B parameters, 4 of them ~20.0 GB of bf16 beside the 0.8 GB of
+# ~2.50 B parameters, 2 of them ~10.0 GB of bf16 beside the 0.8 GB of
 # embedding and head: all 56 would be ~281 GB; 8 until the script's time
-# grew with the serve step's phases); then one eager forward
+# grew with the serve step's phases, 4 until the fsdp phase's); then one
+# eager forward
 # over MIXTRAL_LONG tokens, past the window, so the band is live at full
 # width
 MOE_REFERENCE = (("mixtral-8x22b", {}), ("mixtral-8x22b",
@@ -834,8 +874,9 @@ MOE_REFERENCE = (("mixtral-8x22b", {}), ("mixtral-8x22b",
 # DeepSeek-V2 (MLA, a dense first layer, shared experts): reduced in the
 # reference phase under every policy with ARCH_CASES; served at full width
 # cut to DEEPSEEK_LAYERS of its 60 layers (layer 0 dense, then MoE layers
-# of ~3.97 B parameters: 3 layers are ~18.7 GB of bf16, all 60 ~471 GB);
-# then one eager forward over DEEPSEEK_LONG tokens
+# of ~3.97 B parameters: 3 layers are ~18.7 GB of bf16, all 60 ~471 GB;
+# 3 until the fsdp phase took the time); then one eager forward over
+# DEEPSEEK_LONG tokens
 DEEPSEEK_REFERENCE = (("deepseek-v2-236b", {}),)
 
 
@@ -863,11 +904,13 @@ def _same_conf(got, want, tol: float = 1e-5) -> bool:
 
 
 def reference_phase(torch, name: str, policies, over=None,
-                    cases=REFERENCE_CASES, conditioned: bool = False):
+                    cases=REFERENCE_CASES, conditioned: bool = False,
+                    drivers=FAMILY_DRIVERS):
     """The port on the card (kernels, f32) against the port on the CPU
     (plain versions) on a reduced config (with ``over``): same weights,
-    same prompts.  On the card each case runs under the eager, the
-    per-block graph and the whole-request graph driver; all four decodes
+    same prompts.  On the card each case runs under each of ``drivers``
+    (the eager and the whole-request graph driver, or ``DRIVERS``: also
+    the per-block graph driver); every decode and the CPU's
     must give identical tokens, steps, forward-equivalents, phase counts,
     revocations, skipped forwards and trace (its commit confidences within
     1e-5).  A q/k norm's scales (and MLA's latent norms') are drawn from
@@ -907,7 +950,7 @@ def reference_phase(torch, name: str, policies, over=None,
             x_cpu, s_cpu = Decoder(cpu_params, cfg, dcfg,
                                    device="cpu").generate(None, prompt,
                                                           **cpu_kw)
-            for driver, over in DRIVERS.items():
+            for driver, over in drivers.items():
                 x, st = Decoder(gpu_params, cfg, dataclasses.replace(
                     dcfg, **over), device="cuda").generate(None, prompt,
                                                            **card_kw)
@@ -1331,13 +1374,12 @@ def graph_profile(torch, label: str, fn, run, mods, groups=None) -> dict:
 
 def kv_ab_phase(torch, cfg, params, mods: dict) -> None:
     """One B=2 request at the reference's ``BENCH_kv_cache.json`` geometry
-    under each cache policy, by the eager and the graph driver
-    interleaved (eager, graph, graph, after one cold graph decode
-    that captures): seconds, tokens/s and steps/s of each, capture
-    seconds, graph count and pool bytes, forward-equivalents of exactly
-    128, 68 and 20 under both drivers; one graph-driven request under
-    ``torch.cuda.set_sync_debug_mode("error")`` and one under
-    ``torch.profiler``.  Then on the last canvas: one full forward, one
+    under each cache policy, by the eager and the graph driver (eager,
+    graph, after one cold graph decode that captures): seconds, tokens/s
+    and steps/s of each, capture seconds, graph count and pool bytes,
+    forward-equivalents of exactly 128, 68 and 20 under both drivers; one
+    graph-driven request under ``torch.cuda.set_sync_debug_mode("error")``
+    and, under ``KV_PROFILED``, one under ``torch.profiler``.  Then on the last canvas: one full forward, one
     window forward per cached policy and one cache capture, on the card's
     clock against host enqueue time, by their kernels on the card, and
     where the host's time goes in each forward (cProfile)."""
@@ -1366,7 +1408,7 @@ def kv_ab_phase(torch, cfg, params, mods: dict) -> None:
             gs = graph_stats(torch, [run])
             secs = {"eager": [], "graph": []}
             outs = {}
-            for driver in ("eager", "graph", "graph"):
+            for driver in ("eager", "graph"):
                 t0 = time.perf_counter()
                 out, st = decs[driver].generate(None, prompt)
                 torch.cuda.synchronize()
@@ -1405,10 +1447,11 @@ def kv_ab_phase(torch, cfg, params, mods: dict) -> None:
                 f"implicit sync (sync debug mode 'error'; its waits are "
                 f"event waits on the block's masked count, polled two steps "
                 f"behind the card, and the final readback)")
-            graph_profile(torch, f"{cfg.name} graph-driven request "
-                          f"{policy} B=2 gen {KV_GEN}",
-                          lambda: decs["graph"].generate(None, prompt),
-                          run, mods)
+            if policy in KV_PROFILED:
+                graph_profile(torch, f"{cfg.name} graph-driven request "
+                              f"{policy} B=2 gen {KV_GEN}",
+                              lambda: decs["graph"].generate(None, prompt),
+                              run, mods)
     for driver in ("eager", "graph"):
         log(f"kv a/b {driver} driver tokens/s against none: prefix "
             f"{tps['prefix', driver] / tps['none', driver]:.3f}x, dual "
@@ -4341,6 +4384,345 @@ def tp_phase(torch, conf_mod, testbed: dict) -> dict:
     return {"entry": entry, "launches": launches}
 
 
+# --------------------------------------------------------------------------
+# 9c. the sharded training step: FSDP over data, tensor parallelism over
+# model, four gloo ranks sharing the one card
+# --------------------------------------------------------------------------
+
+FSDP_DEVICE = "cuda"
+FSDP_LLADA_LAYERS = 1
+# ((mesh, steps) runs, batch rows, positions, tolerance) of each model: the
+# testbed (f32, remat "block") two steps at every mesh of four ranks, held
+# to one rank within 1e-5 of the scale; LLaDA-8B at full width cut to
+# FSDP_LLADA_LAYERS of 32 layers with f32 compute (bf16 rounding could not
+# hold four ranks to one), two steps at (2, 2) and one at (4, 1) (its
+# gloo-bound step costs 18-33 s there, and the testbed holds two steps at
+# that mesh), held within 1e-4 of the scale (its sums run over rows 4096
+# and 12288 wide, in another order on a shard).  Every run holds the
+# params and both AdamW moments: after step 1 mu is 0.1·g and nu 0.05·g²,
+# so a gradient off by a factor or a share shows there, where the params'
+# lr·g/(|g| + eps) hides it
+FSDP_MODELS = {"testbed": ((((4, 1), 2), ((2, 2), 2), ((1, 4), 2)),
+                           16, 64, 1e-5),
+               "llada-8b": ((((2, 2), 2), ((4, 1), 1)), 4, 256, 1e-4)}
+# the full-depth reckoning's meshes and train_4k's batch
+FSDP_RECKON_MESHES = ((4, 1), (2, 2))
+FSDP_TRAIN_4K_B = 256
+
+
+def _fsdp_model(torch, name, dev):
+    """(cfg, seeded f32 weights): the testbed, or LLaDA-8B at full width
+    cut to ``FSDP_LLADA_LAYERS`` layers with f32 compute; remat "block"."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    if name == "testbed":
+        cfg = get_config("llada-8b").reduced(**TESTBED, remat="block")
+    else:
+        cfg = dataclasses.replace(get_config(name),
+                                  num_layers=FSDP_LLADA_LAYERS,
+                                  dtype="float32", remat="block")
+    return cfg, init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev, dtype=torch.float32)
+
+
+def _fsdp_batch(torch, cfg, rows, length, dev):
+    """Seeded tokens; the first quarter of each row never masked."""
+    gen = torch.Generator().manual_seed(SEED + 11)
+    tokens = torch.randint(0, cfg.vocab_size - 1, (rows, length),
+                           generator=gen)
+    maskable = torch.ones(rows, length, dtype=torch.bool)
+    maskable[:, :length // 4] = False
+    return {"tokens": tokens.to(dev), "maskable": maskable.to(dev)}
+
+
+def _fsdp_tcfg(rows, length):
+    from repro_torch.configs import TrainConfig
+    return TrainConfig(batch_size=rows, seq_len=length, steps=100)
+
+
+def _fsdp_draws(torch, dev, step):
+    """The generator of a step's corruption: a new one a step, the same for
+    one rank and for four (each of which keeps its rows of the draws)."""
+    return torch.Generator(device=dev).manual_seed(SEED + 20 + step)
+
+
+def _fsdp_sync(torch, dev) -> None:
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def _fsdp_one_rank(torch, name, dev, steps) -> dict:
+    """One rank's ``steps`` steps of ``make_steps(cfg)["train"]`` on
+    the whole batch (its ``grads`` and AdamW, as its ``__call__`` does):
+    metrics, seconds a step, the trees of the params and moments after the
+    last step, and of where each parameter's gradient was zero or above
+    1e-4 of its leaf's max in every step (a gradient within the tolerance
+    of zero may step either way: step 1 moves each parameter by
+    lr·g/(|g| + eps))."""
+    from repro_torch.launch.steps import make_steps
+    from repro_torch.training import adamw_init, adamw_update
+    from repro_torch.training.optimizer import leaves, tree_map
+    from repro_torch.training.trainer import corrupt, masters
+    _, rows, length, _ = FSDP_MODELS[name]
+    cfg, init = _fsdp_model(torch, name, dev)
+    params = masters(init)
+    del init
+    step = make_steps(cfg, _fsdp_tcfg(rows, length))["train"]
+    opt = adamw_init(params)
+    batch = _fsdp_batch(torch, cfg, rows, length, dev)
+    sure, mets, secs = None, [], []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        corruption = corrupt(_fsdp_draws(torch, dev, s), batch["tokens"],
+                             batch["maskable"], cfg)
+        grads, met = step.grads(params, batch, corruption)
+        ok = [(g.abs() > 1e-4 * g.abs().max()) | (g == 0)
+              for g in leaves(grads)]
+        sure = ok if sure is None else [a & b for a, b in zip(sure, ok)]
+        params, opt = adamw_update(grads, opt, params, step.sched,
+                                   weight_decay=step.tcfg.weight_decay,
+                                   clip_norm=step.tcfg.clip_norm)
+        del grads, ok
+        _fsdp_sync(torch, dev)
+        secs.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in met.items()})
+    it = iter(sure)
+    return {"params": tree_map(lambda p: p.detach(), params),
+            "mu": opt.mu, "nu": opt.nu,
+            "sure": tree_map(lambda _: next(it), params),
+            "metrics": mets, "secs": secs}
+
+
+def _fsdp_error(torch, mine, specs, mesh, rank, want, sure=None) -> float:
+    """max over leaves of max |shard − want's part| / max |want's leaf|
+    (on the ``sure`` elements where given): ``mine`` this rank's shards,
+    ``want`` the one-rank tree, cut to this rank's part as the shards
+    were."""
+    from repro_torch.parallel.sharding import shard_tree
+    from repro_torch.training.optimizer import leaves
+    scales = [max(float(w.abs().max()), 1e-30) for w in leaves(want)]
+    part = leaves(shard_tree(want, specs, mesh, rank))
+    keep = None if sure is None else leaves(shard_tree(sure, specs, mesh,
+                                                       rank))
+    err = 0.0
+    for i, (m, w) in enumerate(zip(leaves(mine), part)):
+        d = (m.detach() - w).abs()
+        if keep is not None:
+            d = d[keep[i]]
+        if d.numel():
+            err = max(err, float(d.max()) / scales[i])
+    return err
+
+
+def fsdp_rank(rank: int, job: dict) -> dict:
+    """One of the ``fsdp`` phase's four ranks (``parallel.launch.spawn``):
+    for each run of ``FSDP_MODELS`` (a model, a mesh and a number of
+    steps), every rank builds the whole seeded weights, keeps its
+    training-layout shards, and takes the steps of
+    ``make_steps(cfg, mesh=)["train"]`` on its rows of the batch (flash
+    launches counted from 0 just before them, read just after); then the
+    ranks in turn, each while the others wait, take one rank's steps on
+    the whole batch (``_fsdp_one_rank``) and hold their shards of the
+    params and both moments to its trees' parts.  Returns per model and
+    mesh: metrics, seconds a step, flash launches, the peak memory above
+    what was held before the steps, the errors, the one-rank steps'
+    metrics and seconds, and the comparison's seconds."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_steps
+    from repro_torch.models import forward, init_model
+    from repro_torch.parallel.ctx import activation_mesh, sum_data, sum_model
+    from repro_torch.parallel.sharding import (param_pspecs, shard_params,
+                                               train_rows)
+    from repro_torch.training import adamw_init
+    from repro_torch.training.trainer import masters
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = job["device"]
+    cuda = dev == "cuda"
+    meshes = {}
+    for runs, *_ in FSDP_MODELS.values():
+        for shape, _ in runs:
+            if shape not in meshes:
+                meshes[shape] = make_mesh(*shape)
+    # every rank's first work on the card (its context, cuBLAS, the flash
+    # module, gloo's staging of CUDA tensors) at once
+    cfg, init = _fsdp_model(torch, "testbed", dev)
+    forward(masters(init), _fsdp_batch(torch, cfg, 1, 16, dev)["tokens"],
+            cfg).sum().backward()
+    for mesh in meshes.values():
+        with activation_mesh(mesh):
+            sum_data(sum_model(torch.ones(1, device=dev)))
+    del cfg, init
+    out = {}
+    for name, (runs, rows, length, _) in FSDP_MODELS.items():
+        for shape, steps in runs:
+            mesh = meshes[shape]
+            cfg, init = _fsdp_model(torch, name, dev)
+            params = masters(shard_params(init, mesh, fsdp=True))
+            del init
+            if cuda:
+                torch.cuda.empty_cache()
+            batch = _fsdp_batch(torch, cfg, rows, length, dev)
+            step = make_steps(cfg, _fsdp_tcfg(rows, length), mesh=mesh)[
+                "train"]
+            opt = adamw_init(params)
+            idx = torch.as_tensor(train_rows(rows, mesh), device=dev)
+            local = {k: v[idx] for k, v in batch.items()}
+            _fsdp_sync(torch, dev)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() if cuda else 0
+            fa_mod.launches = 0
+            mets, secs = [], []
+            for s in range(steps):
+                t0 = time.perf_counter()
+                params, opt, met = step(params, opt,
+                                        _fsdp_draws(torch, dev, s), local)
+                _fsdp_sync(torch, dev)
+                secs.append(time.perf_counter() - t0)
+                mets.append({k: float(v) for k, v in met.items()})
+            launches = fa_mod.launches
+            peak = torch.cuda.max_memory_allocated() - held if cuda else 0
+            specs = param_pspecs(init_model(cfg, device="meta",
+                                            dtype=torch.float32),
+                                 mesh, fsdp=True)
+            t_cmp = time.perf_counter()
+            for r in range(dist.get_world_size()):
+                if r == rank:
+                    t0 = time.perf_counter()
+                    ref = _fsdp_one_rank(torch, name, dev, steps)
+                    one_rank_s = time.perf_counter() - t0
+                    errs = {"params": _fsdp_error(torch, params, specs, mesh,
+                                                  rank, ref["params"],
+                                                  ref["sure"])}
+                    for k in ("mu", "nu"):
+                        errs[k] = _fsdp_error(torch, getattr(opt, k), specs,
+                                              mesh, rank, ref[k])
+                    one_rank = {"metrics": ref["metrics"],
+                                "secs": ref["secs"], "s": one_rank_s}
+                    del ref
+                    if cuda:
+                        torch.cuda.empty_cache()
+                dist.barrier()
+            out[f"{name} {shape[0]}x{shape[1]}"] = {
+                "metrics": mets, "secs": secs, "launches": launches,
+                "steps": steps, "layers": cfg.num_layers,
+                "peak_gib": peak / 2 ** 30, "held_gib": held / 2 ** 30,
+                "errors": errs, "one_rank": one_rank,
+                "compare_s": time.perf_counter() - t_cmp}
+            del params, opt
+            if cuda:
+                torch.cuda.empty_cache()
+    return out
+
+
+def _fsdp_reckoning(torch) -> dict:
+    """``rank_bytes`` of LLaDA-8B's f32 params on ``meta`` in the training
+    layout, at the phase's cut depth and at full depth, for each of
+    ``FSDP_RECKON_MESHES``: {(layers, mesh): bytes a rank}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.parallel.sharding import param_pspecs, rank_bytes
+    out = {}
+    full = get_config("llada-8b")
+    for layers in (FSDP_LLADA_LAYERS, full.num_layers):
+        meta = init_model(dataclasses.replace(full, num_layers=layers),
+                          device="meta", dtype=torch.float32)
+        for data, model in FSDP_RECKON_MESHES:
+            mesh = {"data": data, "model": model}
+            out[layers, (data, model)] = rank_bytes(
+                meta, param_pspecs(meta, mesh, fsdp=True), mesh)
+    return out
+
+
+def fsdp_phase(torch) -> dict:
+    """Phase 9c (module docstring).  Returns the executed flash launches
+    by path (summed over the ranks)."""
+    from repro_torch.configs import get_config
+    from repro_torch.parallel.launch import spawn
+    t_phase = time.perf_counter()
+    store = os.path.join(ROOT, "build", "fsdp_store", "store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = spawn(fsdp_rank, TP_WORLD, "gloo", store,
+                  {"device": FSDP_DEVICE}, timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    reckon = _fsdp_reckoning(torch)
+    launches = {}
+    for key, res0 in ranks[0].items():
+        name, shape = key.split()
+        tol = FSDP_MODELS[name][3]
+        want = res0["one_rank"]["metrics"]
+        for r, res in enumerate(ranks):
+            got = res[key]
+            if got["metrics"] != res0["metrics"]:
+                raise AssertionError(f"fsdp {key}: rank {r}'s metrics "
+                                     f"{got['metrics']} differ from rank "
+                                     f"0's {res0['metrics']}")
+            if got["launches"] != 2 * got["layers"] * got["steps"]:
+                raise AssertionError(
+                    f"fsdp {key}: rank {r} launched flash {got['launches']} "
+                    f"times, want 2 x {got['layers']} layers x "
+                    f"{got['steps']} steps")
+        merr = max(max(abs(g["loss"] - w["loss"]) / abs(w["loss"]),
+                       abs(g["acc"] - w["acc"]), abs(g["aux"] - w["aux"]))
+                   for g, w in zip(res0["metrics"], want))
+        errs = {k: max(res[key]["errors"][k] for res in ranks)
+                for k in res0["errors"]}
+        if merr > tol or max(errs.values()) > tol:
+            raise AssertionError(f"fsdp {key}: metrics error {merr:.3e}, "
+                                 f"errors {errs} against one rank, "
+                                 f"tolerance {tol}")
+        launches[f"{name}-fsdp-{shape}"] = {"flash_attention": sum(
+            res[key]["launches"] for res in ranks)}
+        secs = [s for res in ranks for s in res[key]["secs"]]
+        log(f"fsdp {name} at mesh {shape} ({res0['layers']} layers, B="
+            f"{FSDP_MODELS[name][1]}, L={FSDP_MODELS[name][2]}, f32, "
+            f"{res0['steps']} steps of make_steps(cfg, mesh=)['train']): losses "
+            f"{[round(m['loss'], 6) for m in res0['metrics']]} against one "
+            f"rank's {[round(m['loss'], 6) for m in want]}; metrics error "
+            f"{merr:.3e}; every rank's shards against its part of one "
+            f"rank's trees: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" of their leaf's scale (tolerance {tol}; params where every "
+            f"step's gradient is 0 or above 1e-4 of its leaf's max; the "
+            f"four one-rank runs and comparisons {res0['compare_s']:.1f} s); "
+            f"every "
+            f"rank's metrics equal; flash {res0['launches']} launches a rank "
+            f"(2 x {res0['layers']} x {res0['steps']}); seconds a step (four "
+            f"processes sharing one card over gloo) {min(secs):.3f}-"
+            f"{max(secs):.3f}, one rank alone "
+            + ", ".join(f"{s:.3f}" for s in res0["one_rank"]["secs"]))
+        for r, res in enumerate(ranks):
+            line = (f"fsdp {key} rank {r}: peak {res[key]['peak_gib']:.2f} "
+                    f"GiB above the {res[key]['held_gib']:.2f} GiB held "
+                    f"before the steps")
+            if name == "llada-8b":
+                b = reckon[FSDP_LLADA_LAYERS, tuple(map(int,
+                                                        shape.split("x")))]
+                line += (f"; rank_bytes f32 params {b / 2 ** 30:.2f} GiB, "
+                         f"with gradients and AdamW's moments "
+                         f"{4 * b / 2 ** 30:.2f} GiB")
+            log(line)
+    depth = get_config("llada-8b").num_layers
+    for shape in FSDP_RECKON_MESHES:
+        b = reckon[depth, shape]
+        log(f"fsdp reckoning llada-8b full depth ({depth} layers) train_4k "
+            f"at mesh {shape}: rank_bytes of the f32 params "
+            f"{b / 2 ** 30:.2f} GiB a rank, with gradients and AdamW's two "
+            f"moments {4 * b / 2 ** 30:.2f} GiB of the card's 80 GB "
+            f"(from meta params; train_4k's B={FSDP_TRAIN_4K_B} is "
+            f"{FSDP_TRAIN_4K_B // shape[0]} rows a data rank, whose "
+            f"activations come on top)")
+    log(f"fsdp executed launches by path (all ranks): {launches}")
+    log(f"fsdp phase: four ranks in {spawn_s:.1f} s (four processes "
+        f"sharing one card, not the speed of four cards); the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4526,6 +4908,18 @@ def main() -> None:
             f"{r['device_ms'] / r['library_device_ms']:.3f}); bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of the bound "
             f"on the device alone {r['bound_ms'] / r['device_ms']:.3f}")
+    for b, lq, lk, h, g, d, w, qo, dt in FSDP_ATTN_SHAPES:
+        r = check_attention(fa_mod, torch, b, lq, lk, h, g, d, w, qo, dt)
+        attn_errs.append(r["max_abs_err"])
+        log(f"attention (sharded training) B={b} Lq={lq} Lk={lk} H={h} "
+            f"G={g} d={d} {dt}: max_abs_err {r['max_abs_err']} kernel "
+            f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa "
+            f"{r['library_ms']:.4f} ms; on the device alone kernel "
+            f"{r['device_ms']:.4f} ms sdpa {r['library_device_ms']:.4f} ms "
+            f"(kernel/sdpa {r['device_ms'] / r['library_device_ms']:.3f}); "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share of the "
+            f"bound on the device alone "
+            f"{r['bound_ms'] / r['device_ms']:.3f}")
     attn_entry["max_abs_err"] = max(attn_errs)
     scan_errs = []
     for b, l, di, n, xdt in SCAN_SHAPES:
@@ -4587,8 +4981,8 @@ def main() -> None:
 
     # 4. end-to-end agreement with the CPU reference on small configs
     t0 = time.perf_counter()
-    reference_phase(torch, "llada-8b", REFERENCE_POLICIES)
-    reference_phase(torch, "hymba-1.5b", ["none"])
+    reference_phase(torch, "llada-8b", REFERENCE_POLICIES, drivers=DRIVERS)
+    reference_phase(torch, "hymba-1.5b", ["none"], drivers=DRIVERS)
     log(f"reference phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for name, over in ARCH_REFERENCE:
@@ -4737,6 +5131,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     tp = tp_phase(torch, conf_mod, testbed)
     del testbed
+    torch.cuda.empty_cache()
+    fsdp = fsdp_phase(torch)
     t0 = time.perf_counter()
     training = full_train_phase(torch, {"flash_attention": fa_mod})
     log(f"full-width training phase: {time.perf_counter() - t0:.1f} s")
@@ -4792,7 +5188,8 @@ def main() -> None:
         by_path["llada-8b-serve"] = llada_serve.get(kernel, 0)
         by_path["llada-8b-prefill"] = prefill["launches"].get(kernel, 0)
         by_path["hymba-1.5b-serve"] = hymba_serve.get(kernel, 0)
-        for path, counts in {**steps_train, **tp["launches"]}.items():
+        for path, counts in {**steps_train, **tp["launches"],
+                             **fsdp["launches"]}.items():
             by_path[path] = counts.get(kernel, 0)
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}

@@ -17,6 +17,10 @@ vocab-sharded head is scored by ``score_logits_sharded`` (the kernel's
 per-shard partials, one gather over ``model``, the merge): the
 reference's ``prefill`` scores the same way, and its ``serve`` with
 ``score_logits`` (its full-row top-k), which gives the same scores.
+``train`` runs on the training layout's shards
+(``parallel.sharding.shard_params(..., fsdp=True)``: FSDP over ``data``)
+and its rows (``parallel.sharding.train_rows``), prefill and serve on the
+serving layout's.
 
 ``serve`` writes the state's attention caches in place (``decode_step``):
 the state it returns shares their buffers with the one it was given.
@@ -31,7 +35,7 @@ from repro_torch.core.confidence import score_logits
 from repro_torch.models.layers import lm_head
 from repro_torch.models.model import decode_step, forward
 from repro_torch.parallel import ctx
-from repro_torch.training.trainer import make_train_step
+from repro_torch.training.trainer import TrainStep
 
 
 def extra_input_names(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -52,17 +56,13 @@ def make_steps(cfg: ModelConfig, tcfg: Optional[TrainConfig] = None,
     """{"train", "prefill", "serve"} for ``cfg``.  ``opts`` may hold
     ``microbatch<n>`` (accumulate n slices' gradients) and
     ``bf16_gather`` (bf16 params in the loss, f32 masters), as the
-    reference's.  ``mesh``: prefill and serve run under it (training's
-    FSDP waits, ROADMAP queue 1)."""
+    reference's.  ``mesh``: every step runs under it."""
     tcfg = tcfg or TrainConfig()
     extras = extra_input_names(cfg)
     micro = 1
     for o in opts:
         if o.startswith("microbatch"):
             micro = int(o[len("microbatch"):] or 1)
-    train_step = make_train_step(cfg, tcfg, extra_inputs=extras,
-                                 bf16_params="bf16_gather" in opts,
-                                 microbatch=micro)
 
     def scope() -> ExitStack:
         stack = ExitStack()
@@ -70,6 +70,25 @@ def make_steps(cfg: ModelConfig, tcfg: Optional[TrainConfig] = None,
             stack.enter_context(ctx.activation_mesh(mesh))
         stack.enter_context(ctx.with_vocab(cfg.vocab_size))
         return stack
+
+    class ScopedTrainStep(TrainStep):
+        """``TrainStep`` whose every call runs inside ``scope()``."""
+
+        def grads(self, *args):
+            with scope():
+                return super().grads(*args)
+
+        def apply(self, *args):
+            with scope():
+                return super().apply(*args)
+
+        def __call__(self, *args):
+            with scope():
+                return super().__call__(*args)
+
+    train_step = ScopedTrainStep(cfg, tcfg, extras,
+                                 bf16_params="bf16_gather" in opts,
+                                 microbatch=micro)
 
     def prefill_step(params, batch):
         """Full forward + confidence scoring: ``batch`` = {tokens (B, L),

@@ -35,8 +35,10 @@
   place at ``length``, clamped as ``dynamic_update_slice`` clamps.
 
 Under a tensor-parallel mesh (``parallel/ctx.py``) GQA runs on this
-rank's heads, H/tp and G/tp (read from its ``wq``/``wk`` shards), with
-``wo`` row-parallel (``layers.row_parallel``: summed over ``model``), and
+rank's heads, H/tp and G/tp (read from its ``wq``/``wk`` shards), its
+input and Qwen3's q/k norm scales entering the region through
+``ctx.enter_model``, with ``wo`` row-parallel (``layers.row_parallel``:
+summed over ``model``), and
 ``init_cache`` allocates the local kv heads; a split off the heads'
 boundaries raises ``ValueError``.  MLA's tensor parallelism waits.
 """
@@ -51,7 +53,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (Params, Rope, dense_init,
                                        rms_norm_headwise, rotate,
-                                       row_parallel)
+                                       row_parallel, sharded)
 from repro_torch.parallel import ctx
 
 
@@ -109,12 +111,17 @@ def _project_qkv(p: Params, x: torch.Tensor, rope: Rope, cfg: ModelConfig):
     b, l, _ = x.shape
     hd = cfg.head_dim
     nq, nkv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
+    # local heads: x and the per-head norm scales enter the
+    # tensor-parallel region (their gradients summed over the ranks)
+    enter = ctx.enter_model if sharded(nq * hd, cfg.num_heads * hd,
+                                       "attn/wq") else (lambda t: t)
+    x = enter(x)
     q = (x @ p["wq"].to(dt)).reshape(b, l, nq, hd)
     k = (x @ p["wk"].to(dt)).reshape(b, l, nkv, hd)
     v = (x @ p["wv"].to(dt)).reshape(b, l, nkv, hd)
     if cfg.qk_norm:
-        q = rms_norm_headwise(q, p["q_scale"])
-        k = rms_norm_headwise(k, p["k_scale"])
+        q = rms_norm_headwise(q, enter(p["q_scale"]))
+        k = rms_norm_headwise(k, enter(p["k_scale"]))
     return rotate(q, rope), rotate(k, rope), v
 
 

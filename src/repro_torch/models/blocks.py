@@ -99,6 +99,18 @@ def check_tp(cfg: ModelConfig) -> None:
     ctx.local_count(cfg.num_kv_heads, "kv heads")
 
 
+def check_fsdp(cfg: ModelConfig) -> None:
+    """Training on FSDP shards (``model.forward(..., param_specs=)``, any
+    mesh) covers the dense GQA stacks: raise ``NotImplementedError`` for
+    the others (MoE training under a mesh is queued next)."""
+    if cfg.arch_type != "dense" or cfg.attention != "gqa":
+        raise NotImplementedError(
+            f"{cfg.name!r} (arch_type={cfg.arch_type!r}, attention="
+            f"{cfg.attention!r}): training under a mesh covers the dense "
+            f"GQA stacks; this family's waits (ROADMAP queue 1, item 3: "
+            f"MoE training under a mesh next)")
+
+
 def _is_moe_layer(cfg: ModelConfig, idx: int) -> bool:
     return cfg.is_moe and idx >= cfg.moe.first_k_dense
 

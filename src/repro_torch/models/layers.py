@@ -18,7 +18,10 @@ rounding of the compute dtype of the unsharded product, bit-equal in
 f32 up to the order of the sum); a vocab-sharded token table is looked
 up for the ids of its slice and summed over ``model``; a vocab-sharded
 head gives this rank's vocab slice of the logits.  A leaf is sharded
-where it is narrower than the config says.
+where it is narrower than the config says.  The input of a
+column-parallel product or of a vocab-sharded head enters the
+tensor-parallel region through ``ctx.enter_model``, so a backward sums
+the ranks' shares of its gradient.
 """
 from __future__ import annotations
 
@@ -285,6 +288,8 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
     row shard (then summed over ``model``)."""
     dt = x.dtype
     if "gate" in p:
+        if sharded(p["gate"].shape[1], d_ff or cfg.d_ff, "mlp/gate"):
+            x = ctx.enter_model(x)
         h = torch.nn.functional.silu(matmul(x, p["gate"], dt)) \
             * matmul(x, p["up"], dt)
         return row_parallel(h, p["down"], d_ff or cfg.d_ff)
@@ -377,5 +382,7 @@ def lm_head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     scores it through the partials)."""
     dt = compute_dtype(cfg)
     w = p["tok"].to(dt).t() if cfg.tie_embeddings else p["head"].to(dt)
+    if sharded(w.shape[1], cfg.vocab_size, "the LM head"):
+        x = ctx.enter_model(x)
     x2 = x.to(dt).reshape(-1, x.shape[-1])
     return mm_f32(x2, w).reshape(*x.shape[:-1], w.shape[1])

@@ -49,7 +49,8 @@ entry point here runs the dense and MoE GQA stacks on this rank's
 shards (``blocks.check_tp`` refuses the others); the model's values do
 not change, but a vocab-sharded head returns this rank's vocab slice of
 the logits, which ``core.confidence.score_logits`` scores through the
-confidence kernel's partials.
+confidence kernel's partials.  A training forward (``param_specs``) also
+runs on each weight's data-axis part (FSDP), gathering it at its use.
 """
 from __future__ import annotations
 
@@ -67,6 +68,7 @@ from repro_torch.models.layers import (Params, Rope, apply_norm,
                                        compute_dtype, embed_tokens,
                                        init_embed, init_norm, lm_head,
                                        model_rotary_dim, rope_tables)
+from repro_torch.parallel.sharding import use_params
 
 
 def encoder_config(cfg: ModelConfig) -> ModelConfig:
@@ -142,25 +144,46 @@ def forward_rope(cfg: ModelConfig, length: int, offset: int = 0,
                        model_rotary_dim(cfg), cfg, compute_dtype(cfg))
 
 
+def _used(tree: Params, specs, dtype, keys=None) -> Params:
+    """``tree`` (its ``keys``, default all) as the layers use it: without
+    specs as it is; with the training layout's specs each leaf gathered
+    over the data axes and promoted to ``dtype``
+    (``parallel.sharding.use_params``)."""
+    if specs is None:
+        return tree
+    keys = tree.keys() if keys is None else [k for k in keys if k in tree]
+    return use_params({k: tree[k] for k in keys},
+                      {k: specs[k] for k in keys}, dtype)
+
+
+def _block(p: Params, spec, *args):
+    """``block_forward`` on a block whose weights are gathered here, inside
+    the block (so under ``remat="block"`` the gathered weights of one
+    block are alive at a time, and the recomputation gathers again)."""
+    return blocks_lib.block_forward(_used(p, spec, compute_dtype(args[2])),
+                                    *args)
+
+
 def _run_blocks(blocks: List[Params], x: torch.Tensor, rope,
                 cfg: ModelConfig, return_aux: bool,
-                enc_out: Optional[torch.Tensor] = None):
-    """The layers over x: (x', summed aux loss or None)."""
+                enc_out: Optional[torch.Tensor] = None, specs=None):
+    """The layers over x: (x', summed aux loss or None).  ``specs``: the
+    blocks' training-layout specs (each block gathers its weights)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
         if return_aux else None
     for i, p in enumerate(blocks):
+        spec = None if specs is None else specs[i]
         if cfg.remat == "block" and torch.is_grad_enabled() and \
                 _requires_grad(p):
             # the reference's jax.checkpoint per layer: keep the block's
             # input, recompute its insides in the backward (decodes never
             # get here: their params do not require grad); a block draws
             # no random numbers, so no RNG state is stashed
-            out = checkpoint(blocks_lib.block_forward, p, x, rope, cfg, i,
-                             return_aux, enc_out, use_reentrant=False,
+            out = checkpoint(_block, p, spec, x, rope, cfg, i, return_aux,
+                             enc_out, use_reentrant=False,
                              preserve_rng_state=False)
         else:
-            out = blocks_lib.block_forward(p, x, rope, cfg, i, return_aux,
-                                           enc_out)
+            out = _block(p, spec, x, rope, cfg, i, return_aux, enc_out)
         if return_aux:
             x, aux = out
             if aux is not None:
@@ -186,7 +209,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             return_aux: bool = False,
             enc_embeds: Optional[torch.Tensor] = None,
             patch_embeds: Optional[torch.Tensor] = None,
-            return_hidden: bool = False):
+            return_hidden: bool = False, param_specs=None):
     """tokens (B, L) -> logits (B, L, V) float32.  Bidirectional: every
     position is scored.  ``return_aux=True`` returns (logits, aux): the
     MoE layers' summed aux loss (f32 scalar; 0 without MoE layers), as
@@ -197,9 +220,23 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     front of the text and drops their rows before the head.
     ``return_hidden=True`` skips the LM head and returns the final hidden
     states (B, L, d) in its place (prefill scoring applies the head
-    itself)."""
+    itself).
+
+    ``param_specs``: ``params`` are this rank's shards in the training
+    layout (``parallel.sharding.shard_params(..., fsdp=True)``) under the
+    active mesh, and these their specs (a tree of the same keys): each
+    block gathers its weights' data-axis dims inside itself, the token
+    table and the head at their use (the dense GQA stacks:
+    ``blocks.check_fsdp``)."""
     blocks_lib.check_tp(cfg)
-    x = embed_tokens(params["embed"], tokens, cfg)
+    specs = param_specs or {}
+    if param_specs is not None:
+        blocks_lib.check_fsdp(cfg)
+    embed = params["embed"]
+    # the tables are looked up in their own dtype, as the reference's
+    # (the lookup's gradient is accumulated in it)
+    x = embed_tokens(_used(embed, specs.get("embed"), None, ("tok", "pos")),
+                     tokens, cfg)
     num_patches = 0
     if patch_embeds is not None:
         dt = x.dtype
@@ -211,11 +248,14 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     enc_out = encode(params, enc_embeds, cfg) \
         if cfg.is_encdec and enc_embeds is not None else None
     x, aux_total = _run_blocks(params["blocks"], x, rope, cfg, return_aux,
-                               enc_out)
-    x = apply_norm(params["norm_f"], x, cfg)
+                               enc_out, specs.get("blocks"))
+    dt = compute_dtype(cfg)
+    x = apply_norm(_used(params["norm_f"], specs.get("norm_f"), dt), x, cfg)
     if num_patches:
         x = x[:, num_patches:]
-    out = x if return_hidden else lm_head(params["embed"], x, cfg)
+    head = ("tok",) if cfg.tie_embeddings else ("head",)
+    out = x if return_hidden else lm_head(
+        _used(embed, specs.get("embed"), dt, head), x, cfg)
     return (out, aux_total) if return_aux else out
 
 

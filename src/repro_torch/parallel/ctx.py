@@ -3,21 +3,40 @@
 
 The reference annotates layouts (``constrain``) and lets GSPMD insert the
 collectives.  The port has no GSPMD: its layers run on their shards
-(local heads, local ffn columns, local experts, a vocab slice) and call
-the few collectives GSPMD would have inserted, through this module:
+(local heads, local ffn columns, local experts, a vocab slice, and in
+training each weight's data-axis part) and call the few collectives GSPMD
+would have inserted, through this module.  Those on a training path are
+``torch.autograd.Function``s, so a backward through them is the
+partitioned backward GSPMD would have derived (Megatron's conjugate
+pairs, and FSDP's):
 
 * ``sum_model`` — the all-reduce after a row-parallel product (attention
   ``wo``, MLP ``down``, the experts) and after the vocab-parallel
-  embedding lookup, summed in f32 and cast back;
+  embedding lookup, summed in f32 and cast back; its gradient passes
+  through (every model rank holds the same one);
+* ``enter_model`` — the entry to a tensor-parallel region (the input of
+  the column-parallel q/k/v and gate/up products and of the
+  vocab-parallel head, and Qwen3's q/k norm scales applied to local
+  heads): the identity, its gradient summed over ``model`` (each rank
+  back-propagates only its own heads', columns' or vocab slice's share);
+* ``use_param`` — a weight as a layer uses it under FSDP: its dim on
+  ``data`` all-gathered, the gradient summed over ``data`` and cut back to
+  this rank's part (a reduce-scatter); a leaf with no dim on ``data`` (a
+  norm scale) passes through, its gradient summed over ``data``;
 * ``gather_model`` / ``gather_data`` — small partials (the confidence
   kernel's per-shard accumulators; the MoE's tokens under a global
-  dispatch) gathered to every rank of the axis;
-* ``mean_data`` — the grouped MoE dispatch's aux loss over the data axis.
+  dispatch) gathered to every rank of the axis; ``gather_full`` — a
+  tensor's sharded dims gathered (full trees for tests and checkpoints);
+* ``mean_data`` — the grouped MoE dispatch's aux loss over the data axis;
+  ``sum_data`` — counts and metrics over the data axis.
 
 Each is one ``all_reduce`` (a gather writes its slot into a zero-filled
-buffer), so gloo and NCCL both serve it, on CPU and CUDA tensors alike.
-With no active mesh, or an axis of size 1, every collective is the
-identity, so every path outside a mesh is unchanged.
+buffer, a reduce-scatter is an all-reduce and a slice), so gloo and NCCL
+both serve it, on CPU and CUDA tensors alike.  Sums run in f32; a gather
+runs in its tensor's dtype (exact: one slot is not zero), so a bf16
+weight is gathered as bf16.  With no active mesh, or an axis of size 1,
+every collective is the identity, so every path outside a mesh is
+unchanged.
 
 ``activation_mesh(mesh)`` makes a mesh active for a block of code (the
 reference's context of the same name).  ``with_vocab(V)`` records the
@@ -145,23 +164,152 @@ def _all_reduce(x: torch.Tensor, axis: str, op) -> torch.Tensor:
     return x
 
 
+def _sum_f32(x: torch.Tensor, group) -> torch.Tensor:
+    """Σ of x over ``group``'s ranks in f32 (into a fresh buffer), cast
+    back to x's dtype."""
+    buf = x.to(torch.float32, copy=True).contiguous()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf.to(x.dtype)
+
+
+class _SumModel(torch.autograd.Function):
+    """Σ over ``model`` forward; the gradient passes through."""
+
+    @staticmethod
+    def forward(fctx, x):
+        return _sum_f32(x, _group("model"))
+
+    @staticmethod
+    def backward(fctx, g):
+        return g
+
+
+class _EnterModel(torch.autograd.Function):
+    """The identity forward; the gradient summed over ``model``."""
+
+    @staticmethod
+    def forward(fctx, x):
+        fctx.group = _group("model")
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _sum_f32(g, fctx.group)
+
+
 def sum_model(x: torch.Tensor) -> torch.Tensor:
     """Σ over the model axis in f32, cast back to x's dtype (a
-    row-parallel product's partials; an f32 x is reduced in place)."""
+    row-parallel product's partials); the gradient passes through."""
     if model_size() == 1:
         return x
-    return _all_reduce(x.float().contiguous(), "model",
-                       dist.ReduceOp.SUM).to(x.dtype)
+    return _SumModel.apply(x)
+
+
+def enter_model(x: torch.Tensor) -> torch.Tensor:
+    """x as the input of a tensor-parallel region: the identity, its
+    gradient summed over the model axis in f32."""
+    if model_size() == 1:
+        return x
+    return _EnterModel.apply(x)
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _gather_dim(x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    """Every rank's x along ``axis``, concatenated in rank order along
+    ``dim``, in x's dtype."""
+    n = axis_size(axis)
+    buf = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    buf[axis_rank(axis)] = x
+    _all_reduce(buf, axis, dist.ReduceOp.SUM)
+    shape = x.shape[:dim] + (n * x.shape[dim],) + x.shape[dim + 1:]
+    return buf.movedim(0, dim).reshape(shape)
+
+
+class _GatherData(torch.autograd.Function):
+    """A weight's dim ``dim`` all-gathered over ``data`` and cast to
+    ``dtype``; the gradient summed over ``data`` in f32, this rank's part
+    of the dim, in the weight's dtype."""
+
+    @staticmethod
+    def forward(fctx, w, dim, dtype):
+        fctx.dim, fctx.wdtype = dim, w.dtype
+        fctx.group = _group("data")
+        fctx.start, fctx.width = axis_rank("data") * w.shape[dim], w.shape[dim]
+        return _gather_dim(w, dim, "data").to(dtype)
+
+    @staticmethod
+    def backward(fctx, g):
+        part = _sum_f32(g, fctx.group).narrow(fctx.dim, fctx.start,
+                                              fctx.width)
+        return part.to(fctx.wdtype), None, None
+
+
+class _SumDataGrad(torch.autograd.Function):
+    """A data-replicated weight cast to ``dtype``; its gradient summed
+    over ``data`` in f32, in the weight's dtype."""
+
+    @staticmethod
+    def forward(fctx, w, dtype):
+        fctx.wdtype, fctx.group = w.dtype, _group("data")
+        return w.to(dtype, copy=True)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _sum_f32(g, fctx.group).to(fctx.wdtype), None
+
+
+def use_param(w: torch.Tensor, spec: tuple,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The weight ``w`` (this rank's shard under ``spec``, the training
+    layout: ``parallel.sharding.param_pspecs(..., fsdp=True)``) as a layer
+    uses it: its dim on ``data`` all-gathered (its gradient then summed
+    over ``data`` and cut to this rank's part), or, with no dim on
+    ``data``, as it is (its gradient summed over ``data``); dims on
+    ``model`` stay cut.  ``dtype``: the forward's compute dtype, to which
+    the result is promoted (a bf16 weight of an f32 forward is gathered in
+    bf16 and widened after the gather, so its gradient is summed over the
+    ranks in f32 and rounded to bf16 once)."""
+    out = w.dtype if dtype is None else torch.promote_types(w.dtype, dtype)
+    if axis_size("data") == 1:
+        return w.to(out)
+    dims = [d for d, e in enumerate(spec) if "data" in entry_axes(e)]
+    if not dims:
+        return _SumDataGrad.apply(w, out)
+    if len(dims) > 1 or entry_axes(spec[dims[0]]) != ("data",):
+        raise ValueError(f"spec {spec}: one dim on the data axis alone is "
+                         f"the training layout's FSDP dim")
+    return _GatherData.apply(w, dims[0], out)
+
+
+@torch.no_grad()
+def gather_full(x: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """The whole tensor of which x is this rank's shard under ``spec``:
+    every sharded dim gathered over its axes (on every rank)."""
+    for dim, entry in enumerate(spec):
+        for axis in reversed(entry_axes(entry)):   # the minor axis first
+            if axis_size(axis) > 1:
+                x = _gather_dim(x, dim, axis)
+    return x
+
+
+def sum_data(x: torch.Tensor) -> torch.Tensor:
+    """Σ over the data axis in f32, cast back to x's dtype (counts and
+    metrics: no gradient)."""
+    if axis_size("data") == 1:
+        return x
+    return _sum_f32(x.detach(), _group("data"))
 
 
 def _gather(x: torch.Tensor, axis: str) -> torch.Tensor:
-    n = axis_size(axis)
-    if n == 1:
+    if axis_size(axis) == 1:
         return x[None]
-    buf = torch.zeros((n,) + tuple(x.shape), dtype=torch.float32,
-                      device=x.device)
-    buf[axis_rank(axis)] = x
-    return _all_reduce(buf, axis, dist.ReduceOp.SUM).to(x.dtype)
+    return _gather_dim(x.float()[None], 0, axis).to(x.dtype)
 
 
 def gather_model(x: torch.Tensor) -> torch.Tensor:

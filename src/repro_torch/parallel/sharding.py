@@ -13,8 +13,9 @@ sharded data parallelism (FSDP) on the ``data`` (+ ``pod``) axes:
   gate/up, SSM in-projections;
 * row-parallel (input dim on ``model``): output projections, MLP down,
   SSM out-projections, each followed by a sum over ``model``;
-* the other large dim of every ≥ 2-D weight on the data axes (FSDP;
-  ``fsdp=False`` leaves it replicated: the port's serving layout);
+* the other large dim of every ≥ 2-D weight on the data axes (FSDP: the
+  training layout, ``shard_params(..., fsdp=True)``; ``fsdp=False``
+  leaves it replicated: the serving layout);
 * expert-parallel: stacked expert weights put the expert axis on
   ``model`` when E divides it; otherwise the experts are tensor-parallel
   in their ffn dim;
@@ -27,11 +28,19 @@ match on the same leaf names, so they give the reference's spec less its
 leading layer entry.  ``cache_pspecs`` applies the reference's rule to a
 per-layer leaf as if it had that axis.
 
-``shard_tree`` cuts one rank's shard out of a full tree by its specs;
-``state_pspecs`` is the layout the port's tensor-parallel decode state
-really has (batch on the data axes, kv heads on ``model``), which
-differs from ``cache_pspecs``' choice of the trailing head dim (ROADMAP
-queue 3 lists it).
+``shard_tree`` cuts one rank's shard out of a full tree by its specs,
+``gather_tree`` puts the full tree back together on every rank (tests,
+checkpoints), ``use_params`` is a shard tree as a sharded training
+forward uses it (``parallel.ctx.use_param``: each weight's data-axis dim
+gathered), and ``rank_bytes`` counts the bytes one rank holds, on
+``meta`` params as well.  The specs travel with the shards as a tree of
+the same keys (``map_specs``): which dim of a leaf is cut is never
+guessed from a shard's shape (the testbed's d = 256 and d_ff = 1024
+would make shapes ambiguous).  ``train_rows`` are the rows of a training
+batch that one rank holds.  ``state_pspecs`` is the layout the port's
+tensor-parallel decode state really has (batch on the data axes, kv
+heads on ``model``), which differs from ``cache_pspecs``' choice of the
+trailing head dim (ROADMAP queue 3 lists it).
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.launch.mesh import Mesh
+from repro_torch.parallel import ctx
 
 Spec = Tuple
 
@@ -300,10 +310,84 @@ def shard_tree(tree: Any, specs: Any, mesh, rank: int) -> Any:
     return _map(cut, tree)
 
 
-def shard_params(params: Any, mesh, rank: Optional[int] = None) -> Any:
-    """Rank ``rank``'s (default the mesh's own) shard of full port params
-    in the serving layout: ``param_pspecs(..., fsdp=False)``, weights
-    split on ``model`` only (FSDP waits, ROADMAP queue 1)."""
+def shard_params(params: Any, mesh, rank: Optional[int] = None,
+                 fsdp: bool = False) -> Any:
+    """Rank ``rank``'s (default the mesh's own) shard of full port params:
+    the serving layout (``param_pspecs(..., fsdp=False)``: weights split
+    on ``model`` only), or with ``fsdp`` the training layout (each
+    weight's other large dim also split over the data axes)."""
     rank = getattr(mesh, "rank", 0) if rank is None else rank
-    return shard_tree(params, param_pspecs(params, mesh, fsdp=False), mesh,
+    return shard_tree(params, param_pspecs(params, mesh, fsdp=fsdp), mesh,
                       rank)
+
+
+def map_specs(fn, tree: Any, specs: Any) -> Any:
+    """``fn(leaf, spec)`` over a tree of dicts and lists and its spec tree,
+    walked by the tree's keys (so the two may order their keys
+    differently)."""
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_specs(fn, v, s) for v, s in zip(tree, specs)]
+    return fn(tree, specs)
+
+
+def use_params(tree: Any, specs: Any, dtype=None) -> Any:
+    """A shard tree in the training layout as a forward under the active
+    mesh uses it: ``ctx.use_param`` of every leaf (data-axis dims
+    gathered, gradients summed over ``data``; promoted to ``dtype``)."""
+    return map_specs(lambda w, s: ctx.use_param(w, s, dtype), tree, specs)
+
+
+def gather_tree(tree: Any, specs: Any) -> Any:
+    """The full tree of this rank's shards under ``specs`` and the active
+    mesh, on every rank (a collective: every rank calls it)."""
+    return map_specs(ctx.gather_full, tree, specs)
+
+
+def _parts(spec: Spec, sizes: dict) -> List[int]:
+    """Into how many parts each dim of a leaf is cut."""
+    return [int(np.prod([sizes[a] for a in ctx.entry_axes(e)]))
+            for e in spec]
+
+
+def local_shape(shape: Tuple[int, ...], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's shard of a leaf of ``shape``."""
+    parts = _parts(spec, _sizes(mesh))
+    parts += [1] * (len(shape) - len(parts))
+    return tuple(n // p for n, p in zip(shape, parts))
+
+
+def rank_bytes(params: Any, specs: Any, mesh) -> int:
+    """The bytes of the full tree ``params`` (real tensors or ``meta``
+    stand-ins) that one rank holds under ``specs``."""
+    sizes = _sizes(mesh)
+    total = [0]
+
+    def add(leaf, spec):
+        total[0] += leaf.numel() * leaf.element_size() // int(
+            np.prod(_parts(spec, sizes)))
+    map_specs(add, params, specs)
+    return total[0]
+
+
+def train_rows(batch: int, mesh, rank: Optional[int] = None,
+               microbatch: int = 1) -> np.ndarray:
+    """The row indices of a training batch of ``batch`` rows that rank
+    ``rank`` (default the mesh's own) holds: the batch's ``microbatch``
+    equal slices (the reference's microbatches, in order) are each cut
+    into equal parts over the data axes, and a rank holds its part of each
+    slice in turn, so its i-th local slice is its part of the batch's i-th
+    microbatch (with one microbatch: the ``batch_pspec`` rows)."""
+    sizes = _sizes(mesh)
+    daxes = data_axes(mesh)
+    parts = int(np.prod([sizes[a] for a in daxes]))
+    if batch % (parts * microbatch):
+        raise ValueError(f"a batch of {batch} rows does not split into "
+                         f"{microbatch} microbatches over {parts} data ranks")
+    rank = getattr(mesh, "rank", 0) if rank is None else rank
+    d = _index(Mesh(sizes, _axis_names(mesh), rank).coords(), daxes, sizes)
+    mb = batch // microbatch
+    per = mb // parts
+    return np.concatenate([np.arange(i * mb + d * per, i * mb + (d + 1) * per)
+                           for i in range(microbatch)])

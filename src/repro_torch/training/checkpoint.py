@@ -8,6 +8,9 @@ package loads the other's files:
   reference's ``AdamWState`` NamedTuple, whose field names its tree paths
   render as ``.mu``;
 * ``meta/step``.
+
+A sharded run saves the full trees (``save(..., specs=)``), so its file
+is the same as an unsharded run's.
 """
 from __future__ import annotations
 
@@ -17,11 +20,25 @@ from typing import Optional, Tuple
 import numpy as np
 
 from repro_torch.convert import from_flat, to_flat
+from repro_torch.parallel import ctx
+from repro_torch.parallel.sharding import gather_tree
 from repro_torch.training.optimizer import AdamWState
 
 
 def save(path: str, params: dict, opt_state: Optional[AdamWState] = None,
-         step: int = 0) -> None:
+         step: int = 0, specs=None) -> None:
+    """Write ``params`` (and ``opt_state``) to ``path``.  ``specs``: they
+    are this rank's shards under the active mesh (the training layout's
+    spec tree): every rank gathers the full trees (a collective: each
+    rank calls ``save``), and the mesh's rank 0 writes them."""
+    if specs is not None:
+        params = gather_tree(params, specs)
+        if opt_state is not None:
+            opt_state = opt_state._replace(
+                mu=gather_tree(opt_state.mu, specs),
+                nu=gather_tree(opt_state.nu, specs))
+        if ctx.active().rank != 0:
+            return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {f"params/{k}": v for k, v in to_flat(params).items()}
     if opt_state is not None:

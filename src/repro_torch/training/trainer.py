@@ -18,6 +18,20 @@ f32; the forward casts them to the compute dtype at each matmul.
 A step is split at the corruption: ``TrainStep.__call__`` draws
 ``(corrupted, masked, t)`` from its generator, ``TrainStep.apply`` takes
 them as given, so a test can inject the reference's draws.
+
+Under a mesh (a step run inside ``parallel.ctx.activation_mesh``, as
+``launch.steps.make_steps(..., mesh=)`` runs it) the step runs on this
+rank's shards in the training layout (``parallel.sharding.shard_params(..., fsdp=True)``:
+FSDP weights and AdamW moments over ``data``; heads, ffn columns and the
+vocab over ``model``) and on its rows of the batch
+(``parallel.sharding.train_rows``), as the reference's one step lowers on
+a mesh: the forward gathers each weight at its use, the loss is the
+rank's rows' share of the whole batch's (``core/loss.py``), the
+gradients come back summed over ``data`` and cut to the rank's shards,
+the clip's norm is the whole tree's, and the metrics are the whole
+batch's on every rank.  The corruption is drawn for the whole batch from
+the one generator and each rank keeps its rows, so the draws are one
+rank's.  The dense GQA stacks train so (``models.blocks.check_fsdp``).
 """
 from __future__ import annotations
 
@@ -31,7 +45,11 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.loss import masked_cross_entropy, token_accuracy
 from repro_torch.core.masking import apply_mask, sample_mask_ratio
 from repro_torch.device import resolve_device
+from repro_torch.models.blocks import check_fsdp
 from repro_torch.models.model import forward, init_model
+from repro_torch.parallel import ctx
+from repro_torch.parallel.sharding import (local_shape, map_specs,
+                                           param_pspecs, train_rows)
 from repro_torch.training.checkpoint import save
 from repro_torch.training.optimizer import (AdamWState, adamw_init,
                                             adamw_update, cosine_schedule,
@@ -43,11 +61,21 @@ Corruption = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def corrupt(generator: torch.Generator, tokens: torch.Tensor,
-            maskable: torch.Tensor, cfg: ModelConfig) -> Corruption:
-    """Draw a step's corruption: t per row, then the masked positions."""
-    t = sample_mask_ratio(generator, tokens.shape[0], tokens.device)
-    corrupted, masked = apply_mask(generator, tokens, t, cfg, maskable)
-    return corrupted, masked, t
+            maskable: torch.Tensor, cfg: ModelConfig,
+            rows: Optional[Tuple[int, np.ndarray]] = None) -> Corruption:
+    """Draw a step's corruption: t per row, then the masked positions.
+    ``rows`` (the whole batch's row count, the indices of ``tokens``' rows
+    in it; default: ``tokens`` is the whole batch): drawn for the whole
+    batch, these rows kept."""
+    n, idx = rows if rows is not None else \
+        (tokens.shape[0], np.arange(tokens.shape[0]))
+    idx = torch.as_tensor(idx, device=tokens.device)
+    whole = tokens.new_zeros((n,) + tokens.shape[1:]).index_copy_(
+        0, idx, tokens)
+    keep = maskable.new_zeros(whole.shape).index_copy_(0, idx, maskable)
+    t = sample_mask_ratio(generator, n, tokens.device)
+    corrupted, masked = apply_mask(generator, whole, t, cfg, keep)
+    return corrupted[idx], masked[idx], t[idx]
 
 
 class TrainStep:
@@ -63,7 +91,11 @@ class TrainStep:
     the loss (the reference's mixed-precision ZeRO option); the optimizer
     still updates the f32 masters.  ``microbatch > 1`` accumulates the
     gradients of that many equal slices of the batch, then averages them
-    and the metrics."""
+    and the metrics.
+
+    Under the active mesh (``parallel.ctx.activation_mesh``) the step runs
+    on this rank's shards in the training layout and on its rows (the
+    module docstring)."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
                  extra_inputs: Tuple[str, ...] = (),
@@ -72,11 +104,40 @@ class TrainStep:
         self.extra_inputs = tuple(extra_inputs)
         self.bf16_params, self.microbatch = bf16_params, microbatch
         self.sched = cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.steps)
+        self._layouts = {}
+
+    def _specs(self, params):
+        """None off a mesh; under the active mesh the training layout's
+        spec tree (``param_pspecs(..., fsdp=True)`` of the config's params
+        on ``meta``), whose shards ``params`` must be (``ValueError``
+        otherwise)."""
+        mesh = ctx.active()
+        if mesh is None:
+            return None
+        check_fsdp(self.cfg)
+        key = tuple(sorted(mesh.shape.items()))
+        if key not in self._layouts:
+            full = init_model(self.cfg, device="meta", dtype=torch.float32)
+            self._layouts[key] = (full, param_pspecs(full, mesh, fsdp=True))
+        full, specs = self._layouts[key]
+
+        def check(pair, p):
+            want = local_shape(tuple(pair[0].shape), pair[1], mesh)
+            if tuple(p.shape) != want:
+                raise ValueError(
+                    f"a leaf of shape {tuple(p.shape)} where this mesh's "
+                    f"training layout has {want}: train on "
+                    f"parallel.sharding.shard_params(params, mesh, "
+                    f"fsdp=True)")
+        map_specs(check, map_specs(lambda f, s: (f, s), full, specs), params)
+        return specs
 
     def loss(self, params, batch: Dict[str, torch.Tensor],
-             corruption: Corruption):
+             corruption: Corruption, specs=None):
         """(objective, metrics) of one (micro)batch under ``corruption``:
-        the objective is the masked cross-entropy plus the aux loss."""
+        the objective is the masked cross-entropy plus the aux loss.
+        ``specs``: ``params`` are training-layout shards under the active
+        mesh; the loss and accuracy are then this rank's rows' shares."""
         tokens = batch["tokens"]
         if self.bf16_params:
             params = tree_map(lambda p: p.to(torch.bfloat16)
@@ -84,7 +145,7 @@ class TrainStep:
         corrupted, masked, t = corruption
         kw = {k: batch[k] for k in self.extra_inputs}
         logits, aux = forward(params, corrupted, self.cfg, return_aux=True,
-                              **kw)
+                              param_specs=specs, **kw)
         loss, _ = masked_cross_entropy(logits, tokens, masked, t)
         acc = token_accuracy(logits.detach(), tokens, masked)
         return loss + aux, {"loss": loss.detach(), "aux": aux.detach(),
@@ -95,11 +156,14 @@ class TrainStep:
         """(gradients of the objective in the tree of ``params``, metrics).
         With ``microbatch > 1`` each slice is a forward of its own (an MoE
         layer's capacity is reckoned from the slice's tokens, as in the
-        reference), and the gradients and metrics are the slices' means."""
+        reference), and the gradients and metrics are the slices' means.
+        Under a mesh: this rank's shards' gradients of the whole batch's
+        objective, and the whole batch's metrics."""
+        specs = self._specs(params)
         leaf = leaves(params)
         n = self.microbatch
         if n == 1:
-            loss, metrics = self.loss(params, batch, corruption)
+            loss, metrics = self.loss(params, batch, corruption, specs)
             flat = list(torch.autograd.grad(loss, leaf))
         else:
             flat, mets = None, []
@@ -108,7 +172,8 @@ class TrainStep:
                            (i + 1) * len(batch["tokens"]) // n)
                 loss, met = self.loss(params, {k: v[sl] for k, v in
                                                batch.items()},
-                                      tuple(c[sl] for c in corruption))
+                                      tuple(c[sl] for c in corruption),
+                                      specs)
                 g = torch.autograd.grad(loss, leaf)
                 flat = list(g) if flat is None else \
                     torch._foreach_add(flat, g)
@@ -116,6 +181,11 @@ class TrainStep:
             torch._foreach_div_(flat, float(n))
             metrics = {k: torch.stack([m[k] for m in mets]).mean(0)
                        for k in mets[0]}
+        if specs is not None:
+            # the data ranks' shares of the whole batch's loss and accuracy
+            metrics = {"loss": ctx.sum_data(metrics["loss"]),
+                       "aux": ctx.mean_data(metrics["aux"]),
+                       "acc": ctx.sum_data(metrics["acc"])}
         it = iter(flat)
         return tree_map(lambda _: next(it), params), metrics
 
@@ -127,14 +197,20 @@ class TrainStep:
         params, opt_state = adamw_update(
             grads, opt_state, params, self.sched,
             weight_decay=self.tcfg.weight_decay,
-            clip_norm=self.tcfg.clip_norm)
+            clip_norm=self.tcfg.clip_norm, specs=self._specs(params))
         return params, opt_state, metrics
 
     def __call__(self, params, opt_state: AdamWState,
                  generator: torch.Generator,
                  batch: Dict[str, torch.Tensor]):
-        corruption = corrupt(generator, batch["tokens"], batch["maskable"],
-                             self.cfg)
+        mesh = ctx.active()
+        tokens = batch["tokens"]
+        rows = None
+        if mesh is not None:
+            n = tokens.shape[0] * mesh.shape["data"]
+            rows = (n, train_rows(n, mesh, microbatch=self.microbatch))
+        corruption = corrupt(generator, tokens, batch["maskable"], self.cfg,
+                             rows)
         return self.apply(params, opt_state, batch, corruption)
 
 

@@ -1805,3 +1805,55 @@ def test_merged_partials_match_the_fused_kernel(cuda, vocab, dtype):
     torch.testing.assert_close(got.margin, want[2], rtol=2e-4, atol=2e-5)
     torch.testing.assert_close(got.neg_entropy, want[3], rtol=2e-3,
                                atol=2e-4)
+
+
+# --------------------------------------------------------------------------
+# the sharded training step (parallel/, training/trainer.py under a mesh)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("remat", ["none", "block"])
+def test_train_step_at_mesh_1x1_matches_no_mesh_on_card(cuda, remat):
+    """Two f32 ``make_steps(cfg, mesh=(1, 1))["train"]`` steps of the
+    testbed on the card (the sharded path: specs, ``use_params``, the
+    mesh-aware loss and clip norm, every collective the identity) against
+    the same steps with no mesh, from one seed: the first loss equal, the
+    second and the params after both within rel 1e-6 of their scale (the
+    clip's norm sums the squares in another order), and the same flash
+    launches, 2 × layers a step under ``remat="block"``, else 1 ×."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.convert import to_flat
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_steps
+    from repro_torch.models import init_model
+    from repro_torch.training import adamw_init
+    from repro_torch.training.trainer import masters
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llada-8b").reduced(num_layers=4, d_model=256,
+                                         num_heads=4, num_kv_heads=4,
+                                         d_ff=1024, remat=remat)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size - 1, (8, 48),
+                                     generator=gen, device=cuda),
+             "maskable": torch.ones(8, 48, dtype=torch.bool, device=cuda)}
+    batch["maskable"][:, :8] = False
+    init = init_model(cfg, torch.Generator(device=cuda).manual_seed(0),
+                      device=cuda, dtype=torch.float32)
+    tcfg = TrainConfig(batch_size=8, seq_len=48, steps=10)
+    out = {}
+    for mesh in (None, make_host_mesh()):
+        step = make_steps(cfg, tcfg, mesh=mesh)["train"]
+        params = masters(init)
+        opt = adamw_init(params)
+        draws = torch.Generator(device=cuda).manual_seed(3)
+        before, losses = fa_mod.launches, []
+        for _ in range(2):
+            params, opt, met = step(params, opt, draws, batch)
+            losses.append(float(met["loss"]))
+        out[mesh is None] = (losses, to_flat(params),
+                             fa_mod.launches - before)
+    (losses, p, n), (mlosses, mp, mn) = out[True], out[False]
+    assert mlosses[0] == losses[0]
+    assert mlosses[1] == pytest.approx(losses[1], rel=1e-6)
+    assert mn == n == 2 * (2 if remat == "block" else 1) * cfg.num_layers
+    for key, want in p.items():
+        assert abs(mp[key] - want).max() <= 1e-6 * abs(want).max(), key
