@@ -46,6 +46,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              xlstm-125m's confidence (``XLSTM_CONF_SHAPES``: 256 x 50304),
              f32 and bf16; and the sharded training step's
              (``FSDP_ATTN_SHAPES``: f32 at a rank's rows and local heads);
+             and the MoE families' under the mesh
+             (``MOE_MESH_ATTN_SHAPES``: Mixtral's 12:2 and 24:4 at d=128;
+             ``MOE_MESH_MLA_SHAPES``: DeepSeek-V2's MLA at 32 local heads
+             in f32 and bf16, at 64 in f32);
              and the decode state's calls
              (``DECODE_ATTN_SHAPES``: flash at Lq = 1 with its valid key
              count read on the card, over LLaDA-8B's 32k cache in bf16
@@ -197,8 +201,9 @@ Phases, in order; any failure raises and the script exits non-zero:
              skipped forwards and step replays (the forward runs in every
              replay); under ``none`` extrapolate also by the eager driver
              (which really skips), interleaved; FDM-A traced against
-             untraced (equal tokens and stats, the final commits summing
-             to the generated tokens); the phase's executed launches are
+             untraced, one timed decode each after a warm one (equal
+             tokens and stats, the final commits summing to the generated
+             tokens); the phase's executed launches are
              the path ``llada-8b-carry``; then one profiled, traced,
              graph-driven wino_r request whose trace's kernels must equal
              the graphs' executed launches (two confidence launches a
@@ -232,7 +237,9 @@ Phases, in order; any failure raises and the script exits non-zero:
              (``MERGE_SHAPES``, ties across shards and across a shard
              boundary); then one-rank references on this card and four
              gloo ranks (``parallel.launch.spawn``; NCCL refuses two ranks
-             on one device) sharing it, every rank's flash and partials
+             on one device) sharing it (one spawn, ``mesh_phases``, runs
+             the ranks of 9b, the fsdp part and 9d in turn), every rank's
+             flash and partials
              launches on the card: the trained testbed at mesh (1, 4)
              decoded eagerly under fdm, fdm_a and probability (tokens,
              steps, forward-equivalents and phases equal to one rank's,
@@ -249,7 +256,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              seconds (four processes sharing one card: not the speed of
              four cards); the paths ``testbed-tp``, ``llada-8b-tp``,
              ``llada-8b-tp-2x2``, ``mixtral-8x22b-tp``; then the sharded
-             training step (``fsdp_phase``, four gloo ranks again): the
+             training step (``fsdp_rank``, the same four ranks): the
              testbed (f32, ``remat="block"``) at meshes (4, 1), (2, 2)
              and (1, 4) and full-width LLaDA-8B cut to
              ``FSDP_LLADA_LAYERS`` (1) of 32 layers with f32 compute at
@@ -257,16 +264,41 @@ Phases, in order; any failure raises and the script exits non-zero:
              (FSDP over ``data``, heads and vocab over ``model``) taking
              two steps (LLaDA-8B at (4, 1): one) of
              ``make_steps(cfg, mesh=)["train"]`` on its rows of the
-             batch, against one rank's steps on the same corruption:
-             losses and metrics, and every rank's shards of the params
+             batch, against one rank's steps on the same corruption
+             (taken by the ranks in turn, each rank's shards on the host
+             meanwhile): losses and metrics, and every rank's shards of the params
              and both AdamW moments against its part of one rank's,
              within 1e-5 of their leaf's scale (LLaDA-8B 1e-4), every
              rank's metrics equal,
              flash exactly 2 × layers × steps a rank; per-rank peak memory
              beside ``rank_bytes``, seconds a step, and full-depth
-             LLaDA-8B's train_4k ``rank_bytes`` at (4, 1) and (2, 2) from
+             LLaDA-8B's ``rank_bytes`` at (4, 1) and (2, 2) from
              ``meta`` params; the paths ``testbed-fsdp-*`` and
              ``llada-8b-fsdp-*``;
+9d. moe-mesh — the MoE families under the mesh (``moe_mesh_rank``,
+             the same four ranks): full-width Mixtral-8x22B cut to 1 of
+             its 56 layers (f32, ``remat="block"``; its 8 experts 2 a rank
+             at (1, 4), 4 a rank FSDP-cut on ``data`` at (2, 2)) and
+             DeepSeek-V2's dense MLA layer (1 of 60, 64 heads a rank at
+             (2, 2)), one step of ``make_steps(cfg, mesh=)["train"]`` a
+             mesh, held to one rank as ``fsdp_phase`` holds them (the
+             shards moved to the host while the ranks take the one-rank
+             step in turn: Mixtral's one-rank state is ~43 GiB), flash
+             exactly 2 a rank; DeepSeek-V2 cut to 2 of 60 layers served at
+             (1, 4) (32 heads, 144 of the latent's 576 columns and 40 of
+             160 experts a rank; bf16 weights, f32 compute): prefill,
+             4 serve steps over a 4096-position latent cache (whole on
+             every rank) and one eager fdm decode, within ``TP_F32_TOL`` of
+             one rank (the decode exact); then its dense MLA layer alone
+             with bf16 compute (no routing): prefill and the serve steps
+             within ``TP_LOGIT_TOL`` of one rank, argmaxes equal wherever
+             one rank's top-2 gap exceeds twice it; on each path each
+             rank's flash and partials launches equal one rank's flash
+             and confidence launches; the f32 flash kernel's ptxas
+             registers and spills at (192, 128); full-depth
+             ``rank_bytes`` of both at (4, 1), (2, 2) and (1, 4); the
+             paths ``mixtral-8x22b-fsdp-*``, ``deepseek-v2-236b-fsdp-2x2``,
+             ``deepseek-v2-236b-tp`` and ``deepseek-v2-236b-tp-bf16``;
 10. training — full-width LLaDA-8B cut to 4 of its 32 layers trained a
              few steps (B=2, L=512): ms/step, tokens/s, peak memory, the
              initial NLL, exactly 2 flash launches per layer and step
@@ -292,8 +324,8 @@ Phases, in order; any failure raises and the script exits non-zero:
              ``AsyncScheduler`` → ``ServingEngine``, every decode on the
              card's worker thread) over real sockets: full-width LLaDA-8B
              (random bf16 weights, seed 0) at the engine's default batch
-             of 8 with Hymba-1.5B registered beside it; 4 concurrent
-             clients stream 12 requests (prompts 41-64, gen 64, block 32,
+             of 8 with Hymba-1.5B registered beside it; 3 concurrent
+             clients stream 9 requests (prompts 41-64, gen 64, block 32,
              64 steps; fdm, fdm_a, probability; none, prefix, dual), and
              every request's tokens must equal its own batch decoded
              directly by ``Decoder.generate`` (the engine records each
@@ -470,6 +502,22 @@ FSDP_ATTN_SHAPES = ((4, 64, 64, 4, 4, 64, 0, 0, "float32"),
                     (16, 64, 64, 1, 1, 64, 0, 0, "float32"),
                     (1, 256, 256, 32, 32, 128, 0, 0, "float32"),
                     (2, 256, 256, 16, 16, 128, 0, 0, "float32"))
+# the MoE families under the mesh (phase 9d) at a rank's rows and local
+# heads: Mixtral-8x22B's training at (1, 4) (12:2) and (2, 2) (24:4),
+# d=128, f32, its band of 4096 not live at L=256; DeepSeek-V2's MLA
+# (dqk 192, dv 128) served at (1, 4) (32 heads: prefill B=2, L=128, in
+# f32 and in bf16; the eager decode's canvas of 64 at B=1 and its K=2
+# candidates, f32 there and bf16 as a user serving in bf16 runs them) and
+# trained at (2, 2) (64 heads, B=2, L=256, f32)
+MOE_MESH_ATTN_SHAPES = ((4, 256, 256, 12, 2, 128, 4096, 0, "float32"),
+                        (2, 256, 256, 24, 4, 128, 4096, 0, "float32"))
+MOE_MESH_MLA_SHAPES = ((2, 128, 128, 32, 32, 192, 128, 0, 0, "float32"),
+                       (1, 64, 64, 32, 32, 192, 128, 0, 0, "float32"),
+                       (2, 64, 64, 32, 32, 192, 128, 0, 0, "float32"),
+                       (2, 256, 256, 64, 64, 192, 128, 0, 0, "float32"),
+                       (2, 128, 128, 32, 32, 192, 128, 0, 0, "bfloat16"),
+                       (1, 64, 64, 32, 32, 192, 128, 0, 0, "bfloat16"),
+                       (2, 64, 64, 32, 32, 192, 128, 0, 0, "bfloat16"))
 VLM_CONF_SHAPES = ((MAX_BATCH * CANVAS, 152064, "float32"),
                    (MAX_BATCH * CANVAS, 152064, "bfloat16"))
 XLSTM_CONF_SHAPES = ((MAX_BATCH * CANVAS, 50304, "float32"),
@@ -1695,8 +1743,7 @@ def carry_phase(torch, cfg, params, mods: dict) -> dict:
                                          f"{tokens}")
             for dec in decs.values():
                 dec.generate(None, prompt)
-            secs = _timed(torch, decs, ["off", "on", "on", "off"], prompt,
-                          check)
+            secs = _timed(torch, decs, ["off", "on"], prompt, check)
         (x_off, s_off), (x_on, s_on) = outs["off"], outs["on"]
         if not torch.equal(x_off, x_on) or \
                 (s_off.steps, s_off.forward_equivalents, s_off.phase_counts) \
@@ -2034,7 +2081,9 @@ def moe_model_phase(torch, mods: dict, name: str, layers: int,
 
 
 HTTP_MAX_BATCH = 8
-HTTP_CLIENTS = 4                  # 8 until the tp phase took its time
+# 8 until the tp phase took its time, 4 until the moe-mesh phase's (3 keep
+# every strategy under every policy: client c sends strategy c % 3)
+HTTP_CLIENTS = 3
 HTTP_STRATEGIES = ("fdm", "fdm_a", "probability")
 HTTP_BUCKET = 32
 HTTP_FAULT_PROMPTS = 4            # one batch under a seeded fault schedule
@@ -3960,13 +4009,17 @@ def steps_train_phase(torch, mods: dict, name: str, layers: int = 0,
 PARTIALS_SHAPES = ((2, 31616, "float32", 3 * 31616),
                    (256, 31616, "float32", 31616),
                    (256, 31616, "bfloat16", 2 * 31616),
-                   (256, 8192, "float32", 8192))
+                   (256, 8192, "float32", 8192),
+                   # DeepSeek-V2's V/4 in phase 9d: prefill, serve, decode
+                   (256, 25600, "float32", 25600),
+                   (2, 25600, "float32", 3 * 25600),
+                   (64, 25600, "float32", 2 * 25600))
 # whole rows scored from four shards' partials, against the unsharded
 # kernel on the same rows
 MERGE_SHAPES = ((2, 126464, "float32"), (256, 126464, "float32"),
                 (256, 126464, "bfloat16"), (256, 32768, "float32"))
 TP_WORLD = 4
-TP_DEVICE = "cuda"
+MESH_DEVICE = "cuda"              # phases 9b-9d
 # full width, cut in depth for the script's time: LLaDA-8B 4 of 32 layers,
 # Mixtral-8x22B 2 of 56 (expert-parallel: 2 of its 8 experts a rank)
 TP_LLADA_LAYERS, TP_MIXTRAL_LAYERS = 4, 2
@@ -4152,7 +4205,7 @@ def _tp_decodes(torch, cfg, params, job, dev) -> dict:
 
 
 def tp_rank(rank: int, job: dict) -> dict:
-    """One of the ``tp`` phase's four ranks (``parallel.launch.spawn``):
+    """The ``tp`` phase's part of one of the four ranks (``mesh_rank``):
     the testbed at mesh (1, 4), LLaDA-8B at (1, 4) and (2, 2), Mixtral at
     (1, 4), each rank building the whole weights from the seed
     (four at once for LLaDA, two for Mixtral's 10.5 GB) and keeping its
@@ -4254,12 +4307,12 @@ def _tp_scores(label, want, got, tol) -> dict:
 
 
 def tp_phase(torch, conf_mod, testbed: dict) -> dict:
-    """Phase 9b (module docstring).  Returns the partials' kernel entry
-    fields and the executed launches by path."""
-    import numpy as np
-    from repro_torch.parallel.launch import spawn
+    """Phase 9b's work on one rank (module docstring): the partials kernel
+    and the merge, and the one-rank references.  Returns the partials'
+    kernel entry fields, the references and the ranks' job (``tp_rank``;
+    ``tp_report`` holds the ranks to the references)."""
     t_phase = time.perf_counter()
-    dev = TP_DEVICE
+    dev = MESH_DEVICE
     # 1. the partials kernel and the merge
     entry = None
     errs = []
@@ -4299,16 +4352,18 @@ def tp_phase(torch, conf_mod, testbed: dict) -> dict:
     log(f"tp one-rank references (testbed decodes, llada-8b {TP_LLADA_LAYERS}"
         f" of 32 layers, mixtral-8x22b {TP_MIXTRAL_LAYERS} of 56): "
         f"{time.perf_counter() - t0:.1f} s")
-
-    # 3. four gloo ranks on this card
-    store = os.path.join(ROOT, "build", "tp_store", "store")
-    os.makedirs(os.path.dirname(store), exist_ok=True)
     job = {k: testbed[k] for k in ("params", "prompt", "gen", "block")}
     job["testbed"] = job.pop("params")
-    job["device"] = dev
-    t0 = time.perf_counter()
-    ranks = spawn(tp_rank, TP_WORLD, "gloo", store, job, timeout_s=900)
-    spawn_s = time.perf_counter() - t0
+    return {"entry": entry, "want": want, "job": job, "testbed": testbed,
+            "s": time.perf_counter() - t_phase}
+
+
+def tp_report(torch, pre: dict, ranks: list, secs: float) -> dict:
+    """Phase 9b's ranks (``tp_rank``' results, ``secs`` on rank 0) held
+    to one rank's references (``tp_phase``).  Returns the partials'
+    kernel entry fields and the executed launches by path."""
+    import numpy as np
+    want, testbed = pre["want"], pre["testbed"]
     for r, res in enumerate(ranks):
         log(f"tp rank {r}: peak {res['peak_gib']:.2f} GiB allocated; seconds "
             f"{ {k: round(v, 1) for k, v in res['secs'].items()} }")
@@ -4378,10 +4433,10 @@ def tp_phase(torch, conf_mod, testbed: dict) -> dict:
             raise AssertionError(f"tp {path}: a kernel of the path was not "
                                  f"launched: {launches[path]}")
     log(f"tp executed launches by path (all ranks): {launches}")
-    log(f"tp phase: four ranks in {spawn_s:.1f} s (their times are four "
+    log(f"tp phase: the ranks' part {secs:.1f} s (their times are four "
         f"processes sharing one card, not the speed of four cards); the "
-        f"phase {time.perf_counter() - t_phase:.1f} s")
-    return {"entry": entry, "launches": launches}
+        f"one-rank part {pre['s']:.1f} s")
+    return {"entry": pre["entry"], "launches": launches}
 
 
 # --------------------------------------------------------------------------
@@ -4389,8 +4444,12 @@ def tp_phase(torch, conf_mod, testbed: dict) -> dict:
 # model, four gloo ranks sharing the one card
 # --------------------------------------------------------------------------
 
-FSDP_DEVICE = "cuda"
 FSDP_LLADA_LAYERS = 1
+# full-width models' cut depths in the sharded training runs: LLaDA-8B's
+# here, the MoE families' in phase 9d (Mixtral-8x22B's one MoE layer,
+# DeepSeek-V2's dense MLA layer, first_k_dense = 1)
+FSDP_LAYERS = {"llada-8b": FSDP_LLADA_LAYERS, "mixtral-8x22b": 1,
+               "deepseek-v2-236b": 1}
 # ((mesh, steps) runs, batch rows, positions, tolerance) of each model: the
 # testbed (f32, remat "block") two steps at every mesh of four ranks, held
 # to one rank within 1e-5 of the scale; LLaDA-8B at full width cut to
@@ -4405,21 +4464,20 @@ FSDP_LLADA_LAYERS = 1
 FSDP_MODELS = {"testbed": ((((4, 1), 2), ((2, 2), 2), ((1, 4), 2)),
                            16, 64, 1e-5),
                "llada-8b": ((((2, 2), 2), ((4, 1), 1)), 4, 256, 1e-4)}
-# the full-depth reckoning's meshes and train_4k's batch
+# the full-depth reckoning's meshes
 FSDP_RECKON_MESHES = ((4, 1), (2, 2))
-FSDP_TRAIN_4K_B = 256
 
 
 def _fsdp_model(torch, name, dev):
-    """(cfg, seeded f32 weights): the testbed, or LLaDA-8B at full width
-    cut to ``FSDP_LLADA_LAYERS`` layers with f32 compute; remat "block"."""
+    """(cfg, seeded f32 weights): the testbed, or a model at full width
+    cut to its ``FSDP_LAYERS`` layers with f32 compute; remat "block"."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
     if name == "testbed":
         cfg = get_config("llada-8b").reduced(**TESTBED, remat="block")
     else:
         cfg = dataclasses.replace(get_config(name),
-                                  num_layers=FSDP_LLADA_LAYERS,
+                                  num_layers=FSDP_LAYERS[name],
                                   dtype="float32", remat="block")
     return cfg, init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
                            device=dev, dtype=torch.float32)
@@ -4451,7 +4509,7 @@ def _fsdp_sync(torch, dev) -> None:
         torch.cuda.synchronize()
 
 
-def _fsdp_one_rank(torch, name, dev, steps) -> dict:
+def _fsdp_one_rank(torch, name, dev, steps, models) -> dict:
     """One rank's ``steps`` steps of ``make_steps(cfg)["train"]`` on
     the whole batch (its ``grads`` and AdamW, as its ``__call__`` does):
     metrics, seconds a step, the trees of the params and moments after the
@@ -4463,7 +4521,7 @@ def _fsdp_one_rank(torch, name, dev, steps) -> dict:
     from repro_torch.training import adamw_init, adamw_update
     from repro_torch.training.optimizer import leaves, tree_map
     from repro_torch.training.trainer import corrupt, masters
-    _, rows, length, _ = FSDP_MODELS[name]
+    _, rows, length, _ = models[name]
     cfg, init = _fsdp_model(torch, name, dev)
     params = masters(init)
     del init
@@ -4506,7 +4564,7 @@ def _fsdp_error(torch, mine, specs, mesh, rank, want, sure=None) -> float:
                                                        rank))
     err = 0.0
     for i, (m, w) in enumerate(zip(leaves(mine), part)):
-        d = (m.detach() - w).abs()
+        d = (m.detach().to(w.device) - w).abs()
         if keep is not None:
             d = d[keep[i]]
         if d.numel():
@@ -4514,49 +4572,45 @@ def _fsdp_error(torch, mine, specs, mesh, rank, want, sure=None) -> float:
     return err
 
 
-def fsdp_rank(rank: int, job: dict) -> dict:
-    """One of the ``fsdp`` phase's four ranks (``parallel.launch.spawn``):
-    for each run of ``FSDP_MODELS`` (a model, a mesh and a number of
-    steps), every rank builds the whole seeded weights, keeps its
-    training-layout shards, and takes the steps of
-    ``make_steps(cfg, mesh=)["train"]`` on its rows of the batch (flash
-    launches counted from 0 just before them, read just after); then the
-    ranks in turn, each while the others wait, take one rank's steps on
-    the whole batch (``_fsdp_one_rank``) and hold their shards of the
-    params and both moments to its trees' parts.  Returns per model and
-    mesh: metrics, seconds a step, flash launches, the peak memory above
-    what was held before the steps, the errors, the one-rank steps'
-    metrics and seconds, and the comparison's seconds."""
-    import torch
-    import torch.distributed as dist
-    from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.steps import make_steps
-    from repro_torch.models import forward, init_model
+def _fsdp_warm(torch, dev, meshes) -> None:
+    """Every rank's first work on the card at once (its context, cuBLAS,
+    the flash module, gloo's staging of CUDA tensors)."""
+    from repro_torch.models import forward
     from repro_torch.parallel.ctx import activation_mesh, sum_data, sum_model
-    from repro_torch.parallel.sharding import (param_pspecs, shard_params,
-                                               train_rows)
-    from repro_torch.training import adamw_init
     from repro_torch.training.trainer import masters
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = job["device"]
-    cuda = dev == "cuda"
-    meshes = {}
-    for runs, *_ in FSDP_MODELS.values():
-        for shape, _ in runs:
-            if shape not in meshes:
-                meshes[shape] = make_mesh(*shape)
-    # every rank's first work on the card (its context, cuBLAS, the flash
-    # module, gloo's staging of CUDA tensors) at once
     cfg, init = _fsdp_model(torch, "testbed", dev)
     forward(masters(init), _fsdp_batch(torch, cfg, 1, 16, dev)["tokens"],
             cfg).sum().backward()
     for mesh in meshes.values():
         with activation_mesh(mesh):
             sum_data(sum_model(torch.ones(1, device=dev)))
-    del cfg, init
+
+
+def _fsdp_runs(torch, rank, models, dev, meshes) -> dict:
+    """For each run of ``models`` (a model, a mesh and a number of steps),
+    every rank builds the whole seeded weights, keeps its training-layout
+    shards, and takes the steps of ``make_steps(cfg, mesh=)["train"]`` on
+    its rows of the batch (flash launches counted from 0 just before them,
+    read just after); then the ranks in turn, each while the others wait,
+    take one rank's steps on the whole batch (``_fsdp_one_rank``) and hold
+    their shards of the params and both moments to its trees' parts, each
+    rank's shards moved to the host before the turns (Mixtral-8x22B's
+    one-rank state needs most of the card).  Returns per
+    model and mesh: metrics, seconds a step, flash launches, the peak
+    memory above what was held before the steps, the errors, the one-rank
+    steps' metrics and seconds, and the comparison's seconds."""
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.launch.steps import make_steps
+    from repro_torch.models import init_model
+    from repro_torch.parallel.sharding import (param_pspecs, shard_params,
+                                               train_rows)
+    from repro_torch.training import adamw_init
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.trainer import masters
+    cuda = dev == "cuda"
     out = {}
-    for name, (runs, rows, length, _) in FSDP_MODELS.items():
+    for name, (runs, rows, length, _) in models.items():
         for shape, steps in runs:
             mesh = meshes[shape]
             cfg, init = _fsdp_model(torch, name, dev)
@@ -4585,21 +4639,28 @@ def fsdp_rank(rank: int, job: dict) -> dict:
                 mets.append({k: float(v) for k, v in met.items()})
             launches = fa_mod.launches
             peak = torch.cuda.max_memory_allocated() - held if cuda else 0
+            mine = {"params": params, "mu": opt.mu, "nu": opt.nu}
+            del params, opt, local, batch
+            mine = tree_map(lambda t: t.detach().cpu(), mine)
+            if cuda:
+                torch.cuda.empty_cache()
             specs = param_pspecs(init_model(cfg, device="meta",
                                             dtype=torch.float32),
                                  mesh, fsdp=True)
+            dist.barrier()
             t_cmp = time.perf_counter()
             for r in range(dist.get_world_size()):
                 if r == rank:
                     t0 = time.perf_counter()
-                    ref = _fsdp_one_rank(torch, name, dev, steps)
+                    ref = _fsdp_one_rank(torch, name, dev, steps, models)
                     one_rank_s = time.perf_counter() - t0
-                    errs = {"params": _fsdp_error(torch, params, specs, mesh,
-                                                  rank, ref["params"],
+                    errs = {"params": _fsdp_error(torch, mine["params"],
+                                                  specs, mesh, rank,
+                                                  ref["params"],
                                                   ref["sure"])}
                     for k in ("mu", "nu"):
-                        errs[k] = _fsdp_error(torch, getattr(opt, k), specs,
-                                              mesh, rank, ref[k])
+                        errs[k] = _fsdp_error(torch, mine[k], specs, mesh,
+                                              rank, ref[k])
                     one_rank = {"metrics": ref["metrics"],
                                 "secs": ref["secs"], "s": one_rank_s}
                     del ref
@@ -4612,77 +4673,90 @@ def fsdp_rank(rank: int, job: dict) -> dict:
                 "peak_gib": peak / 2 ** 30, "held_gib": held / 2 ** 30,
                 "errors": errs, "one_rank": one_rank,
                 "compare_s": time.perf_counter() - t_cmp}
-            del params, opt
+            del mine
             if cuda:
                 torch.cuda.empty_cache()
     return out
 
 
-def _fsdp_reckoning(torch) -> dict:
-    """``rank_bytes`` of LLaDA-8B's f32 params on ``meta`` in the training
-    layout, at the phase's cut depth and at full depth, for each of
-    ``FSDP_RECKON_MESHES``: {(layers, mesh): bytes a rank}."""
+def fsdp_rank(rank: int, job: dict) -> dict:
+    """The ``fsdp`` phase's part of one of the four ranks (``mesh_rank``):
+    every run of ``FSDP_MODELS`` (``_fsdp_runs``)."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = job["device"]
+    meshes = {}
+    for runs, *_ in FSDP_MODELS.values():
+        for shape, _ in runs:
+            if shape not in meshes:
+                meshes[shape] = make_mesh(*shape)
+    _fsdp_warm(torch, dev, meshes)
+    return _fsdp_runs(torch, rank, FSDP_MODELS, dev, meshes)
+
+
+def _fsdp_reckoning(torch, name, layers, meshes) -> dict:
+    """``rank_bytes`` of ``name``'s f32 params on ``meta`` in the training
+    layout, at each of ``layers`` depths and each of ``meshes``:
+    {(layers, mesh): bytes a rank}."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
     from repro_torch.parallel.sharding import param_pspecs, rank_bytes
     out = {}
-    full = get_config("llada-8b")
-    for layers in (FSDP_LLADA_LAYERS, full.num_layers):
-        meta = init_model(dataclasses.replace(full, num_layers=layers),
+    full = get_config(name)
+    for n in layers:
+        meta = init_model(dataclasses.replace(full, num_layers=n),
                           device="meta", dtype=torch.float32)
-        for data, model in FSDP_RECKON_MESHES:
+        for data, model in meshes:
             mesh = {"data": data, "model": model}
-            out[layers, (data, model)] = rank_bytes(
+            out[n, (data, model)] = rank_bytes(
                 meta, param_pspecs(meta, mesh, fsdp=True), mesh)
+        del meta
     return out
 
 
-def fsdp_phase(torch) -> dict:
-    """Phase 9c (module docstring).  Returns the executed flash launches
-    by path (summed over the ranks)."""
-    from repro_torch.configs import get_config
-    from repro_torch.parallel.launch import spawn
-    t_phase = time.perf_counter()
-    store = os.path.join(ROOT, "build", "fsdp_store", "store")
-    os.makedirs(os.path.dirname(store), exist_ok=True)
-    t0 = time.perf_counter()
-    ranks = spawn(fsdp_rank, TP_WORLD, "gloo", store,
-                  {"device": FSDP_DEVICE}, timeout_s=900)
-    spawn_s = time.perf_counter() - t0
-    reckon = _fsdp_reckoning(torch)
+def _fsdp_report(torch, label, ranks, models) -> dict:
+    """Hold every run's ranks to one rank (``_fsdp_runs``' results): equal
+    metrics on every rank, flash 2 × layers × steps a rank, metrics and
+    each rank's shards within the model's tolerance; logs each run with
+    its cut depth's ``rank_bytes``.  Returns the flash launches by path,
+    summed over the ranks."""
     launches = {}
     for key, res0 in ranks[0].items():
         name, shape = key.split()
-        tol = FSDP_MODELS[name][3]
+        tol = models[name][3]
         want = res0["one_rank"]["metrics"]
         for r, res in enumerate(ranks):
             got = res[key]
             if got["metrics"] != res0["metrics"]:
-                raise AssertionError(f"fsdp {key}: rank {r}'s metrics "
+                raise AssertionError(f"{label} {key}: rank {r}'s metrics "
                                      f"{got['metrics']} differ from rank "
                                      f"0's {res0['metrics']}")
             if got["launches"] != 2 * got["layers"] * got["steps"]:
                 raise AssertionError(
-                    f"fsdp {key}: rank {r} launched flash {got['launches']} "
-                    f"times, want 2 x {got['layers']} layers x "
-                    f"{got['steps']} steps")
+                    f"{label} {key}: rank {r} launched flash "
+                    f"{got['launches']} times, want 2 x {got['layers']} "
+                    f"layers x {got['steps']} steps")
         merr = max(max(abs(g["loss"] - w["loss"]) / abs(w["loss"]),
-                       abs(g["acc"] - w["acc"]), abs(g["aux"] - w["aux"]))
+                       abs(g["acc"] - w["acc"]),
+                       abs(g["aux"] - w["aux"]) / max(abs(w["aux"]), 1.0))
                    for g, w in zip(res0["metrics"], want))
         errs = {k: max(res[key]["errors"][k] for res in ranks)
                 for k in res0["errors"]}
         if merr > tol or max(errs.values()) > tol:
-            raise AssertionError(f"fsdp {key}: metrics error {merr:.3e}, "
+            raise AssertionError(f"{label} {key}: metrics error {merr:.3e}, "
                                  f"errors {errs} against one rank, "
                                  f"tolerance {tol}")
         launches[f"{name}-fsdp-{shape}"] = {"flash_attention": sum(
             res[key]["launches"] for res in ranks)}
         secs = [s for res in ranks for s in res[key]["secs"]]
-        log(f"fsdp {name} at mesh {shape} ({res0['layers']} layers, B="
-            f"{FSDP_MODELS[name][1]}, L={FSDP_MODELS[name][2]}, f32, "
-            f"{res0['steps']} steps of make_steps(cfg, mesh=)['train']): losses "
-            f"{[round(m['loss'], 6) for m in res0['metrics']]} against one "
-            f"rank's {[round(m['loss'], 6) for m in want]}; metrics error "
+        log(f"{label} {name} at mesh {shape} ({res0['layers']} layers, B="
+            f"{models[name][1]}, L={models[name][2]}, f32, "
+            f"{res0['steps']} steps of make_steps(cfg, mesh=)['train']): "
+            f"losses {[round(m['loss'], 6) for m in res0['metrics']]} "
+            f"against one rank's {[round(m['loss'], 6) for m in want]}, aux "
+            f"{[m['aux'] for m in res0['metrics']]} against "
+            f"{[m['aux'] for m in want]}; metrics error "
             f"{merr:.3e}; every rank's shards against its part of one "
             f"rank's trees: "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
@@ -4695,32 +4769,380 @@ def fsdp_phase(torch) -> dict:
             f"processes sharing one card over gloo) {min(secs):.3f}-"
             f"{max(secs):.3f}, one rank alone "
             + ", ".join(f"{s:.3f}" for s in res0["one_rank"]["secs"]))
+        if name == "testbed":
+            continue
+        cut = res0["layers"]
+        b = _fsdp_reckoning(torch, name, (cut,), (tuple(
+            map(int, shape.split("x"))),))[cut, tuple(map(int,
+                                                         shape.split("x")))]
         for r, res in enumerate(ranks):
-            line = (f"fsdp {key} rank {r}: peak {res[key]['peak_gib']:.2f} "
-                    f"GiB above the {res[key]['held_gib']:.2f} GiB held "
-                    f"before the steps")
-            if name == "llada-8b":
-                b = reckon[FSDP_LLADA_LAYERS, tuple(map(int,
-                                                        shape.split("x")))]
-                line += (f"; rank_bytes f32 params {b / 2 ** 30:.2f} GiB, "
-                         f"with gradients and AdamW's moments "
-                         f"{4 * b / 2 ** 30:.2f} GiB")
-            log(line)
-    depth = get_config("llada-8b").num_layers
-    for shape in FSDP_RECKON_MESHES:
+            log(f"{label} {key} rank {r}: peak {res[key]['peak_gib']:.2f} "
+                f"GiB above the {res[key]['held_gib']:.2f} GiB held before "
+                f"the steps; rank_bytes f32 params {b / 2 ** 30:.2f} GiB, "
+                f"with gradients and AdamW's moments {4 * b / 2 ** 30:.2f} "
+                f"GiB")
+    return launches
+
+
+def _full_depth_reckoning(torch, label, name, meshes) -> None:
+    """Logs ``rank_bytes`` of ``name`` at full depth (meta params) at each
+    of ``meshes``: f32 params, and with gradients and AdamW's moments."""
+    from repro_torch.configs import get_config
+    depth = get_config(name).num_layers
+    reckon = _fsdp_reckoning(torch, name, (depth,), meshes)
+    for shape in meshes:
         b = reckon[depth, shape]
-        log(f"fsdp reckoning llada-8b full depth ({depth} layers) train_4k "
-            f"at mesh {shape}: rank_bytes of the f32 params "
-            f"{b / 2 ** 30:.2f} GiB a rank, with gradients and AdamW's two "
-            f"moments {4 * b / 2 ** 30:.2f} GiB of the card's 80 GB "
-            f"(from meta params; train_4k's B={FSDP_TRAIN_4K_B} is "
-            f"{FSDP_TRAIN_4K_B // shape[0]} rows a data rank, whose "
-            f"activations come on top)")
+        log(f"{label} reckoning {name} full depth ({depth} layers) at mesh "
+            f"{shape}: rank_bytes of the f32 params {b / 2 ** 30:.2f} GiB a "
+            f"rank, with gradients and AdamW's two moments "
+            f"{4 * b / 2 ** 30:.2f} GiB, against the card's 80 GB (from "
+            f"meta params; activations come on top)")
+
+
+def fsdp_report(torch, ranks: list, secs: float) -> dict:
+    """Phase 9c (module docstring) from its ranks' results (``fsdp_rank``,
+    ``secs`` on rank 0).  Returns the executed flash launches by path
+    (summed over the ranks)."""
+    launches = _fsdp_report(torch, "fsdp", ranks, FSDP_MODELS)
+    _full_depth_reckoning(torch, "fsdp", "llada-8b", FSDP_RECKON_MESHES)
     log(f"fsdp executed launches by path (all ranks): {launches}")
-    log(f"fsdp phase: four ranks in {spawn_s:.1f} s (four processes "
-        f"sharing one card, not the speed of four cards); the phase "
-        f"{time.perf_counter() - t_phase:.1f} s")
+    log(f"fsdp phase: the ranks' part {secs:.1f} s (four processes "
+        f"sharing one card, not the speed of four cards)")
     return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
+# 9d. the MoE families under the mesh: Mixtral-8x22B trained with its
+# experts on model and FSDP on data, DeepSeek-V2's MLA served and trained
+# on tensor-parallel heads; four gloo ranks sharing the one card
+# --------------------------------------------------------------------------
+
+# ((mesh, steps) runs, batch rows, positions, tolerance) of the training
+# runs: full width at FSDP_LAYERS' depth (Mixtral-8x22B's one MoE layer,
+# its 8 experts 2 a rank at (1, 4) and 4 a rank at (2, 2), there FSDP-cut
+# on data; DeepSeek-V2's dense MLA layer, 32 or 64 heads a rank), f32
+# masters and compute, remat "block", one step a mesh, held to one rank
+# within LLaDA-8B's 1e-4 of the scale.  Mixtral's one-rank state is ~43
+# GiB (2.91 B parameters x 16 B), so each rank moves its shards to the
+# host before the ranks take the one-rank step in turn
+MOE_MESH_TRAIN = {"mixtral-8x22b": ((((1, 4), 1), ((2, 2), 1)), 4, 256,
+                                    1e-4),
+                  "deepseek-v2-236b": ((((2, 2), 1),), 4, 256, 1e-4)}
+# DeepSeek-V2 served at (1, 4): its dense MLA layer and one MoE layer
+# (40 of its 160 experts a rank), bf16 weights with f32 compute (in bf16 a
+# rounding can move a token near a tie among 160 routed experts to
+# another, as Mixtral's in the tp phase); prefill, TP_STEPS serve steps
+# over a TP_CACHE-position latent cache and one eager decode, held to one
+# rank within TP_F32_TOL (logits; the scores within 2x it) and exactly
+# (the decode's tokens, steps and forward-equivalents).  Then the dense
+# MLA layer alone (no routing) with bf16 compute: prefill and the serve
+# steps, held to one rank as the tp phase holds LLaDA-8B (TP_LOGIT_TOL,
+# argmaxes equal wherever one rank's top-2 gap exceeds 2x it)
+MOE_MESH_SERVE_LAYERS = 2
+MOE_MESH_DECODE = dict(gen_length=32, block_size=32, steps=32,
+                       strategy="fdm", k=2)
+MOE_MESH_PROMPT = 32
+MOE_MESH_RECKON = ((4, 1), (2, 2), (1, 4))
+
+
+def _moe_mesh_serve_model(torch, dev):
+    """DeepSeek-V2 at full width cut to ``MOE_MESH_SERVE_LAYERS`` layers,
+    f32 compute over seeded bf16 weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              num_layers=MOE_MESH_SERVE_LAYERS,
+                              dtype="float32")
+    return cfg, init_model(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), device=dev, dtype=torch.bfloat16)
+
+
+def _moe_mesh_bf16(cfg, params):
+    """(cfg, params) of DeepSeek-V2's dense MLA layer alone (the first of
+    ``params``' blocks, whole or a rank's shards) with bf16 compute."""
+    return (dataclasses.replace(cfg, num_layers=1, dtype="bfloat16"),
+            dict(params, blocks=params["blocks"][:1]))
+
+
+def _moe_mesh_decode(torch, cfg, params, dev) -> tuple:
+    """One eager ``Decoder.generate`` (``MOE_MESH_DECODE``) of a seeded
+    prompt: (tokens, steps, forward-equivalents)."""
+    from repro_torch.configs import DecodeConfig
+    from repro_torch.core import Decoder
+    gen = torch.Generator().manual_seed(SEED + 12)
+    prompt = torch.randint(0, cfg.vocab_size - 1, (1, MOE_MESH_PROMPT),
+                           generator=gen).to(dev)
+    dcfg = DecodeConfig(**MOE_MESH_DECODE, fused_loop=False)
+    toks, st = Decoder(params, cfg, dcfg, device=dev).generate(None, prompt)
+    return toks.cpu(), st.steps, st.forward_equivalents
+
+
+def moe_mesh_rank(rank: int, job: dict) -> dict:
+    """The ``moe-mesh`` phase's part of one of the four ranks
+    (``mesh_rank``): the training runs of ``MOE_MESH_TRAIN``
+    (``_fsdp_runs``, the shards moved to the host for the one-rank turns),
+    then DeepSeek-V2 served at (1, 4) (the whole weights built two ranks at
+    a time, each keeping its serving-layout shard): prefill, serve steps
+    and the eager decode in f32 compute, then prefill and serve steps of
+    its dense MLA layer in bf16 compute (``_moe_mesh_bf16``); each path's
+    kernel counts set to 0 just before it and read just after."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import confidence as conf_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.ctx import activation_mesh
+    from repro_torch.parallel.sharding import shard_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = job["device"]
+    cuda = dev == "cuda"
+    meshes = {shape: make_mesh(*shape) for shape in ((1, 4), (2, 2))}
+    _fsdp_warm(torch, dev, meshes)
+    out = {"train": _fsdp_runs(torch, rank, MOE_MESH_TRAIN, dev, meshes)}
+    m14 = meshes[(1, 4)]
+    t0 = time.perf_counter()
+    for turn in range(0, TP_WORLD, 2):
+        if turn <= rank < turn + 2:
+            cfg, full = _moe_mesh_serve_model(torch, dev)
+            params = shard_params(full, m14)
+            del full
+            if cuda:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    build_s = time.perf_counter() - t0
+    attn = params["blocks"][0]["attn"]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    def counts():
+        return {"flash_attention": fa_mod.launches,
+                "confidence": conf_mod.launches,
+                "confidence_partials": conf_mod.partials_launches}
+    fa_mod.launches = conf_mod.launches = conf_mod.partials_launches = 0
+    t0 = time.perf_counter()
+    res = _tp_run(torch, cfg, params, dev, m14, rank)
+    with activation_mesh(m14):
+        res["decode"] = _moe_mesh_decode(torch, cfg, params, dev)
+    _fsdp_sync(torch, dev)
+    out["serve"] = {
+        "out": res, "secs": {"build": build_s,
+                             "serve": time.perf_counter() - t0},
+        "launches": counts(),
+        "heads": attn["wk_b"].shape[1] // cfg.mla.qk_nope_head_dim,
+        "latent": attn["wkv_a"].shape[1],
+        "experts": params["blocks"][1]["moe"]["w_gate"].shape[0]}
+    fa_mod.launches = conf_mod.launches = conf_mod.partials_launches = 0
+    t0 = time.perf_counter()
+    res = _tp_run(torch, *_moe_mesh_bf16(cfg, params), dev, m14, rank)
+    out["serve_bf16"] = {"out": res, "launches": counts(),
+                         "secs": {"serve": time.perf_counter() - t0}}
+    out["serve"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if cuda else 0.0
+    return out
+
+
+def _moe_mesh_served(label, want, one, serve, tol) -> tuple:
+    """Every rank's DeepSeek-V2 serving (``_tp_run``' outputs) against one
+    rank's ``want``: the prefill scores equal on every rank and within
+    ``tol`` (``_tp_scores``), the logits gathered over the ranks within
+    ``tol``, each serve step's scores within ``tol``, and each rank's flash
+    and partials launches equal to one rank's flash and confidence
+    launches (``one``).  Returns (logits error, [prefill scores' errors,
+    then the serve steps'])."""
+    import numpy as np
+    import torch
+    first = serve[0]["out"]["prefill"]
+    for res in serve[1:]:
+        if not all(np.array_equal(a, b)
+                   for a, b in zip(first, res["out"]["prefill"])):
+            raise AssertionError(f"moe-mesh deepseek {label}: ranks' "
+                                 f"scores differ")
+    errs = [_tp_scores(f"deepseek-v2-236b {label} prefill", want["prefill"],
+                       first, tol)]
+    logits = np.concatenate([res["out"]["logits"] for res in serve], axis=-1)
+    lerr = float(np.abs(logits - want["logits"].numpy()).max())
+    if lerr > tol:
+        raise AssertionError(f"moe-mesh deepseek {label}: logits {lerr} off "
+                             f"one rank's (tolerance {tol})")
+    errs += [_tp_scores(f"deepseek-v2-236b {label} serve step {i} rank {r}",
+                        want["serve"][i], res["out"]["serve"][i], tol)
+             for i in range(TP_STEPS) for r, res in enumerate(serve)]
+    for r, res in enumerate(serve):
+        n = res["launches"]
+        if (n["flash_attention"], n["confidence_partials"],
+                n["confidence"]) != (one["flash_attention"],
+                                     one["confidence"], 0):
+            raise AssertionError(
+                f"moe-mesh deepseek {label}: rank {r} launched {n}; one "
+                f"rank launched {one} (each rank's flash and partials must "
+                f"equal one rank's flash and confidence)")
+    return lerr, errs
+
+
+def moe_mesh_phase(torch, conf_mod, fa_mod, ptxas: dict) -> dict:
+    """Phase 9d's work on one rank (module docstring): the f32 flash
+    kernel's ptxas report at (192, 128), and DeepSeek-V2's one-rank
+    serving references, which ``moe_mesh_report`` holds the ranks to."""
+    t_phase = time.perf_counter()
+    dev = MESH_DEVICE
+    for fn, rep in ptxas_report(ptxas.get("flash_attention", "")).items():
+        if fn.endswith("flash_kernel<float,192,128>"):
+            log(f"moe-mesh f32 flash at MLA's (192, 128), the training "
+                f"path's: ptxas {fn}: {rep}")
+    # one rank on this card: DeepSeek-V2's serving references
+    t0 = time.perf_counter()
+    cfg, params = _moe_mesh_serve_model(torch, dev)
+    fa_mod.launches = conf_mod.launches = conf_mod.partials_launches = 0
+    want = _tp_run(torch, cfg, params, dev)
+    want["decode"] = _moe_mesh_decode(torch, cfg, params, dev)
+    one = {"flash_attention": fa_mod.launches,
+           "confidence": conf_mod.launches}
+    fa_mod.launches = conf_mod.launches = 0
+    want16 = _tp_run(torch, *_moe_mesh_bf16(cfg, params), dev)
+    one16 = {"flash_attention": fa_mod.launches,
+             "confidence": conf_mod.launches}
+    del params
+    torch.cuda.empty_cache()
+    log(f"moe-mesh one-rank references (deepseek-v2-236b "
+        f"{MOE_MESH_SERVE_LAYERS} of 60 layers: prefill, {TP_STEPS} serve "
+        f"steps, one eager decode; its dense MLA layer in bf16: prefill and "
+        f"the serve steps): {time.perf_counter() - t0:.1f} s; launches "
+        f"{one}, bf16 {one16}")
+    return {"want": want, "one": one, "want16": want16, "one16": one16,
+            "s": time.perf_counter() - t_phase}
+
+
+def moe_mesh_report(torch, pre: dict, ranks: list, secs: float) -> dict:
+    """Phase 9d (module docstring) from its ranks' results
+    (``moe_mesh_rank``, ``secs`` on rank 0) and ``moe_mesh_phase``'s
+    references.  Returns the executed launches by path (summed over the
+    ranks)."""
+    want, one, want16, one16 = (pre[k] for k in ("want", "one", "want16",
+                                                 "one16"))
+    launches = _fsdp_report(torch, "moe-mesh", [r["train"] for r in ranks],
+                            MOE_MESH_TRAIN)
+
+    # DeepSeek-V2 served at (1, 4): within TP_F32_TOL of one rank, the
+    # decode exact; its dense MLA layer in bf16 within TP_LOGIT_TOL
+    serve = [r["serve"] for r in ranks]
+    lerr, errs = _moe_mesh_served("f32 compute", want, one, serve,
+                                  TP_F32_TOL)
+    for r, res in enumerate(serve):
+        got = res["out"]["decode"]
+        if not (torch.equal(torch.as_tensor(got[0]), want["decode"][0])
+                and tuple(got[1:]) == tuple(want["decode"][1:])):
+            raise AssertionError(f"moe-mesh deepseek: rank {r}'s decode "
+                                 f"differs from one rank's")
+    s0 = serve[0]
+    log(f"moe-mesh deepseek-v2-236b served at mesh (1, {TP_WORLD}) "
+        f"({MOE_MESH_SERVE_LAYERS} layers, {s0['heads']} heads, "
+        f"{s0['latent']} of the latent's 576 columns and {s0['experts']} "
+        f"experts a rank; bf16 weights, f32 compute): prefill (B={TP_B}, "
+        f"L={TP_L}) logits max abs error {lerr:.3e} (of "
+        f"{float(want['logits'].abs().max()):.2f}; tolerance {TP_F32_TOL}),"
+        f" scores {errs[0]}; {TP_STEPS} serve steps over a {TP_CACHE}-"
+        f"position latent cache: max-prob rel error "
+        f"{max(e['max_prob_rel'] for e in errs[1:]):.3e}, Σ p log p "
+        f"{max(e['neg_entropy'] for e in errs[1:]):.3e}, argmaxes differ in "
+        f"{sum(e['argmax_diff'] for e in errs[1:])} of "
+        f"{sum(e['rows'] for e in errs[1:])} rank-rows; the eager decode "
+        f"(fdm, gen {MOE_MESH_DECODE['gen_length']}): tokens, steps "
+        f"{want['decode'][1]} and forward-equivalents {want['decode'][2]} "
+        f"equal one rank's on every rank; launches a rank "
+        f"{s0['launches']} (one rank's {one})")
+    serve16 = [r["serve_bf16"] for r in ranks]
+    lerr, errs = _moe_mesh_served("bf16 compute", want16, one16, serve16,
+                                  TP_LOGIT_TOL)
+    log(f"moe-mesh deepseek-v2-236b's dense MLA layer served at mesh (1, "
+        f"{TP_WORLD}) in bf16 compute (1 layer, {s0['heads']} heads a "
+        f"rank): prefill logits max abs error {lerr:.3e} (of "
+        f"{float(want16['logits'].abs().max()):.2f}; tolerance "
+        f"{TP_LOGIT_TOL}), scores {errs[0]}; {TP_STEPS} serve steps: "
+        f"max-prob rel error {max(e['max_prob_rel'] for e in errs[1:]):.3e}"
+        f", Σ p log p {max(e['neg_entropy'] for e in errs[1:]):.3e}, "
+        f"argmaxes differ in {sum(e['argmax_diff'] for e in errs[1:])} of "
+        f"{sum(e['rows'] for e in errs[1:])} rank-rows (none where one "
+        f"rank's gap exceeds {2 * TP_LOGIT_TOL}); launches a rank "
+        f"{serve16[0]['launches']} (one rank's {one16})")
+    for r, res in enumerate(serve):
+        log(f"moe-mesh deepseek rank {r}: peak {res['peak_gib']:.2f} GiB "
+            f"allocated; seconds {res['secs']}, bf16 "
+            f"{serve16[r]['secs']}")
+    for path, runs in (("deepseek-v2-236b-tp", serve),
+                       ("deepseek-v2-236b-tp-bf16", serve16)):
+        launches[path] = {k: sum(res["launches"][k] for res in runs)
+                          for k in runs[0]["launches"]}
+    for name in MOE_MESH_TRAIN:
+        _full_depth_reckoning(torch, "moe-mesh", name, MOE_MESH_RECKON)
+    for path, n in launches.items():
+        if not n.get("flash_attention") or (
+                "-tp" in path and not n["confidence_partials"]):
+            raise AssertionError(f"moe-mesh {path}: a kernel of the path "
+                                 f"was not launched: {n}")
+    log(f"moe-mesh executed launches by path (all ranks): {launches}")
+    log(f"moe-mesh phase: the ranks' part {secs:.1f} s (four processes "
+        f"sharing one card, not the speed of four cards); the one-rank part "
+        f"{pre['s']:.1f} s")
+    return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
+# 9b-9d in one spawn: the three phases' ranks run in the same four
+# processes (one start, one process group), each phase's checks on one
+# rank before it and its report after it
+# --------------------------------------------------------------------------
+
+MESH_PARTS = (("tp", tp_rank), ("fsdp", fsdp_rank),
+              ("moe-mesh", moe_mesh_rank))
+
+
+def mesh_rank(rank: int, job: dict) -> dict:
+    """One of the four ranks of phases 9b-9d (``parallel.launch.spawn``):
+    ``MESH_PARTS``' rank functions in turn, each part's results beside its
+    seconds, the card's cache emptied between parts."""
+    import torch
+    out = {}
+    for key, fn in MESH_PARTS:
+        t0 = time.perf_counter()
+        out[key] = (fn(rank, job), time.perf_counter() - t0)
+        if job["device"] == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phases(torch, conf_mod, fa_mod, testbed: dict, ptxas: dict):
+    """Phases 9b-9d (module docstring): the tp and moe-mesh phases' work
+    on one rank, then four gloo ranks sharing this card (``mesh_rank``,
+    expandable segments in the card's allocator), then each phase's
+    report.  Returns the tp, fsdp and moe-mesh phases' results."""
+    from repro_torch.parallel.launch import spawn
+    tp = tp_phase(torch, conf_mod, testbed)
+    moe = moe_mesh_phase(torch, conf_mod, fa_mod, ptxas)
+    torch.cuda.empty_cache()
+    store = os.path.join(ROOT, "build", "mesh_store", "store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(mesh_rank, TP_WORLD, "gloo", store,
+                      dict(tp["job"], device=MESH_DEVICE), timeout_s=900)
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    spawn_s = time.perf_counter() - t0
+
+    def part(key):
+        return [r[key][0] for r in ranks], ranks[0][key][1]
+    out = (tp_report(torch, tp, *part("tp")),
+           fsdp_report(torch, *part("fsdp")),
+           moe_mesh_report(torch, moe, *part("moe-mesh")))
+    log(f"mesh phases: four ranks in {spawn_s:.1f} s, of which rank 0's "
+        f"parts " + ", ".join(f"{k} {ranks[0][k][1]:.1f}"
+                              for k, _ in MESH_PARTS) + " s")
+    return out
 
 
 def main() -> None:
@@ -4920,6 +5342,30 @@ def main() -> None:
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share of the "
             f"bound on the device alone "
             f"{r['bound_ms'] / r['device_ms']:.3f}")
+    for b, lq, lk, h, g, d, w, qo, dt in MOE_MESH_ATTN_SHAPES:
+        r = check_attention(fa_mod, torch, b, lq, lk, h, g, d, w, qo, dt)
+        attn_errs.append(r["max_abs_err"])
+        log(f"attention (mixtral under the mesh) B={b} Lq={lq} Lk={lk} "
+            f"H={h} G={g} d={d} window={w} {dt}: max_abs_err "
+            f"{r['max_abs_err']} kernel {r['ms']:.4f} ms plain "
+            f"{r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms; on the "
+            f"device alone kernel {r['device_ms']:.4f} ms sdpa "
+            f"{r['library_device_ms']:.4f} ms (kernel/sdpa "
+            f"{r['device_ms'] / r['library_device_ms']:.3f}); bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of the bound "
+            f"on the device alone {r['bound_ms'] / r['device_ms']:.3f}")
+    for b, lq, lk, h, g, d, dv, w, qo, dt in MOE_MESH_MLA_SHAPES:
+        r = check_attention(fa_mod, torch, b, lq, lk, h, g, d, w, qo, dt, dv)
+        attn_errs.append(r["max_abs_err"])
+        log(f"attention (deepseek mla under the mesh) B={b} Lq={lq} "
+            f"Lk={lk} H={h} dqk={d} dv={dv} {dt}: max_abs_err "
+            f"{r['max_abs_err']} kernel {r['ms']:.4f} ms plain "
+            f"{r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms; on the "
+            f"device alone kernel {r['device_ms']:.4f} ms sdpa "
+            f"{r['library_device_ms']:.4f} ms (kernel/sdpa "
+            f"{r['device_ms'] / r['library_device_ms']:.3f}); bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of the bound "
+            f"on the device alone {r['bound_ms'] / r['device_ms']:.3f}")
     attn_entry["max_abs_err"] = max(attn_errs)
     scan_errs = []
     for b, l, di, n, xdt in SCAN_SHAPES:
@@ -5129,10 +5575,10 @@ def main() -> None:
     clear_decode_cache()
     log(f"testbed phase: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    tp = tp_phase(torch, conf_mod, testbed)
+    tp, fsdp, moe_mesh = mesh_phases(torch, conf_mod, fa_mod, testbed,
+                                     _build.last_build["ptxas"])
     del testbed
     torch.cuda.empty_cache()
-    fsdp = fsdp_phase(torch)
     t0 = time.perf_counter()
     training = full_train_phase(torch, {"flash_attention": fa_mod})
     log(f"full-width training phase: {time.perf_counter() - t0:.1f} s")
@@ -5189,7 +5635,8 @@ def main() -> None:
         by_path["llada-8b-prefill"] = prefill["launches"].get(kernel, 0)
         by_path["hymba-1.5b-serve"] = hymba_serve.get(kernel, 0)
         for path, counts in {**steps_train, **tp["launches"],
-                             **fsdp["launches"]}.items():
+                             **fsdp["launches"],
+                             **moe_mesh["launches"]}.items():
             by_path[path] = counts.get(kernel, 0)
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}

@@ -40,7 +40,15 @@ input and Qwen3's q/k norm scales entering the region through
 ``ctx.enter_model``, with ``wo`` row-parallel (``layers.row_parallel``:
 summed over ``model``), and
 ``init_cache`` allocates the local kv heads; a split off the heads'
-boundaries raises ``ValueError``.  MLA's tensor parallelism waits.
+boundaries raises ``ValueError``.  MLA runs on H/tp heads too, with the
+reference's layout: ``wq_a`` and ``wkv_a`` are column-parallel and their
+latents gathered over ``model`` (the RMSNorms and the shared rope key
+need the whole latent; ``ctx.gather_cols``, whose gradient is summed over
+``model``, then cut to this rank's columns), ``wq_b``/``wk_b``/``wv_b``
+hold this rank's heads and ``wo`` is row-parallel; every path, the
+absorbed decode included, reads its head count from ``wk_b``'s shard.
+The latent cache stays whole on every model rank, since every local
+head reads all of it (``init_cache``, ``sharding.state_pspecs``).
 """
 from __future__ import annotations
 
@@ -217,33 +225,60 @@ def attention_cached(p: Params, x: torch.Tensor, rope: Rope,
 # MLA (DeepSeek-V2)
 # --------------------------------------------------------------------------
 
+def _mla_latent(xe: torch.Tensor, w: torch.Tensor, full: int,
+                what: str) -> torch.Tensor:
+    """xe @ w, a latent's projection, whole on every rank: under a model
+    axis ``w`` is this rank's column shard (the reference's rule;
+    ``blocks.check_tp`` requires the split) and the product of the
+    entered input ``xe`` is gathered over ``model`` (its gradient summed
+    over ``model``, then this rank's columns)."""
+    y = xe @ w.to(xe.dtype)
+    return ctx.gather_cols(y) if sharded(w.shape[1], full, what) else y
+
+
 def _mla_latents(p: Params, x: torch.Tensor, rope: Rope, cfg: ModelConfig):
     """The shared front half: query heads (nope (B, L, H, nope) and rotated
-    rope (B, L, H, rope) parts), the normed kv latent c_kv (B, L, kv_lora)
-    and the rotated rope key k_rope (B, L, rope), one head shared by all.
-    ``rope``: tables at ``mla.qk_rope_head_dim``."""
+    rope (B, L, H, rope) parts, this rank's H/tp heads under a model
+    axis), the normed kv latent c_kv (B, L, kv_lora) and the rotated rope
+    key k_rope (B, L, rope), one head shared by all; the latents are
+    whole on every rank (``_mla_latent``), and their norms' replicated
+    scales enter the tensor-parallel region, as the heads that read them
+    are local.  ``rope``: tables at ``mla.qk_rope_head_dim``."""
     m, dt = cfg.mla, x.dtype
     b, l, _ = x.shape
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
-    q_lat = rms_norm_headwise(x @ p["wq_a"].to(dt), p["q_norm"])
-    q = (q_lat @ p["wq_b"].to(dt)).reshape(b, l, cfg.num_heads, qk)
+    xe = ctx.enter_model(x)
+    q_lat = rms_norm_headwise(
+        _mla_latent(xe, p["wq_a"], m.q_lora_rank, "attn/wq_a"),
+        ctx.enter_model(p["q_norm"]))
+    q = (q_lat @ p["wq_b"].to(dt)).reshape(b, l, -1, qk)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
-    kv = x @ p["wkv_a"].to(dt)                    # (B, L, kv_lora + rope)
+    kv = _mla_latent(xe, p["wkv_a"], m.kv_lora_rank + m.qk_rope_head_dim,
+                     "attn/wkv_a")               # (B, L, kv_lora + rope)
     c_kv, k_rope = kv.split([m.kv_lora_rank, m.qk_rope_head_dim], -1)
-    c_kv = rms_norm_headwise(c_kv, p["kv_norm"])
+    c_kv = rms_norm_headwise(c_kv, ctx.enter_model(p["kv_norm"]))
     k_rope = rotate(k_rope[:, :, None, :], rope)[:, :, 0]
     return q_nope, rotate(q_rope, rope), c_kv, k_rope
+
+
+def _mla_local_heads(p: Params, cfg: ModelConfig) -> int:
+    """This rank's MLA heads (all of them off a mesh), from ``wk_b``'s
+    width."""
+    n = p["wk_b"].shape[1] // cfg.mla.qk_nope_head_dim
+    sharded(n, cfg.num_heads, "attn/wk_b's heads")
+    return n
 
 
 def _mla_heads(p: Params, q_nope: torch.Tensor, q_rope: torch.Tensor,
                c_kv: torch.Tensor, k_rope: torch.Tensor, cfg: ModelConfig):
     """Per-head q (B, L, H, dqk), k (B, S, H, dqk) and v (B, S, H, dv) from
-    the latents of S key positions: k is nope ‖ the rope key broadcast to
-    every head, written out (``cat`` makes contiguous tensors: the bf16
-    kernel needs 16-byte-aligned storage, not a broadcast view)."""
+    the latents of S key positions (this rank's heads under a model axis):
+    k is nope ‖ the rope key broadcast to every head, written out (``cat``
+    makes contiguous tensors: the bf16 kernel needs 16-byte-aligned
+    storage, not a broadcast view)."""
     m, dt = cfg.mla, c_kv.dtype
     b, s, _ = c_kv.shape
-    nq = cfg.num_heads
+    nq = _mla_local_heads(p, cfg)
     k_nope = (c_kv @ p["wk_b"].to(dt)).reshape(b, s, nq, m.qk_nope_head_dim)
     v = (c_kv @ p["wv_b"].to(dt)).reshape(b, s, nq, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -252,11 +287,17 @@ def _mla_heads(p: Params, q_nope: torch.Tensor, q_rope: torch.Tensor,
     return q, k, v
 
 
-def _mla_attend(p: Params, q, k, v, x: torch.Tensor) -> torch.Tensor:
+def _mla_out(p: Params, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The heads' outputs (B, L, H, dv) through ``wo`` (row-parallel under a
+    model axis)."""
+    return row_parallel(out.reshape(*out.shape[:2], -1), p["wo"],
+                        cfg.num_heads * cfg.mla.v_head_dim)
+
+
+def _mla_attend(p: Params, q, k, v, cfg: ModelConfig) -> torch.Tensor:
     """The flash kernel at (dqk, dv), scale dqk^-½ (q's own width), then
     the output projection."""
-    out = flash_attention(q, k, v)
-    return out.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
+    return _mla_out(p, flash_attention(q, k, v), cfg)
 
 
 def mla_forward(p: Params, x: torch.Tensor, rope: Rope,
@@ -265,7 +306,7 @@ def mla_forward(p: Params, x: torch.Tensor, rope: Rope,
     latents (the reference's train and prefill path)."""
     q_nope, q_rope, c_kv, k_rope = _mla_latents(p, x, rope, cfg)
     return _mla_attend(p, *_mla_heads(p, q_nope, q_rope, c_kv, k_rope, cfg),
-                       x)
+                       cfg)
 
 
 def mla_capture(p: Params, x: torch.Tensor, rope: Rope,
@@ -273,7 +314,7 @@ def mla_capture(p: Params, x: torch.Tensor, rope: Rope,
     """``mla_forward`` that also returns the latent cache (c_kv, k_rope)."""
     q_nope, q_rope, c_kv, k_rope = _mla_latents(p, x, rope, cfg)
     out = _mla_attend(p, *_mla_heads(p, q_nope, q_rope, c_kv, k_rope, cfg),
-                      x)
+                      cfg)
     return out, KVCache(c_kv, k_rope)
 
 
@@ -286,7 +327,7 @@ def mla_cached(p: Params, x: torch.Tensor, rope: Rope, cfg: ModelConfig,
     c_all = _scatter(cache.k, c_new, win_start)
     kr_all = _scatter(cache.v, kr_new, win_start)
     return _mla_attend(p, *_mla_heads(p, q_nope, q_rope, c_all, kr_all, cfg),
-                       x)
+                       cfg)
 
 
 # --------------------------------------------------------------------------
@@ -300,7 +341,8 @@ def init_cache(cfg: ModelConfig, batch: int, length: int,
                device="cuda") -> KVCache:
     """One layer's zeroed decode cache of capacity ``length`` (a
     sliding-window config: a ring of ``min(length, window)`` slots; MLA:
-    the latents (B, S, kv_lora) and (B, S, qk_rope)).  ``valid_length``
+    the latents (B, S, kv_lora) and (B, S, qk_rope), whole under a model
+    axis too: every local head reads all of them).  ``valid_length``
     is the initial valid count (0 for a sampler that fills it block by
     block; default ``length``, a warm cache)."""
     dev = resolve_device(device)
@@ -402,7 +444,7 @@ def mla_window(p: Params, x: torch.Tensor, rope: Optional[Rope],
     q_nope, q_rope, c_new, kr_new = _mla_latents(p, x, rope, cfg)
     c_all, kr_all = _with_prefix(cache, c_new, kr_new, x.dtype)
     out = _mla_attend(p, *_mla_heads(p, q_nope, q_rope, c_all, kr_all, cfg),
-                      x)
+                      cfg)
     return out, _extend(cache, c_new, kr_new) if extend else cache
 
 
@@ -431,7 +473,7 @@ def mla_decode(p: Params, x: torch.Tensor, rope: Optional[Rope],
     cast to the compute dtype where the reference casts."""
     m, dt = cfg.mla, x.dtype
     b, l, _ = x.shape
-    nq, r = cfg.num_heads, m.kv_lora_rank
+    nq, r = _mla_local_heads(p, cfg), m.kv_lora_rank
     q_nope, q_rope, c_new, kr_new = _mla_latents(p, x, rope, cfg)
     cap = cache.k.shape[1]
     pos0 = _pos0(positions).long()
@@ -453,7 +495,7 @@ def mla_decode(p: Params, x: torch.Tensor, rope: Optional[Rope],
     wv_b = p["wv_b"].to(dt).reshape(r, nq, m.v_head_dim)
     out = _bmm_f32(o_lat.reshape(b * l, nq, r).transpose(0, 1),
                    wv_b.transpose(0, 1)).to(dt)           # (H, B·L, dv)
-    out = out.transpose(0, 1).reshape(b, l, -1) @ p["wo"].to(dt)
+    out = _mla_out(p, out.transpose(0, 1).reshape(b, l, nq, -1), cfg)
     return out, cache._replace(length=int(cache.length) + 1)
 
 

@@ -32,9 +32,10 @@ factor 2.0; an encoder-decoder cross-attends over the state's
 ``enc_out``) and ``block_window`` (W tokens against the frozen prefix;
 ``extend`` None, ``"kv"`` or ``"recurrent"``, as the reference's).
 
-Under a tensor-parallel mesh (``parallel/ctx.py``) the dense and MoE GQA
-blocks run on their shards (``check_tp``); norms and residuals stay
-replicated, every rank holding the whole hidden state.
+Under a tensor-parallel mesh (``parallel/ctx.py``) the dense and MoE
+blocks, GQA's and MLA's, run on their shards (``check_tp``), and train
+on FSDP shards (``check_fsdp``); norms and residuals stay replicated,
+every rank holding the whole hidden state.
 """
 from __future__ import annotations
 
@@ -86,29 +87,39 @@ def check_ported(cfg: ModelConfig) -> None:
 def check_tp(cfg: ModelConfig) -> None:
     """Under a model axis of more than one rank: raise
     ``NotImplementedError`` for a family whose tensor parallelism waits
-    (MLA, Hymba's Mamba, the xLSTM, the encoder-decoder, the VLM), and
-    ``ValueError`` where the heads do not split whole over the axis."""
+    (Hymba's Mamba, the xLSTM, the encoder-decoder, the VLM), and
+    ``ValueError`` where the heads (or MLA's latent columns) do not split
+    whole over the axis.  The dense and MoE stacks run on local heads,
+    GQA's and MLA's."""
     if ctx.model_size() == 1:
         return
-    if cfg.arch_type not in ("dense", "moe") or cfg.attention != "gqa":
+    if cfg.arch_type not in ("dense", "moe") or \
+            cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.name!r} (arch_type={cfg.arch_type!r}, attention="
             f"{cfg.attention!r}): tensor parallelism covers the dense and "
-            f"MoE GQA stacks; this family's waits (ROADMAP queue 1)")
+            f"MoE stacks (GQA and MLA); this family's waits (ROADMAP "
+            f"queue 1, item 3)")
     ctx.local_count(cfg.num_heads, "query heads")
-    ctx.local_count(cfg.num_kv_heads, "kv heads")
+    if cfg.attention == "gqa":
+        ctx.local_count(cfg.num_kv_heads, "kv heads")
+    else:                           # MLA's column-parallel latents
+        ctx.local_count(cfg.mla.q_lora_rank, "q latent columns")
+        ctx.local_count(cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim,
+                        "kv latent columns")
 
 
 def check_fsdp(cfg: ModelConfig) -> None:
     """Training on FSDP shards (``model.forward(..., param_specs=)``, any
-    mesh) covers the dense GQA stacks: raise ``NotImplementedError`` for
-    the others (MoE training under a mesh is queued next)."""
-    if cfg.arch_type != "dense" or cfg.attention != "gqa":
+    mesh) covers the dense GQA stacks and the MoE stacks (Mixtral's GQA,
+    DeepSeek-V2's MLA): raise ``NotImplementedError`` for the others."""
+    if not ((cfg.arch_type == "dense" and cfg.attention == "gqa") or
+            (cfg.arch_type == "moe" and cfg.attention in ("gqa", "mla"))):
         raise NotImplementedError(
             f"{cfg.name!r} (arch_type={cfg.arch_type!r}, attention="
             f"{cfg.attention!r}): training under a mesh covers the dense "
-            f"GQA stacks; this family's waits (ROADMAP queue 1, item 3: "
-            f"MoE training under a mesh next)")
+            f"GQA and the MoE stacks; this family's waits (ROADMAP queue "
+            f"1, item 3)")
 
 
 def _is_moe_layer(cfg: ModelConfig, idx: int) -> bool:

@@ -45,8 +45,8 @@ recurrent states and valid lengths stay as they were; use the returned
 state, and clone one that a caller wants to keep.
 
 Under a tensor-parallel mesh (``parallel.ctx.activation_mesh``) every
-entry point here runs the dense and MoE GQA stacks on this rank's
-shards (``blocks.check_tp`` refuses the others); the model's values do
+entry point here runs the dense and MoE stacks (GQA and MLA) on this
+rank's shards (``blocks.check_tp`` refuses the others); the model's values do
 not change, but a vocab-sharded head returns this rank's vocab slice of
 the logits, which ``core.confidence.score_logits`` scores through the
 confidence kernel's partials.  A training forward (``param_specs``) also
@@ -226,7 +226,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     layout (``parallel.sharding.shard_params(..., fsdp=True)``) under the
     active mesh, and these their specs (a tree of the same keys): each
     block gathers its weights' data-axis dims inside itself, the token
-    table and the head at their use (the dense GQA stacks:
+    table and the head at their use (the dense GQA and the MoE stacks:
     ``blocks.check_fsdp``)."""
     blocks_lib.check_tp(cfg)
     specs = param_specs or {}

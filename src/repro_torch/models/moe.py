@@ -43,6 +43,21 @@ experts (``parallel/sharding.py``):
   dispatch global (expert-parallel, or fewer tokens), the tokens are
   gathered over ``data`` first, so capacity and drops match, and each
   rank keeps its own rows of the output.
+
+Training under a mesh takes the gradients the reference's one program
+has.  Under the model axis each rank back-propagates only its own
+experts' (or ffn columns') share of the dispatch: the experts' input and
+the router logits behind the gates enter the tensor-parallel region
+(``ctx.enter_model``: their gradients summed over ``model``), while the
+aux loss, which every model rank computes whole from the same logits,
+reaches the replicated router outside it, once.  Over the data axis
+every weight's gradient is summed (``ctx.use_param``), so a term that
+each data rank's objective holds whole counts once only as ``g / n``: the
+grouped dispatch's mean over groups (``ctx.mean_data``) and the global
+dispatch's aux over the gathered tokens (``ctx.share_data``) both
+back-propagate that share, and the gathered tokens' gradient is summed
+over ``data`` before each rank takes its rows (``ctx.gather_data``).
+The shared experts follow the dense MLP's tensor parallelism.
 """
 from __future__ import annotations
 
@@ -160,18 +175,23 @@ def _dispatch(p: Params, tokens: torch.Tensor, cfg: ModelConfig,
     t, d = tokens.shape
     k, e = m.num_experts_per_tok, m.num_experts
     dt = tokens.dtype
-    logits = tokens @ p["router"].to(dt)                         # (T, E)
-    r = route(logits, cfg, capacity(t, cfg, capacity_factor))
-    c = r.capacity
-    aux = load_balance_loss(logits, r.ids, e) * m.router_aux_coef \
-        if need_aux else None
-
     # this rank's experts [e0, e0 + el): all of them off a mesh or under
     # the ffn split, E/tp of them expert-parallel
     el = p["w_gate"].shape[0]
     ep = sharded(el, e, "moe/w_gate's experts")
     ffn_tp = sharded(p["w_down"].shape[1], m.moe_d_ff, "moe/w_down's rows")
     e0 = ctx.model_rank() * el if ep else 0
+    # under either split the experts' input and the gates' logits enter
+    # the tensor-parallel region: each rank back-propagates only its
+    # experts' or columns' share of them; the aux loss, whole on every
+    # rank, back-propagates outside it (once)
+    enter = ctx.enter_model if ep or ffn_tp else (lambda x: x)
+
+    logits = tokens @ p["router"].to(dt)                         # (T, E)
+    r = route(enter(logits), cfg, capacity(t, cfg, capacity_factor))
+    c = r.capacity
+    aux = load_balance_loss(logits, r.ids, e) * m.router_aux_coef \
+        if need_aux else None
 
     # each expert's slot row reads its contiguous run of the sorted order
     slots = torch.arange(c, device=tokens.device)
@@ -179,7 +199,7 @@ def _dispatch(p: Params, tokens: torch.Tensor, cfg: ModelConfig,
     slot_idx = (offsets[:, None] + slots[None, :]).clamp_(0, t * k - 1)
     slot_valid = slots[None, :] < counts[:, None]                # (E, C)
     tok = (r.order // k)[slot_idx]                               # (E, C)
-    xs = tokens.index_select(0, tok.reshape(-1)).reshape(el, c, d) \
+    xs = enter(tokens).index_select(0, tok.reshape(-1)).reshape(el, c, d) \
         * slot_valid[..., None].to(dt)
 
     # one batched SwiGLU over the experts
@@ -221,6 +241,8 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     elif ctx.axis_size("data") > 1:
         everyone = ctx.gather_data(tokens).reshape(-1, d)
         out, aux = _dispatch(p, everyone, cfg, capacity_factor, need_aux)
+        # every data rank computed the same aux over the gathered tokens
+        aux = ctx.share_data(aux) if need_aux else None
         rank = ctx.axis_rank("data")
         out = out[rank * b * l:(rank + 1) * b * l]
     else:

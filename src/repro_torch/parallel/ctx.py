@@ -15,23 +15,36 @@ pairs, and FSDP's):
   embedding lookup, summed in f32 and cast back; its gradient passes
   through (every model rank holds the same one);
 * ``enter_model`` — the entry to a tensor-parallel region (the input of
-  the column-parallel q/k/v and gate/up products and of the
-  vocab-parallel head, and Qwen3's q/k norm scales applied to local
-  heads): the identity, its gradient summed over ``model`` (each rank
-  back-propagates only its own heads', columns' or vocab slice's share);
+  the column-parallel q/k/v, MLA latent and gate/up products, of the
+  vocab-parallel head and of the experts' dispatch, the router logits
+  behind the MoE's gates, and the replicated norm scales applied to local
+  heads or to a gathered latent): the identity, its gradient summed over
+  ``model`` (each rank back-propagates only its own heads', columns',
+  experts' or vocab slice's share);
 * ``use_param`` — a weight as a layer uses it under FSDP: its dim on
   ``data`` all-gathered, the gradient summed over ``data`` and cut back to
   this rank's part (a reduce-scatter); a leaf with no dim on ``data`` (a
   norm scale) passes through, its gradient summed over ``data``;
-* ``gather_model`` / ``gather_data`` — small partials (the confidence
-  kernel's per-shard accumulators; the MoE's tokens under a global
-  dispatch) gathered to every rank of the axis; ``gather_full`` — a
+* ``gather_cols`` — MLA's column-parallel latents gathered over ``model``
+  (the norms and the shared rope key need the whole latent); its
+  gradient summed over ``model`` and cut back to this rank's columns;
+* ``gather_data`` — the MoE's tokens under a global dispatch, every data
+  rank's rows on every rank; its gradient summed over ``data`` in f32,
+  then this rank's rows;
+* ``mean_data`` — the grouped MoE dispatch's aux loss, the mean over the
+  data axis; ``share_data`` — a term every data rank computed whole (the
+  global dispatch's aux loss): the identity.  The gradient of either is
+  ``g / n`` on each rank, so the sum over ``data`` that every weight's
+  gradient takes counts the term once, as in the reference's one
+  objective;
+* ``gather_model`` — small partials (the confidence kernel's per-shard
+  accumulators) gathered to every rank of the axis; ``gather_full`` — a
   tensor's sharded dims gathered (full trees for tests and checkpoints);
-* ``mean_data`` — the grouped MoE dispatch's aux loss over the data axis;
   ``sum_data`` — counts and metrics over the data axis.
 
-Each is one ``all_reduce`` (a gather writes its slot into a zero-filled
-buffer, a reduce-scatter is an all-reduce and a slice), so gloo and NCCL
+Each is at most one ``all_reduce`` a direction (a gather writes its slot
+into a zero-filled buffer, a reduce-scatter is an all-reduce and a
+slice), so gloo and NCCL
 both serve it, on CPU and CUDA tensors alike.  Sums run in f32; a gather
 runs in its tensor's dtype (exact: one slot is not zero), so a bf16
 weight is gathered as bf16.  With no active mesh, or an axis of size 1,
@@ -231,23 +244,24 @@ def _gather_dim(x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
     return buf.movedim(0, dim).reshape(shape)
 
 
-class _GatherData(torch.autograd.Function):
-    """A weight's dim ``dim`` all-gathered over ``data`` and cast to
-    ``dtype``; the gradient summed over ``data`` in f32, this rank's part
-    of the dim, in the weight's dtype."""
+class _Gather(torch.autograd.Function):
+    """x's dim ``dim`` all-gathered over ``axis`` (every rank's part in
+    rank order) and cast to ``dtype``; the gradient summed over ``axis`` in
+    f32 and cut to this rank's part, in x's dtype (a reduce-scatter: a
+    copy of the part, so the summed buffer is freed)."""
 
     @staticmethod
-    def forward(fctx, w, dim, dtype):
-        fctx.dim, fctx.wdtype = dim, w.dtype
-        fctx.group = _group("data")
-        fctx.start, fctx.width = axis_rank("data") * w.shape[dim], w.shape[dim]
-        return _gather_dim(w, dim, "data").to(dtype)
+    def forward(fctx, x, dim, axis, dtype):
+        fctx.dim, fctx.xdtype = dim, x.dtype
+        fctx.group = _group(axis)
+        fctx.start, fctx.width = axis_rank(axis) * x.shape[dim], x.shape[dim]
+        return _gather_dim(x, dim, axis).to(dtype)
 
     @staticmethod
     def backward(fctx, g):
         part = _sum_f32(g, fctx.group).narrow(fctx.dim, fctx.start,
                                               fctx.width)
-        return part.to(fctx.wdtype), None, None
+        return part.to(fctx.xdtype, copy=True), None, None, None
 
 
 class _SumDataGrad(torch.autograd.Function):
@@ -284,7 +298,7 @@ def use_param(w: torch.Tensor, spec: tuple,
     if len(dims) > 1 or entry_axes(spec[dims[0]]) != ("data",):
         raise ValueError(f"spec {spec}: one dim on the data axis alone is "
                          f"the training layout's FSDP dim")
-    return _GatherData.apply(w, dims[0], out)
+    return _Gather.apply(w, dims[0], "data", out)
 
 
 @torch.no_grad()
@@ -319,15 +333,51 @@ def gather_model(x: torch.Tensor) -> torch.Tensor:
     return _gather(x, "model")
 
 
+def gather_cols(x: torch.Tensor) -> torch.Tensor:
+    """x's last dim, this rank's columns, gathered over the model axis in
+    rank order (in x's dtype); the gradient summed over ``model`` in f32,
+    then this rank's columns."""
+    if model_size() == 1:
+        return x
+    return _Gather.apply(x, x.dim() - 1, "model", x.dtype)
+
+
 def gather_data(x: torch.Tensor) -> torch.Tensor:
-    """(data, *x.shape): every data rank's x, in rank order."""
-    return _gather(x, "data")
+    """(data, *x.shape): every data rank's x, in rank order; the gradient
+    summed over ``data`` in f32, then this rank's slot."""
+    if axis_size("data") == 1:
+        return x[None]
+    return _Gather.apply(x[None], 0, "data", x.dtype)
+
+
+class _ShareData(torch.autograd.Function):
+    """The mean over ``data`` in f32, cast back (``mean``), or x as it is;
+    the gradient ``g / n``."""
+
+    @staticmethod
+    def forward(fctx, x, mean):
+        fctx.n = axis_size("data")
+        if mean:
+            return _sum_f32(x, _group("data")).div_(fctx.n)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g / fctx.n, None
 
 
 def mean_data(x: torch.Tensor) -> torch.Tensor:
-    """The mean over the data axis."""
-    n = axis_size("data")
-    if n == 1:
+    """The mean over the data axis (each rank's x one term); the
+    gradient ``g / n``: every rank's objective holds the whole mean, and
+    the sum over ``data`` of the weights' gradients counts it once."""
+    if axis_size("data") == 1:
         return x
-    return _all_reduce(x.float().clone(), "data",
-                       dist.ReduceOp.SUM).div_(n).to(x.dtype)
+    return _ShareData.apply(x, True)
+
+
+def share_data(x: torch.Tensor) -> torch.Tensor:
+    """x, the same on every data rank (a term each computed whole), as it
+    is; the gradient ``g / n``, so the sum over ``data`` counts it once."""
+    if axis_size("data") == 1:
+        return x
+    return _ShareData.apply(x, False)

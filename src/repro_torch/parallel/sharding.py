@@ -38,9 +38,10 @@ the same keys (``map_specs``): which dim of a leaf is cut is never
 guessed from a shard's shape (the testbed's d = 256 and d_ff = 1024
 would make shapes ambiguous).  ``train_rows`` are the rows of a training
 batch that one rank holds.  ``state_pspecs`` is the layout the port's
-tensor-parallel decode state really has (batch on the data axes, kv
-heads on ``model``), which differs from ``cache_pspecs``' choice of the
-trailing head dim (ROADMAP queue 3 lists it).
+tensor-parallel decode state really has (batch on the data axes, GQA's kv
+heads on ``model``, MLA's latents whole), which differs from
+``cache_pspecs``' choice of the trailing head or latent dim (ROADMAP
+queue 3 lists it).
 """
 from __future__ import annotations
 
@@ -251,20 +252,23 @@ def cache_pspecs(state: Any, mesh, batch: int) -> Any:
 
 
 def state_pspecs(state: Any, mesh) -> Any:
-    """The layout of the port's tensor-parallel decode state: every
-    attention cache leaf (B, S, G, hd) with the batch on the data axes
-    (where it divides them) and the kv heads on ``model``, the layout
-    ``attention.init_cache`` allocates under an active mesh."""
+    """The layout of the port's tensor-parallel decode state, the one
+    ``attention.init_cache`` allocates under an active mesh: the batch on
+    the data axes (where it divides them); a GQA cache leaf (B, S, G, hd)
+    with its kv heads on ``model``, MLA's latents (B, S, kv_lora) and
+    (B, S, qk_rope) whole on every model rank (each local head reads all
+    of them)."""
     sizes = _sizes(mesh)
     daxes = data_axes(mesh)
     dsize = int(np.prod([sizes[a] for a in daxes]))
 
     def rule(_, leaf):
         shape = _shape(leaf) if hasattr(leaf, "shape") else ()
-        if len(shape) != 4:
+        if len(shape) not in (3, 4):
             return ()
-        return (_entry(daxes) if shape[0] % dsize == 0 else None, None,
-                "model", None)
+        batch = _entry(daxes) if shape[0] % dsize == 0 else None
+        return (batch, None, "model", None) if len(shape) == 4 else \
+            (batch, None, None)
     return _map(rule, state)
 
 

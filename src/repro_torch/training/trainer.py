@@ -31,7 +31,13 @@ gradients come back summed over ``data`` and cut to the rank's shards,
 the clip's norm is the whole tree's, and the metrics are the whole
 batch's on every rank.  The corruption is drawn for the whole batch from
 the one generator and each rank keeps its rows, so the draws are one
-rank's.  The dense GQA stacks train so (``models.blocks.check_fsdp``).
+rank's.  The dense GQA stacks and the MoE stacks (Mixtral's GQA,
+DeepSeek-V2's MLA) train so (``models.blocks.check_fsdp``).  An MoE
+model's objective on a data rank is its rows' share of the
+cross-entropy plus the whole aux loss, and every weight's gradient is
+summed over ``data``; the aux loss back-propagates ``g / n`` on each data
+rank (``models/moe.py``), so the sum holds it once, and the gradient is
+the reference's ``loss + aux``; the ``aux`` metric is the whole aux.
 """
 from __future__ import annotations
 

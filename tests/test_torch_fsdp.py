@@ -67,6 +67,7 @@ from repro_torch.launch.mesh import Mesh, make_host_mesh
 from repro_torch.launch.steps import make_steps
 from repro_torch.models import init_model
 from repro_torch.models import model as model_mod
+from repro_torch.models.blocks import check_fsdp
 from repro_torch.parallel.launch import spawn
 from repro_torch.parallel.sharding import (param_pspecs, rank_bytes,
                                            shard_tree, train_rows)
@@ -410,9 +411,15 @@ def test_train_rows_and_the_whole_batch_draws():
 
 @pytest.mark.parametrize("mesh", ["host", "2x2"])
 def test_moe_training_under_a_mesh_raises(mesh):
-    """Before any collective (the 2x2 mesh has no process groups)."""
+    """Training under a mesh covers the dense GQA and the MoE stacks
+    (``test_torch_moe_mesh.py`` trains them); a family still refused there
+    (Hymba under the host mesh, whisper under 2x2) raises before any
+    collective (the 2x2 mesh has no process groups)."""
     m = make_host_mesh() if mesh == "host" else Mesh({"data": 2, "model": 2})
-    cfg = get_config("mixtral-8x22b").reduced()
+    for arch in ("mixtral-8x22b", "deepseek-v2-236b"):
+        check_fsdp(get_config(arch).reduced())
+    cfg = get_config("hymba-1.5b" if mesh == "host"
+                     else "whisper-medium").reduced()
     train = make_steps(cfg, TrainConfig(batch_size=4, seq_len=8),
                        mesh=m)["train"]
     params = init_model(cfg, device="cpu", dtype=torch.float32)

@@ -335,12 +335,12 @@ def test_decoder_refuses_under_a_mesh(llada, mesh, kw, error, match):
 
 
 @pytest.mark.parametrize("arch,error", [
-    ("chatglm3-6b", ValueError), ("deepseek-v2-236b", NotImplementedError),
+    ("chatglm3-6b", ValueError), ("qwen2-vl-72b", NotImplementedError),
     ("hymba-1.5b", NotImplementedError), ("whisper-medium",
                                           NotImplementedError)])
 def test_families_without_tensor_parallelism_refuse(arch, error):
-    """ChatGLM3's 2 kv heads do not split whole over 4 ranks; MLA, the
-    hybrid and the encoder-decoder wait for a later slice."""
+    """ChatGLM3's 2 kv heads do not split whole over 4 ranks; the VLM,
+    the hybrid and the encoder-decoder wait for a later slice."""
     cfg = get_config(arch).reduced()
     with ctx.activation_mesh(MESH_1x4), pytest.raises(error):
         tm.init_decode_state(cfg, 1, 8, device="meta")
